@@ -1,0 +1,3 @@
+from pmhc_tpu_torch.io.pdb import convert_batch_for_pdb, fetch_pdb_arrays, pdb_bytes
+
+__all__ = ["convert_batch_for_pdb", "fetch_pdb_arrays", "pdb_bytes"]

@@ -1,0 +1,84 @@
+"""The port stands alone: no file of ``pmhc_tpu_torch/`` (nor
+``chip_smoke.py``) imports JAX or the JAX package, importing the port
+leaves JAX unloaded, its entry points refuse to fall back to the CPU by
+themselves, and nothing in it turns on TF32."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import jax  # noqa: F401  (the tier's convention: both frameworks importable)
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "pmhc_tpu_torch")
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 10
+    return paths
+
+
+def _trees():
+    for path in _port_sources():
+        with open(path) as f:
+            yield path, ast.parse(f.read(), filename=path)
+
+
+def test_port_imports_neither_jax_nor_pmhc_tpu():
+    banned = ("jax", "jaxlib", "pmhc_tpu")
+    for path, tree in _trees():
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in banned, f"{path}:{node.lineno} imports {name}"
+
+
+def test_importing_the_port_leaves_jax_unloaded():
+    code = ("import sys; import pmhc_tpu_torch, pmhc_tpu_torch.serve, "
+            "pmhc_tpu_torch.ops.egnn_fused, pmhc_tpu_torch.models.import_params; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pmhc_tpu')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_service_without_device_needs_the_card():
+    from pmhc_tpu_torch.models import ScoreNetwork
+    from pmhc_tpu_torch.serve import SamplerService
+
+    model = ScoreNetwork()
+    if torch.cuda.is_available():
+        assert SamplerService(model, noise_step_count=2).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SamplerService(model, noise_step_count=2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SamplerService(model, noise_step_count=2, device="cuda")
+
+
+def test_no_tf32_switched_on():
+    for path, tree in _trees():
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == \
+                    "set_float32_matmul_precision":
+                args = [a.value for a in node.args if isinstance(a, ast.Constant)]
+                assert args == ["highest"], f"{path}:{node.lineno} sets matmul precision {args}"
+            if isinstance(node, ast.Assign):
+                for target in node.targets:
+                    if getattr(target, "attr", "") == "allow_tf32":
+                        assert isinstance(node.value, ast.Constant) and node.value.value is False, \
+                            f"{path}:{node.lineno} turns TF32 on"
