@@ -10,7 +10,9 @@ Phases (any failure exits non-zero):
    nvcc (``-Xptxas -v``: registers, shared memory, spills);
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes (batch 64, both layer shapes, fp32 and bf16 modes), with
-   the tolerances stated below;
+   the tolerances stated below; the fp32 kernel must fail the bf16
+   tolerances against the bf16 plain version on some output of each
+   layer, so a bf16 mode that skipped its rounding could not pass;
 4. the main path: ``SamplerService(batch_size=64, noise_step_count=1000)``
    answers 3 requests, then two full batches of 64, in fp32 and in bf16;
    checks the PDBs parse with finite coordinates and the right chains, the
@@ -44,9 +46,10 @@ PEAK_BYTES = 3.35e12
 B, STEPS = 64, 1000
 # kernel vs plain version: fp32 sums in another order (~1e-6); in bf16
 # mode one bf16 ulp (2^-8 relative) can flip where the two sum orders
-# straddle a rounding boundary
+# straddle a rounding boundary. Phase 3 also checks that the bf16
+# tolerances reject the fp32 kernel held against the bf16 plain version
 TOL = {"fp32": {"q": 5e-5, "t": 2e-4, "tors": 5e-5, "feat": 2e-4},
-       "bf16": {"q": 2e-3, "t": 2e-2, "tors": 2e-3, "feat": 2e-2}}
+       "bf16": {"q": 2e-3, "t": 2e-2, "tors": 2e-3, "feat": 1e-2}}
 # 4-step kernel trajectory vs the dense oracle with injected noise
 # (the JAX package's lane-sampler tolerances)
 TRAJ_TOL = {"q": 2e-4, "t": 1e-3, "tors": 2e-4}
@@ -263,6 +266,20 @@ def main() -> int:
                 if not ok:
                     raise AssertionError(f"kernel {mode} {layer} {name} disagrees with plain version")
                 errs.append(err)
+            if not bf16:
+                # the bf16 tolerances must be tight enough to catch a bf16 mode
+                # that skips its rounding: the fp32 kernel, held against the
+                # bf16 plain version, has to fail them on some output
+                want = ef.egnn_fused_plain(*args, bf16=True)
+                over = []
+                for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
+                    err = float((g - w).abs().max())
+                    log(f"sensitivity fp32 kernel vs bf16 plain {layer} {name}: max_abs_err "
+                        f"{err:.3e} (bf16 tol {TOL['bf16'][name]:.0e})")
+                    if err > TOL["bf16"][name]:
+                        over.append(name)
+                if not over:
+                    raise AssertionError(f"bf16 tolerances cannot tell fp32 from bf16 on {layer}")
         max_err[mode] = max(errs)
 
     # -- 4. the main path ---------------------------------------------------------

@@ -61,7 +61,11 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <atomic>
+
 namespace {
+
+constexpr int MAX_DEVICES = 64;
 
 constexpr int T = 64;               // hidden width of every MLP
 constexpr int HEADS = 4 * T;        // head hidden units = threads per block
@@ -425,10 +429,18 @@ int launch(const float* w, const float* h, const float* qi, const float* ti, con
            const float* aj, const float* qj, const float* tj, const float* edge, const float* mask,
            float* out_q, float* out_t, float* out_tors, float* out_feat,
            int B, int N, int NP, int H, int O, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(egnn_fused_kernel<BF16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
+  // the shared-memory opt-in is set once per device and instantiation
+  static std::atomic<bool> smem_set[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(egnn_fused_kernel<BF16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev].store(true, std::memory_order_release);
+  }
   egnn_fused_kernel<BF16><<<B * N, HEADS, SMEM_BYTES, stream>>>(
       w, h, qi, ti, tors, aj, qj, tj, edge, mask, out_q, out_t, out_tors, out_feat, N, NP, H, O);
   return (int)cudaGetLastError();

@@ -11,7 +11,9 @@ backend the static context is built once before the chain:
 
 Each step then runs the layer-2 peptide projection relu(inner) @ W1[H:2H]
 (a plain ``torch.matmul``), two fused-layer launches, and
-``remove_noise``. The dense backend evaluates ``score_network_forward``
+``remove_noise``. In bf16 mode the neighbour projections take one bf16
+pass (operands rounded, fp32 sums), as ``sample_lane``'s DEFAULT-precision
+XLA matmuls do on the TPU. The dense backend evaluates ``score_network_forward``
 per step instead (the oracle path).
 
 Semantics match ``sample_lane``: t runs T..1 with the model evaluated at
@@ -36,7 +38,6 @@ from pmhc_tpu_torch.diffusion.schedule import (
     strided_timesteps,
 )
 from pmhc_tpu_torch.geometry import RigidArray
-from pmhc_tpu_torch.models.egnn import message_mask
 from pmhc_tpu_torch.models.score import (
     ScoreNetwork,
     ScoreNetworkConfig,
@@ -44,14 +45,14 @@ from pmhc_tpu_torch.models.score import (
     resolve_backend,
     score_network_forward,
 )
-from pmhc_tpu_torch.ops.egnn_fused import egnn_fused, pack_layer_weights
+from pmhc_tpu_torch.ops.egnn_fused import layer_context
 
 Forward = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int], tuple]
 
 
-def _fused_forward(model: ScoreNetwork, batch: Dict[str, Any],
-                   model_config: ScoreNetworkConfig, bf16: bool) -> Forward:
-    """Build the static context once; return forward(q, t, tors, step)."""
+def fused_forward(model: ScoreNetwork, batch: Dict[str, Any],
+                  model_config: ScoreNetworkConfig, bf16: bool) -> Forward:
+    """Build both layers' static context once; return forward(q, t, tors, step)."""
     mask = batch["mask"].float()
     pocket_mask = batch["pocket_mask"].float()
     B, N = mask.shape
@@ -60,46 +61,33 @@ def _fused_forward(model: ScoreNetwork, batch: Dict[str, Any],
     g1, g2 = model.gnn1, model.gnn2
     dev = mask.device
 
-    w1 = pack_layer_weights(g1, H1, N + P)
-    w2 = pack_layer_weights(g2, H2, N + P)
-    edge1 = F.pad(relpos_edge_pre(g1, N), (0, 0, 0, P)).contiguous()
-    edge2 = F.pad(relpos_edge_pre(g2, N), (0, 0, 0, P)).contiguous()
-    msg_mask = message_mask(mask, pocket_mask).contiguous()
-
     feats22 = batch["features"].float()
     pocket_h = torch.cat(
         (batch["pocket_features"].float(), torch.zeros((B, P, 1), device=dev)), dim=-1)
     pocket_inner = F.pad(pocket_h, (0, H2 - H1))
+    pf = batch["pocket_frames"]
     with torch.no_grad():
-        wj1 = g1.message_mlp[0].weight[:, H1:2 * H1]                  # [T, 23]
-        wj2_t = g2.message_mlp[0].weight[:, H2:2 * H2].T.contiguous()  # [64, T]
-        aj1_pep_static = feats22 @ wj1[:, :-1].T                       # [B, N, T]
-        wj1_time = wj1[:, -1].contiguous()                             # [T]
-        aj1_pocket = pocket_h @ wj1.T                                  # [B, P, T]
-        aj2_pocket = pocket_inner @ wj2_t                              # [B, P, T]
-    q_pk = batch["pocket_frames"].quats.contiguous()
-    t_pk = batch["pocket_frames"].trans.contiguous()
+        ctx1 = layer_context(g1, relpos_edge_pre(g1, N), mask, pocket_h, pf, pocket_mask, bf16)
+        ctx2 = layer_context(g2, relpos_edge_pre(g2, N), mask, pocket_inner, pf, pocket_mask, bf16)
+        # layer 1's peptide a_j: the static 22-dim part (time slot 0) plus the
+        # time row, added in fp32 each step
+        aj1_static = ctx1.project(F.pad(feats22, (0, 1)))          # [B, N, T]
+        wj1_time = ctx1.wj_t[-1].contiguous()                       # [T]
     inv_T = np.float32(1.0 / model_config.noise_step_count)
 
     def forward(q, t, tors, step: int):
         tf = float(np.float32(step) * inv_T)
         h1 = torch.cat((feats22, torch.full((B, N, 1), tf, device=dev)), dim=-1)
-        aj1 = torch.cat((aj1_pep_static + tf * wj1_time, aj1_pocket), dim=1)
-        q1, t1, tors1, inner = egnn_fused(
-            w1, h1, q, t, tors, aj1, torch.cat((q, q_pk), dim=1),
-            torch.cat((t, t_pk), dim=1), edge1, msg_mask, bf16=bf16)
+        q1, t1, tors1, inner = ctx1(h1, q, t, tors, aj1_static + tf * wj1_time)
         h2 = torch.relu(inner)
-        aj2 = torch.cat((h2 @ wj2_t, aj2_pocket), dim=1)
-        q2, t2, tors2, _ = egnn_fused(
-            w2, h2, q1, t1, tors1, aj2, torch.cat((q1, q_pk), dim=1),
-            torch.cat((t1, t_pk), dim=1), edge2, msg_mask, bf16=bf16)
+        q2, t2, tors2, _ = ctx2(h2, q1, t1, tors1, ctx2.project(h2))
         return q2, t2, tors2
 
     return forward
 
 
-def _dense_forward(model: ScoreNetwork, batch: Dict[str, Any],
-                   model_config: ScoreNetworkConfig) -> Forward:
+def dense_forward(model: ScoreNetwork, batch: Dict[str, Any],
+                  model_config: ScoreNetworkConfig) -> Forward:
     def forward(q, t, tors, step: int):
         state = dict(batch, frames=RigidArray(q, t), torsions=tors)
         pred = score_network_forward(model, state, step, model_config)
@@ -140,9 +128,9 @@ def sample(
         raise ValueError("sample needs a generator or injected_noise")
 
     if resolve_backend(model_config.backend) == "fused":
-        forward = _fused_forward(model, batch, model_config, bf16)
+        forward = fused_forward(model, batch, model_config, bf16)
     else:
-        forward = _dense_forward(model, batch, model_config)
+        forward = dense_forward(model, batch, model_config)
 
     shape = tuple(batch["mask"].shape)
     q = batch["frames"].quats.float().contiguous()

@@ -9,10 +9,11 @@ Counterpart of ``pmhc_tpu/models/score.py``:
 - layer 1: H=23 -> 64 features; ReLU; pocket features zero-padded 23->64;
   layer 2: 64 -> 1.
 
-Backends: ``"dense"`` is the oracle layer (``models/egnn.py``);
-``"fused"`` (also spelled ``"auto"``, ``"pallas_lane"`` or ``"g8"``, the
-JAX package's names) is the fused layer of ``ops/egnn_fused.py`` — the
-CUDA kernel on CUDA tensors, its plain version on CPU tensors.
+``score_network_forward`` runs the dense oracle layer (``models/egnn.py``).
+``ScoreNetworkConfig.backend`` tells the sampler which layer to run:
+``"dense"`` (this forward) or ``"fused"`` (also spelled ``"auto"``,
+``"pallas_lane"`` or ``"g8"``, the JAX package's names), the fused layer of
+``ops/egnn_fused.py`` that ``diffusion/sampler.py`` drives.
 """
 
 from __future__ import annotations
@@ -94,15 +95,13 @@ def score_network_forward(
     batch: Dict[str, Any],
     t,
     config: ScoreNetworkConfig,
-    bf16: bool = False,
 ) -> Dict[str, Any]:
-    """Predict the noise on a batch of noised states.
+    """Predict the noise on a batch of noised states with the dense layer.
 
     ``batch``: ``frames`` (RigidArray [B, N]), ``torsions`` [B, N, 7, 2],
     ``features`` [B, N, 22], ``mask`` [B, N], ``pocket_frames`` (RigidArray
     [B, P]), ``pocket_mask`` [B, P], ``pocket_features`` [B, P, 22].
-    ``t``: int, or a [B] tensor of per-sample timesteps. ``bf16`` selects
-    the fused kernel's bf16 mode (ignored by the dense backend).
+    ``t``: int, or a [B] tensor of per-sample timesteps.
     Returns ``{"frames": RigidArray, "torsions": [B, N, 7, 2]}``.
     """
     frames: RigidArray = batch["frames"]
@@ -122,16 +121,8 @@ def score_network_forward(
         (pocket_features, torch.zeros((B, P, 1), dtype=torch.float32, device=dev)), dim=-1
     )
 
-    if resolve_backend(config.backend) == "fused":
-        from pmhc_tpu_torch.ops.egnn_fused import egnn_forward_fused
-
-        def layer(p, *args):
-            return egnn_forward_fused(p, *args, bf16=bf16)
-    else:
-        layer = egnn_forward
-
     edge_pre1 = relpos_edge_pre(model.gnn1, config.max_len)
-    frames1, torsions1, inner = layer(
+    frames1, torsions1, inner = egnn_forward(
         model.gnn1, frames, batch["torsions"], h, edge_pre1, mask,
         pocket_h, pocket_frames, pocket_mask,
     )
@@ -140,7 +131,7 @@ def score_network_forward(
     pocket_inner = nn.functional.pad(pocket_h, (0, config.inner_size - pocket_h.shape[-1]))
 
     edge_pre2 = relpos_edge_pre(model.gnn2, config.max_len)
-    frames2, torsions2, _ = layer(
+    frames2, torsions2, _ = egnn_forward(
         model.gnn2, frames1, torsions1, inner, edge_pre2, mask,
         pocket_inner, pocket_frames, pocket_mask,
     )

@@ -15,11 +15,14 @@ pocket), ``edge`` [N, NP, T] (zero toward the pocket) and ``msg_mask``
 Modes: fp32 (IEEE fp32, no TF32) and bf16 (every MLP matmul operand
 rounded to bf16, fp32 accumulation; geometry, softmax and fold in fp32).
 ``egnn_fused`` launches the kernel for CUDA tensors and takes
-``egnn_fused_plain`` only for CPU tensors.
+``egnn_fused_plain`` only for CPU tensors. ``layer_context`` builds and
+checks a layer's static inputs once (the sampler's per-trajectory
+context); calling the context checks and runs only the per-step part.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
@@ -70,6 +73,7 @@ class PackedLayer:
     H: int
     O: int
     views: Dict[str, torch.Tensor]
+    layout_checked: bool = False  # length held against the kernel's layout
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return self.views[name]
@@ -195,27 +199,27 @@ def egnn_fused_plain(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg
     return q_out, t_out, tors_out, feat
 
 
-def _check_inputs(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask):
-    B, N, H = h.shape
-    NP = a_j.shape[1]
-    want = {
-        "h": (h, (B, N, w.H)), "q_i": (q_i, (B, N, 4)), "t_i": (t_i, (B, N, 3)),
-        "tors": (tors, (B, N, N_TORSIONS, 2)), "a_j": (a_j, (B, NP, T)),
-        "q_j": (q_j, (B, NP, 4)), "t_j": (t_j, (B, NP, 3)), "edge": (edge, (N, NP, T)),
-        "msg_mask": (msg_mask, (B, N, NP)), "weights": (w.buf, tuple(w.buf.shape)),
-    }
-    for name, (x, shape) in want.items():
-        if tuple(x.shape) != shape:
-            raise ValueError(f"egnn_fused: {name} has shape {tuple(x.shape)}, expected {shape}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"egnn_fused: {name} is {x.dtype}, expected float32")
-        if x.device != h.device:
-            raise ValueError(f"egnn_fused: {name} on {x.device}, h on {h.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"egnn_fused: {name} is not contiguous")
-    if not 1 <= H <= T:
-        raise ValueError(f"egnn_fused: input width {H} outside [1, {T}]")
-    return B, N, NP
+def _check(name: str, x: torch.Tensor, shape, device: torch.device) -> None:
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"egnn_fused: {name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"egnn_fused: {name} is {x.dtype}, expected float32")
+    if x.device != device:
+        raise ValueError(f"egnn_fused: {name} on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"egnn_fused: {name} is not contiguous")
+
+
+def _check_weights(w: PackedLayer, device: torch.device) -> None:
+    """The packed buffer on ``device``, and — once per buffer, on the card —
+    its length against the kernel's own layout."""
+    _check("weights", w.buf, w.buf.shape, device)
+    if not 1 <= w.H <= T:
+        raise ValueError(f"egnn_fused: input width {w.H} outside [1, {T}]")
+    if device.type == "cuda" and not w.layout_checked:
+        if _lib().egnn_fused_weights_size(w.H, w.O) != w.buf.numel():
+            raise ValueError("egnn_fused: packed weight buffer does not match the kernel's layout")
+        w.layout_checked = True
 
 
 def _lib():
@@ -232,54 +236,130 @@ def _lib():
     return lib
 
 
-def egnn_fused(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask,
-               bf16: bool = False):
-    """The fused layer: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Raises on anything the kernel does not take."""
-    B, N, NP = _check_inputs(w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask)
+def _run(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16: bool):
+    """Checked inputs -> the plain version (CPU) or one kernel launch (CUDA)."""
     if h.device.type == "cpu":
         return egnn_fused_plain(w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16)
     if h.device.type != "cuda":
         raise ValueError(f"egnn_fused: unsupported device {h.device}")
-    lib = _lib()
-    if lib.egnn_fused_weights_size(w.H, w.O) != w.buf.numel():
-        raise ValueError("egnn_fused: packed weight buffer does not match the kernel's layout")
-    out_q = torch.empty((B, N, 4), dtype=torch.float32, device=h.device)
-    out_t = torch.empty((B, N, 3), dtype=torch.float32, device=h.device)
-    out_tors = torch.empty((B, N, N_TORSIONS, 2), dtype=torch.float32, device=h.device)
-    out_feat = torch.empty((B, N, w.O), dtype=torch.float32, device=h.device)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.egnn_fused_launch(
+    B, N, NP = msg_mask.shape
+    dev = h.device
+    out_q = torch.empty((B, N, 4), dtype=torch.float32, device=dev)
+    out_t = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
+    out_tors = torch.empty((B, N, N_TORSIONS, 2), dtype=torch.float32, device=dev)
+    out_feat = torch.empty((B, N, w.O), dtype=torch.float32, device=dev)
+    # the launch goes to the current device: switch only when the tensors lie elsewhere
+    switch = dev.index is not None and dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
+        err = _lib().egnn_fused_launch(
             *(x.data_ptr() for x in (w.buf, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask,
                                      out_q, out_t, out_tors, out_feat)),
-            B, N, NP, w.H, w.O, int(bf16), stream)
+            B, N, NP, w.H, w.O, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"egnn_fused kernel launch failed: CUDA error {err}")
     LAUNCHES["bf16" if bf16 else "fp32"] += 1
     return out_q, out_t, out_tors, out_feat
 
 
+def egnn_fused(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask,
+               bf16: bool = False):
+    """The fused layer: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. Raises on anything the kernel does not take."""
+    B, N, _ = h.shape
+    NP = a_j.shape[1]
+    dev = h.device
+    _check_weights(w, dev)
+    for name, x, shape in (
+            ("h", h, (B, N, w.H)), ("q_i", q_i, (B, N, 4)), ("t_i", t_i, (B, N, 3)),
+            ("tors", tors, (B, N, N_TORSIONS, 2)), ("a_j", a_j, (B, NP, T)),
+            ("q_j", q_j, (B, NP, 4)), ("t_j", t_j, (B, NP, 3)), ("edge", edge, (N, NP, T)),
+            ("msg_mask", msg_mask, (B, N, NP))):
+        _check(name, x, shape, dev)
+    return _run(w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16)
+
+
+def _project(x: torch.Tensor, w_t: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """x @ w_t; in bf16 mode one bf16 pass (operands rounded, fp32 sums),
+    which is what XLA's DEFAULT precision does on the TPU."""
+    if bf16:
+        return torch.matmul(_bf16_round(x), _bf16_round(w_t))
+    return torch.matmul(x, w_t)
+
+
+@dataclass
+class LayerContext:
+    """One layer's inputs that stay fixed over a trajectory, checked once:
+    the packed weights, the neighbour projection ``wj_t`` = W1[H:2H].T
+    [H, T], the pocket's a_j [B, P, T] and frames, the edge terms [N, NP, T]
+    (zero toward the pocket) and the message mask [B, N, NP]. Calling it
+    with the peptide state and the peptide a_j runs the layer; only those
+    per-step tensors are checked then."""
+
+    w: PackedLayer
+    wj_t: torch.Tensor
+    aj_pocket: torch.Tensor
+    q_pocket: torch.Tensor
+    t_pocket: torch.Tensor
+    edge: torch.Tensor
+    msg_mask: torch.Tensor
+    bf16: bool
+
+    def project(self, h: torch.Tensor) -> torch.Tensor:
+        """Neighbour pre-activation h @ W1[H:2H] (no bias) -> [B, *, T]."""
+        return _project(h, self.wj_t, self.bf16)
+
+    def inputs(self, h, q, t, tors, aj_pep):
+        """The kernel's ten inputs for this peptide state (peptide
+        neighbours first, then the pocket)."""
+        return (self.w, h, q, t, tors, torch.cat((aj_pep, self.aj_pocket), dim=1),
+                torch.cat((q, self.q_pocket), dim=1), torch.cat((t, self.t_pocket), dim=1),
+                self.edge, self.msg_mask)
+
+    def __call__(self, h, q, t, tors, aj_pep):
+        B, N, _ = self.msg_mask.shape
+        dev = self.edge.device
+        for name, x, shape in (
+                ("h", h, (B, N, self.w.H)), ("q_i", q, (B, N, 4)), ("t_i", t, (B, N, 3)),
+                ("tors", tors, (B, N, N_TORSIONS, 2)), ("a_j", aj_pep, (B, N, T))):
+            _check(name, x, shape, dev)
+        return _run(*self.inputs(h, q, t, tors, aj_pep), bf16=self.bf16)
+
+
+def layer_context(layer: EGNNLayer, edge_pre, mask, pocket_features,
+                  pocket_frames: RigidArray, pocket_mask, bf16: bool = False) -> LayerContext:
+    """Pack, project and check one layer's static inputs. ``edge_pre``
+    [N, N, T], ``mask`` [B, N], ``pocket_features`` [B, P, H] (the layer's
+    input width), ``pocket_mask`` [B, P]; ``bf16`` selects the kernel's
+    bf16 mode and one bf16 pass for the neighbour projections."""
+    N, P, H = mask.shape[-1], pocket_mask.shape[-1], pocket_features.shape[-1]
+    B = mask.shape[0]
+    NP = N + P
+    with torch.no_grad():
+        w = pack_layer_weights(layer, H, NP)
+        wj_t = layer.message_mlp[0].weight[:, H:2 * H].T.contiguous()
+        ctx = LayerContext(
+            w=w, wj_t=wj_t,
+            aj_pocket=_project(pocket_features, wj_t, bf16).contiguous(),
+            q_pocket=pocket_frames.quats.contiguous(), t_pocket=pocket_frames.trans.contiguous(),
+            edge=torch.nn.functional.pad(edge_pre, (0, 0, 0, P)).contiguous(),
+            msg_mask=message_mask(mask, pocket_mask).contiguous(), bf16=bool(bf16))
+    dev = ctx.edge.device
+    _check_weights(ctx.w, dev)
+    for name, x, shape in (
+            ("wj_t", ctx.wj_t, (H, T)), ("aj_pocket", ctx.aj_pocket, (B, P, T)),
+            ("q_pocket", ctx.q_pocket, (B, P, 4)), ("t_pocket", ctx.t_pocket, (B, P, 3)),
+            ("edge", ctx.edge, (N, NP, T)), ("msg_mask", ctx.msg_mask, (B, N, NP))):
+        _check(name, x, shape, dev)
+    return ctx
+
+
 def layer_inputs(layer: EGNNLayer, frames: RigidArray, torsions, features, edge_pre, mask,
                  pocket_features, pocket_frames: RigidArray, pocket_mask):
-    """The fused layer's pre-projected inputs from ``egnn_forward``'s
-    arguments: (packed weights, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask)."""
-    N, P, H = mask.shape[-1], pocket_mask.shape[-1], features.shape[-1]
-    w = pack_layer_weights(layer, H, N + P)
-    h_all = torch.cat((features, pocket_features), dim=-2)
-    a_j = torch.matmul(h_all, layer.message_mlp[0].weight[:, H:2 * H].T)
-    q_j = torch.cat((frames.quats, pocket_frames.quats), dim=-2)
-    t_j = torch.cat((frames.trans, pocket_frames.trans), dim=-2)
-    edge = torch.nn.functional.pad(edge_pre, (0, 0, 0, P))
+    """The kernel's ten inputs from ``egnn_forward``'s arguments, with the
+    neighbour projection in fp32 as the JAX package's layer-level kernels
+    take it: (packed weights, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask)."""
+    ctx = layer_context(layer, edge_pre, mask, pocket_features, pocket_frames, pocket_mask)
     c = lambda x: x.contiguous()
-    return (w, c(features), c(frames.quats), c(frames.trans), c(torsions), c(a_j), c(q_j),
-            c(t_j), c(edge), c(message_mask(mask, pocket_mask)))
-
-
-def egnn_forward_fused(layer: EGNNLayer, frames, torsions, features, edge_pre, mask,
-                       pocket_features, pocket_frames, pocket_mask, bf16: bool = False):
-    """Drop-in fused replacement for ``models.egnn.egnn_forward``."""
-    args = layer_inputs(layer, frames, torsions, features, edge_pre, mask,
-                        pocket_features, pocket_frames, pocket_mask)
-    q, t, tors, feat = egnn_fused(*args, bf16=bf16)
-    return RigidArray(q, t), tors, feat
+    with torch.no_grad():
+        return ctx.inputs(c(features), c(frames.quats), c(frames.trans), c(torsions),
+                          c(ctx.project(features)))

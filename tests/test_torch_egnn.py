@@ -22,6 +22,7 @@ from pmhc_tpu.models import ScoreNetworkConfig, init_score_network, score_networ
 from pmhc_tpu.models.egnn import egnn_forward as j_egnn_forward
 from pmhc_tpu.models.import_torch import export_torch_checkpoint
 from pmhc_tpu.models.score import relpos_edge_pre as j_edge
+from pmhc_tpu_torch.diffusion.sampler import fused_forward
 from pmhc_tpu_torch.geometry import RigidArray as TRigid
 from pmhc_tpu_torch.models import ScoreNetwork, egnn_forward, relpos_edge_pre
 from pmhc_tpu_torch.models import ScoreNetworkConfig as TConfig
@@ -124,13 +125,21 @@ def test_dense_layer_matches_jax(layer):
 @pytest.mark.parametrize("t", [1, 500, 1000])
 @pytest.mark.parametrize("backend", ["dense", "fused"])
 def test_score_network_matches_jax(t, backend):
-    """Both port backends (the fused one through its plain version on
-    CPU) against the JAX package's xla backend."""
+    """Both port backends against the JAX package's xla backend: the dense
+    ``score_network_forward``, and the sampler's per-step fused forward
+    (static context built once, the fused layer's plain version on CPU)."""
     params, model = params_pair()
     nb = numpy_batch(seed=3)
     j_pred = score_network_forward(params, jax_model_batch(nb), jnp.asarray(t, jnp.int32), CONFIG)
+    tb = torch_model_batch(nb)
     with torch.no_grad():
-        t_pred = t_score_forward(model, torch_model_batch(nb), t, TConfig(backend=backend))
+        if backend == "dense":
+            t_pred = t_score_forward(model, tb, t, TConfig())
+        else:
+            forward = fused_forward(model, tb, TConfig(backend=backend), bf16=False)
+            q, tr, tors = forward(tb["frames"].quats.contiguous(), tb["frames"].trans.contiguous(),
+                                  tb["torsions"].contiguous(), t)
+            t_pred = {"frames": TRigid(q, tr), "torsions": tors}
     assert_pred_close(t_pred, j_pred)
 
 

@@ -19,6 +19,7 @@ import torch
 from pmhc_tpu.models.egnn import egnn_forward as j_egnn_forward
 from pmhc_tpu.ops.egnn_pallas_lane import egnn_forward_pallas_lane, pack_lane_weights
 from pmhc_tpu.ops.egnn_pallas_lane_g8 import egnn_forward_pallas_lane_g8
+from pmhc_tpu_torch.geometry import RigidArray as TRigid
 from pmhc_tpu_torch.ops import egnn_fused as ef
 from tests.test_torch_egnn import assert_layer_close, layer_args, numpy_batch, params_pair
 
@@ -26,8 +27,9 @@ torch.set_num_threads(1)
 
 
 def _fused(model_layer, t_args, bf16=False):
-    with torch.no_grad():
-        return ef.egnn_forward_fused(model_layer, *t_args, bf16=bf16)
+    """The fused layer on ``egnn_forward``'s arguments, in its output form."""
+    q, t, tors, feat = ef.egnn_fused(*ef.layer_inputs(model_layer, *t_args), bf16=bf16)
+    return TRigid(q, t), tors, feat
 
 
 @pytest.mark.parametrize("batch_size", [4, 9])
@@ -85,6 +87,35 @@ def test_bf16_mode_matches_g8_bf16():
     np.testing.assert_allclose(tf.trans.numpy(), np.asarray(jf.trans), atol=0.5)
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=0.1)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=0.5)
+
+
+def test_layer_context_bf16_projection_and_step_checks():
+    """In bf16 mode the context's neighbour projections take one bf16 pass
+    (operands rounded, fp32 sums), as ``sample_lane``'s DEFAULT-precision
+    XLA matmuls do on the TPU (on the CPU JAX runs them in fp32, so the
+    sampler tests cannot show it). A call runs the same layer as
+    ``egnn_fused`` on ``layer_inputs`` and checks the per-step tensors."""
+    params, model = params_pair()
+    _, t_args = layer_args(numpy_batch(3), params["gnn2"], model.gnn2, inner=True)
+    frames, tors, h, edge_pre, mask, ph, pf, pm = t_args
+    r = lambda x: x.to(torch.bfloat16).to(torch.float32)
+    wj = model.gnn2.message_mlp[0].weight.detach()[:, 64:128]
+    ctx32 = ef.layer_context(model.gnn2, edge_pre, mask, ph, pf, pm)
+    ctx16 = ef.layer_context(model.gnn2, edge_pre, mask, ph, pf, pm, bf16=True)
+    np.testing.assert_allclose(ctx16.project(h).numpy(), (r(h) @ r(wj).T).numpy(), atol=1e-6)
+    np.testing.assert_allclose(ctx16.aj_pocket.numpy(), (r(ph) @ r(wj).T).numpy(), atol=1e-6)
+    np.testing.assert_allclose(ctx32.project(h).numpy(), (h @ wj.T).numpy(), atol=1e-6)
+    assert float((ctx16.project(h) - ctx32.project(h)).abs().max()) > 1e-4
+
+    q, t = frames.quats.contiguous(), frames.trans.contiguous()
+    got = ctx32(h, q, t, tors, ctx32.project(h))
+    want = ef.egnn_fused(*ef.layer_inputs(model.gnn2, *t_args))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-6)
+    with pytest.raises(ValueError):
+        ctx32(h[:, :, :-1].contiguous(), q, t, tors, ctx32.project(h))
+    with pytest.raises(TypeError):
+        ctx32(h, q.double(), t, tors, ctx32.project(h))
 
 
 @pytest.mark.parametrize("layer,H", [("gnn1", 23), ("gnn2", 64)])
