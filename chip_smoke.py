@@ -7,22 +7,31 @@ Phases (any failure exits non-zero):
 1. device check: a CUDA card must be present; prints the card's name and
    power limit as ``nvidia-smi`` reports them;
 2. build: compiles every CUDA source of the port from this checkout with
-   nvcc (``-Xptxas -v``: registers, shared memory, spills);
+   nvcc, one process per source, all started together (``-Xptxas -v``:
+   registers, shared memory, spills);
 3. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes (batch 64, both layer shapes, fp32 and bf16 modes), with
-   the tolerances stated below; the fp32 kernel must fail the bf16
-   tolerances against the bf16 plain version on some output of each
-   layer, so a bf16 mode that skipped its rounding could not pass;
-4. the main path: ``SamplerService(batch_size=64, noise_step_count=1000)``
-   answers 3 requests, then two full batches of 64, in fp32 and in bf16;
-   checks the PDBs parse with finite coordinates and the right chains, the
-   quats are unit, and the kernel ran exactly 2 x 1000 times per batch.
-   Before it, a 4-step trajectory through the kernel is held against the
-   dense oracle layer with the same injected noise;
-5. times with CUDA events after warm-up: kernel and plain version per
-   launch, and the wall seconds per batch-64 trajectory, beside the bound
-   reckoned from this run's shapes; then ``torch.profiler`` over a
-   strided 100-step batch-64 run: device time by kernel, idle share.
+   paths' shapes (batch 64, both layer shapes, fp32 and bf16 modes), with
+   the tolerances stated below: the fused sampler layer, and the training
+   neighbour loop forward (its seven accumulators) and backward (every
+   input's gradient and the loop weights'). The fp32 kernels must fail the
+   bf16 tolerances against the bf16 plain version on some output, so a
+   bf16 mode that skipped its rounding could not pass;
+4. the main paths. Serving: ``SamplerService(batch_size=64,
+   noise_step_count=1000)`` answers 3 requests, then two full batches of
+   64, in fp32 and in bf16; checks the PDBs parse with finite coordinates
+   and the right chains, the quats are unit, and the kernel ran exactly
+   2 x 1000 times per batch. Before it, a 4-step trajectory through the
+   kernel is held against the dense oracle layer with the same injected
+   noise. Training: ``Trainer`` at batch 64 takes 20 steps in fp32 and 20
+   in bf16 on synthetic batches; losses must be finite and the loop
+   kernels must run exactly 2 forward and 2 backward launches per step.
+   Before it, a 5-step trajectory through the kernels, with injected t
+   and noise, is held against the dense autograd path;
+5. times with CUDA events after warm-up: each kernel and its plain version
+   per launch, beside the bound reckoned from this run's shapes; the wall
+   seconds per batch-64 trajectory and per optimizer step; then
+   ``torch.profiler`` over a strided 100-step batch-64 sampling run and
+   over 10 training steps: device time by kernel, idle share.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each ported kernel with its launches, error and times, and the
 line before that is ``nvidia-smi``'s name and power limit of the card.
@@ -35,6 +44,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -55,6 +65,29 @@ TOL = {"fp32": {"q": 5e-5, "t": 2e-4, "tors": 5e-5, "feat": 2e-4},
 TRAJ_TOL = {"q": 2e-4, "t": 1e-3, "tors": 2e-4}
 REPLACES = {"fp32": "pmhc_tpu/ops/egnn_pallas_lane.py:194",
             "bf16": "pmhc_tpu/ops/egnn_pallas_lane_g8.py:177"}
+# the training loop kernels (forward, backward) against their plain
+# versions, as a share of each output's largest magnitude. fp32: sums in
+# another order (atomics included). bf16: the forward rounds at the same
+# points as the plain version (a flipped rounding moves one element by a
+# bf16 ulp); the backward rounds the operands of its products, where the
+# plain version's autograd multiplies unrounded gradients, one bf16 ulp
+# (2^-8) per product, summed over up to 1,536 pairs per weight element.
+# Measured (H100): up to 9.2e-3 and 2.4e-3 of the largest magnitude in two
+# runs of the same inputs (the plain version's fp32 sums, and so its bf16
+# roundings, vary between runs), hence 3e-2.
+LOOP_TOL = {"fp32": {"fwd": 2e-5, "bwd": 2e-4}, "bf16": {"fwd": 2e-3, "bwd": 3e-2}}
+LOOP_REPLACES = {"fwd_fp32": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:157",
+                 "fwd_bf16": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:589",
+                 "bwd_fp32": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:237",
+                 "bwd_bf16": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:678"}
+TRAIN_STEPS = 20
+# 5-step kernel trajectory vs the dense autograd path (Adam, lr 1e-3):
+# losses relative; parameters loosely, absolute: Adam moves a parameter by
+# up to ~lr per step whatever its gradient's size, so where a gradient is
+# cancellation noise (attention lin2 bias) the two paths may drift by
+# O(lr) per step; the bound is the 5 steps' budget
+TRAIN_LR = 1e-3
+TRAIN_TOL = {"loss_rtol": 5e-4, "param_atol": 5 * TRAIN_LR}
 
 
 def log(msg: str) -> None:
@@ -144,6 +177,224 @@ def work_of(args, bf16: bool):
     return flops, in_bytes + out_bytes, bound_ms, bound_by
 
 
+def loop_case(model, layer: str, seed: int, device, batch_size: int = B):
+    """The loop kernels' inputs for one layer shape, pre-projected as the
+    training layer projects them (``ops/egnn_loop.py``), and cotangents of
+    (D, GD, TA, TR, HID) drawn from ``seed``."""
+    import torch
+
+    from pmhc_tpu_torch.ops.egnn_loop import loop_weights
+
+    _, h, q_i, t_i, tors, a_j, q_j, t_j, edge, mask = layer_case(model, layer, seed, device,
+                                                                 batch_size)
+    mod = getattr(model, layer)
+    Bn, N, H = h.shape
+    M = mod.message_mlp[2].out_features
+    with torch.no_grad():
+        msg0 = mod.message_mlp[0]
+        a_i = (h @ msg0.weight[:, :H].T + msg0.bias).contiguous()
+        tor_node = (tors.reshape(Bn, N, 14) @ mod.torsion_mlp[0].weight[:, M:].T).contiguous()
+        w = loop_weights(mod).contiguous()
+    g = torch.Generator(device=device).manual_seed(seed)
+    cts = [torch.randn((Bn, N) + s, generator=g, device=device) for s in ((), (4,), (7,), (3,), (64,))]
+    return (w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, mask), cts
+
+
+def loop_run(args, cts, bf16: bool, kernel: bool):
+    """The loop's seven outputs and the gradients of <outputs, cts> with
+    respect to its nine differentiable inputs (the loop weights as their
+    ten named parts): through the kernels (``egnn_loop``) or through the
+    plain version and autograd. Returns one dict of named tensors."""
+    import torch
+
+    from pmhc_tpu_torch.ops import egnn_loop as el
+
+    inp = [x.detach().clone().requires_grad_(True) for x in args[:9]]
+    fn = el.egnn_loop if kernel else el.egnn_loop_plain
+    outs = fn(*inp, args[9], bf16=bf16)
+    return loop_named(outs, torch.autograd.grad(outs[1:6], inp, cts))
+
+
+def loop_named(outs, grads) -> dict:
+    """The loop's outputs ("out m", ...) and gradients ("dW whm", ...,
+    "da_i", ...) by name."""
+    from pmhc_tpu_torch.ops import egnn_loop as el
+
+    named = {f"out {n}": o.detach() for n, o in zip(el.OUT_NAMES, outs)}
+    named.update({f"dW {n}": g for n, g in el.loop_views(grads[0]).items()})
+    named.update({f"d{n}": g for n, g in zip(("a_i", "tor_node", "q_i", "t_i", "a_j", "q_j", "t_j",
+                                              "edge"), grads[1:])})
+    return named
+
+
+def loop_errors(got: dict, want: dict, tol: dict):
+    """{name: (max abs err, its share of the reference's largest magnitude,
+    tolerance, ok)} for the forward ("out ...") and gradient tensors."""
+    import torch
+
+    res = {}
+    for name, w in want.items():
+        g = got[name]
+        err = float((g - w).abs().max())
+        ref = max(float(w.abs().max()), 1e-6)
+        t = tol["fwd" if name.startswith("out ") else "bwd"]
+        ok = bool(torch.isfinite(g).all()) and err <= t * ref
+        res[name] = (err, err / ref, t, ok)
+    return res
+
+
+def work_of_loop(args, m, cts, kind: str, bf16: bool):
+    """(FLOP, bytes, bound ms, bound_by) of one loop-kernel launch on these
+    inputs. Per (b, i, j) pair the forward does the head lin1 (4T x T
+    MACs), the lin2 rows (13 x T) and the rotation term (4 x T), each MAC
+    2 operations, plus the pre add, relu and HID sum (3T). The backward
+    recomputes that and adds the whm outer product and whm^T d(pre_heads)
+    (2 x 4T x T MACs), dW2 and w2^T d(out) (2 x 13 x T) and dwrq and
+    wrq^T d(rot) (2 x 4 x T). Each input is read once, each output
+    written once."""
+    w, a_i, tor, q_i, t_i, a_j, q_j, t_j, edge, mask = args
+    Bn, N, NP = mask.shape
+    T = a_i.shape[-1]
+    fwd = 2 * (4 * T * T + 13 * T + 4 * T) + 3 * T
+    per_pair = fwd if kind == "fwd" else fwd + 2 * (2 * 4 * T * T + 2 * 13 * T + 2 * 4 * T)
+    flops = Bn * N * NP * per_pair
+    nbytes = lambda xs: sum(x.numel() * 4 for x in xs)
+    if kind == "fwd":
+        moved = nbytes(args) + Bn * N * (1 + 1 + 4 + 7 + 3 + T + 1) * 4
+    else:
+        moved = nbytes(args) + nbytes([m] + list(cts)) + nbytes(args[:9])
+    peak = PEAK_BF16 if bf16 else PEAK_FP32
+    t_ops, t_bytes = flops / peak, moved / PEAK_BYTES
+    return flops, moved, max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_loop_kernels(model, dev):
+    """Phase 3, training loop: both kernels against their plain versions
+    at batch 64 with each layer's weights, fp32 and bf16, forward outputs
+    and every gradient. Returns the cases and the max abs error per mode
+    and kernel."""
+    cases = {layer: loop_case(model, layer, seed=10 + k, device=dev)
+             for k, layer in enumerate(("gnn1", "gnn2"))}
+    import torch
+
+    max_err = {}
+    for mode in ("fp32", "bf16"):
+        bf16 = mode == "bf16"
+        worst = {"fwd": 0.0, "bwd": 0.0}
+        for layer, (args, cts) in cases.items():
+            got = loop_run(args, cts, bf16, kernel=True)
+            want = loop_run(args, cts, bf16, kernel=False)
+            torch.cuda.synchronize()
+            for name, (err, rel, t, ok) in loop_errors(got, want, LOOP_TOL[mode]).items():
+                log(f"check loop {mode} {layer} {name}: max_abs_err {err:.3e} = {rel:.2e} of max "
+                    f"(tol {t:.0e}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"loop kernel {mode} {layer} {name} disagrees with plain version")
+                kind = "fwd" if name.startswith("out ") else "bwd"
+                worst[kind] = max(worst[kind], err)
+            if not bf16:
+                # the bf16 tolerances must catch a bf16 mode that skips its
+                # rounding: the fp32 kernels against the bf16 plain version
+                want16 = loop_run(args, cts, True, kernel=False)
+                over = [name for name, (err, rel, t, ok) in
+                        loop_errors(got, want16, LOOP_TOL["bf16"]).items() if not ok]
+                log(f"sensitivity loop fp32 kernels vs bf16 plain {layer}: {len(over)} outputs break "
+                    f"the bf16 tolerances: {', '.join(over[:8])}")
+                if not over:
+                    raise AssertionError(f"bf16 loop tolerances cannot tell fp32 from bf16 on {layer}")
+        max_err[mode] = worst
+    return cases, max_err
+
+
+def train_trajectory_check(dev) -> None:
+    """Phase 4, training: 5 optimizer steps through the loop kernels held
+    against 5 through the dense layer's autograd, from the same weights,
+    with the same batches, timesteps and noise."""
+    import copy
+
+    import torch
+
+    from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
+    from pmhc_tpu_torch.diffusion import DiffusionConfig, ScheduleTables, gen_noise
+    from pmhc_tpu_torch.models import ScoreNetworkConfig
+    from pmhc_tpu_torch.train import Adam, train_step
+
+    dc = DiffusionConfig()
+    tables = ScheduleTables(dc)
+    base = random_model(seed=3).to(dev)
+    models = {bk: copy.deepcopy(base) for bk in ("fused", "dense")}
+    opts = {bk: Adam(list(m.parameters()), TRAIN_LR) for bk, m in models.items()}
+    g = torch.Generator(device=dev).manual_seed(21)
+    losses = {bk: [] for bk in models}
+    for step, t in enumerate((999, 3, 517, 250, 760)):
+        batch = prepare_batch(synthetic_batch(batch_size=B, seed=30 + step), dev)
+        eps = gen_noise(g, (B, 16), dc)
+        for bk, m in models.items():
+            sums = train_step(m, opts[bk], batch, t, eps, model_config=ScoreNetworkConfig(backend=bk),
+                              diffusion_config=dc, tables=tables)
+            losses[bk].append(float(sums["total loss"]))
+    for step, (a, b) in enumerate(zip(losses["fused"], losses["dense"])):
+        rel = abs(a - b) / abs(b)
+        log(f"train trajectory step {step}: loss kernels {a:.6f} dense {b:.6f} rel {rel:.2e} "
+            f"(rtol {TRAIN_TOL['loss_rtol']:.0e})")
+        if not rel <= TRAIN_TOL["loss_rtol"]:
+            raise AssertionError(f"training trajectory step {step}: loss disagrees with the dense path")
+    worst, worst_name = 0.0, ""
+    for (name, p), q in zip(models["fused"].named_parameters(), models["dense"].parameters()):
+        diff = float((p.detach() - q.detach()).abs().max())
+        if diff > worst:
+            worst, worst_name = diff, name
+    log(f"train trajectory parameters after 5 steps: max abs diff {worst:.2e} ({worst_name}; "
+        f"tol {TRAIN_TOL['param_atol']:.0e})")
+    if not worst <= TRAIN_TOL["param_atol"]:
+        raise AssertionError(f"training trajectory: parameter {worst_name} off by {worst:.2e}")
+
+
+def train_main_path(dev, card: str):
+    """Phase 4, training: ``Trainer`` at batch 64 takes TRAIN_STEPS steps
+    per mode with the launch counters reset just before. Returns the
+    counts and the per-step walls."""
+    import math
+
+    import torch
+
+    from pmhc_tpu_torch.data.synthetic import synthetic_batch
+    from pmhc_tpu_torch.diffusion import DiffusionConfig
+    from pmhc_tpu_torch.models import ScoreNetworkConfig
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import egnn_loop as el
+    from pmhc_tpu_torch.train import MetricsRecord, TrainConfig, Trainer
+
+    batches = [synthetic_batch(batch_size=B, seed=500 + k) for k in range(TRAIN_STEPS)]
+    launches, walls = {}, {}
+    for mode in ("fp32", "bf16"):
+        tr = Trainer(ScoreNetworkConfig(backend="auto"), DiffusionConfig(),
+                     TrainConfig(seed=5, nan_check_every=TRAIN_STEPS), bf16=mode == "bf16")
+        metrics = MetricsRecord()
+        torch.cuda.synchronize()
+        el.reset_launches()
+        ef.reset_launches()
+        walls[mode] = []
+        for b in batches:
+            t0 = time.monotonic()
+            tr.train_batch(b, metrics)
+            torch.cuda.synchronize()
+            walls[mode].append(time.monotonic() - t0)
+        counts = dict(el.LAUNCHES)
+        want = {k: (2 * TRAIN_STEPS if k.endswith(mode) else 0) for k in counts}
+        mean = metrics.mean()
+        log(f"main path train {mode}: {TRAIN_STEPS} steps, launches {counts} (expected {want}), "
+            f"mean losses {json.dumps({k: round(v, 4) for k, v in mean.items()})}")
+        if counts != want or any(ef.LAUNCHES.values()):
+            raise AssertionError(f"train {mode}: launches {counts}, expected {want}")
+        if not all(math.isfinite(v) for v in mean.values()):
+            raise AssertionError(f"train {mode}: non-finite losses {mean}")
+        launches[mode] = counts
+        log(json.dumps({"metric": "train_step_s", "mode": mode, "batch": B, "steps": TRAIN_STEPS,
+                        "seconds": walls[mode], "card": card}))
+    return launches, walls
+
+
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
     import torch
 
@@ -159,21 +410,20 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_breakdown(svc, entries, gen) -> dict:
-    """Where one batch's device work goes: ``dispatch`` (sampling and
-    atom14, no PDB text) timed on the host clock, then run again under
-    ``torch.profiler`` for the device time of each kernel. The idle share
-    is 1 - busy / the unprofiled wall."""
+def device_breakdown(run) -> dict:
+    """Where the device work of ``run()`` goes: timed on the host clock,
+    then run again under ``torch.profiler`` for the device time of each
+    kernel. The idle share is 1 - busy / the unprofiled wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    svc.dispatch(entries, gen)
+    run()
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        svc.dispatch(entries, gen)
+        run()
         torch.cuda.synchronize()
     by_kernel = {}
     for e in prof.key_averages():
@@ -182,12 +432,77 @@ def device_breakdown(svc, entries, gen) -> dict:
             us = e.self_cuda_time_total if us is None else us
             by_kernel[e.key[:60]] = by_kernel.get(e.key[:60], 0.0) + us / 1e3
     busy_ms = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms,
             # None: the profiler saw no device time (not measured)
             "device_busy_ms": busy_ms or None,
             "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
             "top_kernels_ms": dict(top)}
+
+
+def loop_times(cases, loop_err, train_launches, card: str) -> list:
+    """Phase 5, loop kernels: ms per launch (CUDA events) of each kernel and
+    mode beside its plain version and its bound, averaged over the two
+    layer shapes; returns their rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    from pmhc_tpu_torch.ops import egnn_loop as el
+
+    lib = el._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for kind in ("fwd", "bwd"):
+        for mode in ("fp32", "bf16"):
+            bf16 = mode == "bf16"
+            per = {"ms": [], "plain_ms": [], "bound_ms": []}
+            bound_by = None
+            for layer, (args, cts) in cases.items():
+                m = el.launch_fwd(lib, *args, bf16=bf16, stream=stream)[0]
+                if kind == "fwd":
+                    ms = time_ms(lambda: el.launch_fwd(lib, *args, bf16=bf16, stream=stream), 50)
+                    with torch.no_grad():
+                        plain = time_ms(lambda: el.egnn_loop_plain(*args, bf16=bf16), 5)
+                else:
+                    ms = time_ms(lambda: el.launch_bwd(lib, *args, m, cts, bf16=bf16, stream=stream), 20)
+                    plain = time_ms(lambda: loop_run(args, cts, bf16, kernel=False), 3)
+                flops, nbytes, bound_ms, bound_by = work_of_loop(args, m, cts, kind, bf16)
+                log(json.dumps({"metric": f"egnn_loop_{kind}_ms", "mode": mode, "layer": layer,
+                                "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                                "tflops": flops / ms / 1e9, "card": card}))
+                per["ms"].append(ms)
+                per["plain_ms"].append(plain)
+                per["bound_ms"].append(bound_ms)
+            name = f"{kind}_{mode}"
+            rows.append({
+                "name": f"egnn_loop_{name}", "route": "cuda",
+                "source": "pmhc_tpu_torch/csrc/egnn_loop.cu", "replaces": LOOP_REPLACES[name],
+                "launches": train_launches[mode][name], "max_abs_err": loop_err[mode][kind],
+                "ms": float(np.mean(per["ms"])), "plain_ms": float(np.mean(per["plain_ms"])),
+                "bound_ms": float(np.mean(per["bound_ms"])), "bound_by": bound_by,
+                "library_ms": None,  # no single PyTorch call computes the loop
+            })
+    return rows
+
+
+def train_breakdown(dev) -> dict:
+    """Device time by kernel and idle share over 10 batch-64 fp32 training
+    steps (after 3 warm-up steps)."""
+    from pmhc_tpu_torch.data.synthetic import synthetic_batch
+    from pmhc_tpu_torch.models import ScoreNetworkConfig
+    from pmhc_tpu_torch.train import TrainConfig, Trainer
+
+    tr = Trainer(ScoreNetworkConfig(backend="auto"), train_config=TrainConfig(seed=9, nan_check_every=0))
+    batches = [synthetic_batch(batch_size=B, seed=700 + k) for k in range(10)]
+    for b in batches[:3]:
+        tr.train_batch(b)
+
+    def run():
+        for b in batches:
+            tr.train_batch(b)
+
+    return device_breakdown(run)
 
 
 def check_pdb(pdb: bytes, entry) -> None:
@@ -239,12 +554,17 @@ def main() -> int:
     from pmhc_tpu_torch.ops import _build
     from pmhc_tpu_torch.ops import egnn_fused as ef
 
-    # -- 2. build ---------------------------------------------------------------
-    info = _build.build("egnn_fused", ptxas_verbose=True)
-    log(f"build egnn_fused: {info['seconds']:.1f} s -> {os.path.relpath(info['path'], REPO)}")
-    for ln in info["log"].splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-            log(f"  ptxas: {ln.strip()}")
+    # -- 2. build: one nvcc per source, all started together -------------------------
+    sources = ("egnn_fused", "egnn_loop")
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        infos = dict(zip(sources, pool.map(lambda n: _build.build(n, ptxas_verbose=True), sources)))
+    log(f"build: {time.monotonic() - t0:.1f} s for {len(sources)} sources in parallel")
+    for name, info in infos.items():
+        log(f"build {name}: {info['seconds']:.1f} s -> {os.path.relpath(info['path'], REPO)}")
+        for ln in info["log"].splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                log(f"  ptxas: {ln.strip()}")
 
     # -- 3. kernel vs plain version ---------------------------------------------
     model = random_model(seed=0).to(dev).eval()
@@ -281,8 +601,9 @@ def main() -> int:
                 if not over:
                     raise AssertionError(f"bf16 tolerances cannot tell fp32 from bf16 on {layer}")
         max_err[mode] = max(errs)
+    loop_cases, loop_err = check_loop_kernels(model, dev)
 
-    # -- 4. the main path ---------------------------------------------------------
+    # -- 4. the main paths ----------------------------------------------------------
     from pmhc_tpu_torch.diffusion import DiffusionConfig, gen_noise, sample
     from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
     from pmhc_tpu_torch.geometry import RigidArray
@@ -348,6 +669,9 @@ def main() -> int:
                         "sampling_s": [d for d, _ in walls], "pdb_s": [f for _, f in walls],
                         "card": card}))
 
+    train_trajectory_check(dev)
+    train_launches, train_walls = train_main_path(dev, card)
+
     # -- 5. times -------------------------------------------------------------------
     kernels = []
     for mode in ("fp32", "bf16"):
@@ -375,14 +699,23 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes this layer
         })
 
+    kernels += loop_times(loop_cases, loop_err, train_launches, card)
+
     # device busy and idle share over a strided K=100 batch-64 run (same
     # per-step work as T=1000, a trace 10x shorter)
     steps_k = 100
     svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=steps_k, seed=7)
     svc.sample_entries(entries64[:1])  # warm-up
-    bd = device_breakdown(svc, entries64, torch.Generator(device=dev).manual_seed(99))
+    gen = torch.Generator(device=dev).manual_seed(99)
+    bd = device_breakdown(lambda: svc.dispatch(entries64, gen))
     log(json.dumps({"metric": "device_breakdown", "mode": "fp32", "batch": B, "steps": steps_k,
                     **bd, "card": card}))
+    for mode in ("fp32", "bf16"):
+        w = sorted(train_walls[mode][1:])  # the first step loads the kernels
+        log(json.dumps({"metric": "train_step_s_median", "mode": mode, "batch": B,
+                        "median_s": w[len(w) // 2], "card": card}))
+    log(json.dumps({"metric": "device_breakdown", "path": "train", "mode": "fp32", "batch": B,
+                    "steps": 10, **train_breakdown(dev), "card": card}))
 
     print(card)
     print(json.dumps({"kernels": kernels}))

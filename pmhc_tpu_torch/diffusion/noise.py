@@ -1,7 +1,7 @@
 """Pure noise and the reverse (denoising) step.
 
-Counterpart of ``pmhc_tpu/diffusion/noise.py::gen_noise`` /
-``remove_noise`` / ``remove_noise_scalars``, quat-native: rotation
+Counterpart of ``pmhc_tpu/diffusion/noise.py::gen_noise`` / ``add_noise``
+/ ``remove_noise`` / ``remove_noise_scalars``, quat-native: rotation
 composition is a Hamilton product. Randomness comes from an explicit
 ``torch.Generator`` on the output's device; it cannot reproduce
 ``jax.random`` draws, so tests inject the same numpy noise into both.
@@ -40,6 +40,28 @@ def gen_noise(generator: torch.Generator, shape, config: DiffusionConfig) -> Noi
     angles = torch.rand(shape + (7,), **kw) * (2.0 * math.pi)
     torsions = torch.stack((torch.sin(angles), torch.cos(angles)), dim=-1)
     return {"frames": RigidArray(quats, trans), "torsions": torsions}
+
+
+def add_noise(signal: Dict[str, Any], noise: Noise, t, tables: ScheduleTables) -> Dict[str, Any]:
+    """Forward process x0 -> z_t in one jump: torsions get a beta-fraction
+    of the noise angle multiplied on, positions interpolate signal * alpha
+    + noise * sigma, rotations get a beta-fraction of the noise rotation
+    composed on the left. ``t`` is an int (one t per batch) or a ``[B]``
+    integer tensor, broadcast on the leading axis."""
+    beta, alpha, sigma = tables.beta_alpha_sigma(t)
+
+    def bcast(x, ndim):  # [B] -> [B, 1, ..., 1]; a float stays a float
+        return x.reshape(x.shape + (1,) * (ndim - 1)) if isinstance(x, torch.Tensor) else x
+
+    sf: RigidArray = signal["frames"]
+    nf: RigidArray = noise["frames"]
+    result = dict(signal)
+    result["torsions"] = multiply_sin_cos(
+        partial_sin_cos(noise["torsions"], bcast(beta, 4)), signal["torsions"])
+    result["frames"] = RigidArray(
+        quat_multiply(partial_rot(nf.quats, bcast(beta, 3)), sf.quats),
+        sf.trans * bcast(alpha, 3) + nf.trans * bcast(sigma, 3))
+    return result
 
 
 def remove_noise(noised: Dict[str, Any], predicted: Noise, random_noise: Noise, t: int,

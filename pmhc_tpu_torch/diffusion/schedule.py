@@ -5,7 +5,8 @@ Counterpart of ``pmhc_tpu/diffusion/schedule.py``: beta(t) = beta_min +
 and the sampler's per-step alpha_ts / sigma_ts^2 / sigma_t2s chain, all
 computed on the host in float64 and stored as float32. The sampler reads
 them as Python floats (the float32 values), so no table lives on the
-device and no step waits for one.
+device and no step waits for one; the trainer's per-sample draw indexes
+them with a ``[B]`` tensor (``beta_alpha_sigma``).
 """
 
 from __future__ import annotations
@@ -14,16 +15,24 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
 class DiffusionConfig:
-    """Sampling hyperparameters; defaults are the reference's values."""
+    """Engine hyperparameters; defaults are the reference's values."""
 
     noise_step_count: int = 1000  # T
     beta_min: float = 0.0
     beta_max: float = 0.8
     position_noise_scale: float = 5.0  # gen_noise translation stddev
+    # total-loss weights (the reference hard-codes 0.1 / 1 / 1)
+    position_loss_weight: float = 0.1
+    rotation_loss_weight: float = 1.0
+    torsion_loss_weight: float = 1.0
+    # the reference's quirk: one random timestep per batch; False draws
+    # one per sample
+    t_per_batch: bool = True
 
 
 def _beta(config: DiffusionConfig, frac: np.ndarray) -> np.ndarray:
@@ -52,6 +61,16 @@ class ScheduleTables:
         self.beta, self.alpha, self.sigma = f32(beta), f32(alpha), f32(sigma)
         self.alpha_ts, self.sqr_sigma_ts = f32(alpha_ts), f32(sqr_sigma_ts)
         self.sigma_ts, self.sigma_t2s = f32(sigma_ts), f32(sigma_t2s)
+
+    def beta_alpha_sigma(self, t):
+        """(beta, alpha, sigma) at timestep ``t``: an int gives Python floats
+        (the float32 values), a ``[B]`` integer tensor gives ``[B]`` float32
+        tensors on its device."""
+        if isinstance(t, torch.Tensor):
+            idx = t.long().cpu()
+            return tuple(torch.from_numpy(x)[idx].to(t.device)
+                         for x in (self.beta, self.alpha, self.sigma))
+        return float(self.beta[t]), float(self.alpha[t]), float(self.sigma[t])
 
     def scalars(self, t: int) -> Tuple[float, ...]:
         """The 6 reverse-step scalars of step t -> t-1, in

@@ -9,11 +9,13 @@ Counterpart of ``pmhc_tpu/models/score.py``:
 - layer 1: H=23 -> 64 features; ReLU; pocket features zero-padded 23->64;
   layer 2: 64 -> 1.
 
-``score_network_forward`` runs the dense oracle layer (``models/egnn.py``).
-``ScoreNetworkConfig.backend`` tells the sampler which layer to run:
-``"dense"`` (this forward) or ``"fused"`` (also spelled ``"auto"``,
-``"pallas_lane"`` or ``"g8"``, the JAX package's names), the fused layer of
-``ops/egnn_fused.py`` that ``diffusion/sampler.py`` drives.
+``ScoreNetworkConfig.backend`` picks the layer: ``"dense"``, the oracle
+layer of ``models/egnn.py``, or ``"fused"`` (also spelled ``"auto"``,
+``"pallas_lane"`` or ``"g8"``, the JAX package's names). Under ``"fused"``
+``score_network_forward`` runs the training layer
+(``ops/egnn_loop.py::egnn_forward_loop``: the neighbour-loop kernels with
+their hand-written backward), and ``diffusion/sampler.py`` runs the
+forward-only fused layer of ``ops/egnn_fused.py``.
 """
 
 from __future__ import annotations
@@ -95,15 +97,24 @@ def score_network_forward(
     batch: Dict[str, Any],
     t,
     config: ScoreNetworkConfig,
+    bf16: bool = False,
 ) -> Dict[str, Any]:
-    """Predict the noise on a batch of noised states with the dense layer.
+    """Predict the noise on a batch of noised states, differentiably.
 
     ``batch``: ``frames`` (RigidArray [B, N]), ``torsions`` [B, N, 7, 2],
     ``features`` [B, N, 22], ``mask`` [B, N], ``pocket_frames`` (RigidArray
     [B, P]), ``pocket_mask`` [B, P], ``pocket_features`` [B, P, 22].
-    ``t``: int, or a [B] tensor of per-sample timesteps.
+    ``t``: int, or a [B] tensor of per-sample timesteps. ``bf16`` selects
+    the loop kernels' bf16 mode (``"fused"`` backend only).
     Returns ``{"frames": RigidArray, "torsions": [B, N, 7, 2]}``.
     """
+    if resolve_backend(config.backend) == "fused":
+        from pmhc_tpu_torch.ops.egnn_loop import egnn_forward_loop
+
+        def layer(*args):
+            return egnn_forward_loop(*args, bf16=bf16)
+    else:
+        layer = egnn_forward
     frames: RigidArray = batch["frames"]
     features = batch["features"]
     mask = batch["mask"].float()
@@ -122,7 +133,7 @@ def score_network_forward(
     )
 
     edge_pre1 = relpos_edge_pre(model.gnn1, config.max_len)
-    frames1, torsions1, inner = egnn_forward(
+    frames1, torsions1, inner = layer(
         model.gnn1, frames, batch["torsions"], h, edge_pre1, mask,
         pocket_h, pocket_frames, pocket_mask,
     )
@@ -131,7 +142,7 @@ def score_network_forward(
     pocket_inner = nn.functional.pad(pocket_h, (0, config.inner_size - pocket_h.shape[-1]))
 
     edge_pre2 = relpos_edge_pre(model.gnn2, config.max_len)
-    frames2, torsions2, _ = egnn_forward(
+    frames2, torsions2, _ = layer(
         model.gnn2, frames1, torsions1, inner, edge_pre2, mask,
         pocket_inner, pocket_frames, pocket_mask,
     )

@@ -5,8 +5,9 @@ Each ``csrc/*.cu`` source is compiled at first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
 into ``pmhc_tpu_torch/csrc/build/`` (listed in ``.gitignore``). The
-library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs at import.
+library's file name carries a hash of its source and of the shared
+headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale
+library is never loaded. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -37,9 +38,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path: its name carries a hash of the source, of every
+    header in ``csrc/`` and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as src:
+            h.update(f.encode() + b"\0" + src.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(name: str, ptxas_verbose: bool = False) -> dict:

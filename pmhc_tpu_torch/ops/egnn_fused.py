@@ -141,7 +141,11 @@ def pack_layer_weights(layer: EGNNLayer, H: int, NP: int) -> PackedLayer:
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(torch.float32)
+    """x rounded to bf16 (round to nearest even), as fp32. Its gradient
+    passes through unrounded (x + (round(x) - x), exact in fp32): the
+    kernels round the operands of their products, never a gradient."""
+    r = x.to(torch.bfloat16).to(torch.float32)
+    return x + (r - x).detach() if x.requires_grad else r
 
 
 def egnn_fused_plain(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask,
@@ -199,15 +203,15 @@ def egnn_fused_plain(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg
     return q_out, t_out, tors_out, feat
 
 
-def _check(name: str, x: torch.Tensor, shape, device: torch.device) -> None:
+def _check(name: str, x: torch.Tensor, shape, device: torch.device, who: str = "egnn_fused") -> None:
     if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"egnn_fused: {name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if x.dtype != torch.float32:
-        raise TypeError(f"egnn_fused: {name} is {x.dtype}, expected float32")
+        raise TypeError(f"{who}: {name} is {x.dtype}, expected float32")
     if x.device != device:
-        raise ValueError(f"egnn_fused: {name} on {x.device}, expected {device}")
+        raise ValueError(f"{who}: {name} on {x.device}, expected {device}")
     if not x.is_contiguous():
-        raise ValueError(f"egnn_fused: {name} is not contiguous")
+        raise ValueError(f"{who}: {name} is not contiguous")
 
 
 def _check_weights(w: PackedLayer, device: torch.device) -> None:
@@ -225,7 +229,12 @@ def _check_weights(w: PackedLayer, device: torch.device) -> None:
 def _lib():
     from pmhc_tpu_torch.ops import _build
 
-    lib = _build.load("egnn_fused")
+    return bind(_build.load("egnn_fused"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/egnn_fused.cu`` on a loaded
+    library (once per library)."""
     if not getattr(lib, "_pmhc_typed", False):
         ptr = ctypes.c_void_p
         lib.egnn_fused_launch.argtypes = [ptr] * 14 + [ctypes.c_int] * 6 + [ptr]
@@ -236,29 +245,44 @@ def _lib():
     return lib
 
 
-def _run(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16: bool):
-    """Checked inputs -> the plain version (CPU) or one kernel launch (CUDA)."""
-    if h.device.type == "cpu":
-        return egnn_fused_plain(w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16)
-    if h.device.type != "cuda":
-        raise ValueError(f"egnn_fused: unsupported device {h.device}")
+def device_ctx(dev: torch.device):
+    """The launch goes to the current device: switch only when the tensors
+    lie elsewhere."""
+    switch = dev.index is not None and dev.index != torch.cuda.current_device()
+    return torch.cuda.device(dev) if switch else contextlib.nullcontext()
+
+
+def launch(lib, w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16: bool,
+           stream: int = 0):
+    """One launch of the kernel on checked inputs; returns (q, t, tors,
+    feat). ``stream`` is the CUDA stream handle (0: the default)."""
     B, N, NP = msg_mask.shape
     dev = h.device
     out_q = torch.empty((B, N, 4), dtype=torch.float32, device=dev)
     out_t = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
     out_tors = torch.empty((B, N, N_TORSIONS, 2), dtype=torch.float32, device=dev)
     out_feat = torch.empty((B, N, w.O), dtype=torch.float32, device=dev)
-    # the launch goes to the current device: switch only when the tensors lie elsewhere
-    switch = dev.index is not None and dev.index != torch.cuda.current_device()
-    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
-        err = _lib().egnn_fused_launch(
-            *(x.data_ptr() for x in (w.buf, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask,
-                                     out_q, out_t, out_tors, out_feat)),
-            B, N, NP, w.H, w.O, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.egnn_fused_launch(
+        *(x.data_ptr() for x in (w.buf, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask,
+                                 out_q, out_t, out_tors, out_feat)),
+        B, N, NP, w.H, w.O, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"egnn_fused kernel launch failed: CUDA error {err}")
-    LAUNCHES["bf16" if bf16 else "fp32"] += 1
     return out_q, out_t, out_tors, out_feat
+
+
+def _run(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16: bool):
+    """Checked inputs -> the plain version (CPU) or one kernel launch (CUDA)."""
+    if h.device.type == "cpu":
+        return egnn_fused_plain(w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16)
+    if h.device.type != "cuda":
+        raise ValueError(f"egnn_fused: unsupported device {h.device}")
+    dev = h.device
+    with device_ctx(dev):
+        out = launch(_lib(), w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["bf16" if bf16 else "fp32"] += 1
+    return out
 
 
 def egnn_fused(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask,

@@ -1,0 +1,13 @@
+from pmhc_tpu_torch.train.checkpoints import CheckpointManager
+from pmhc_tpu_torch.train.metrics import MetricsRecord
+from pmhc_tpu_torch.train.trainer import Adam, TrainConfig, Trainer, make_learning_rate, train_step
+
+__all__ = [
+    "Adam",
+    "CheckpointManager",
+    "MetricsRecord",
+    "TrainConfig",
+    "Trainer",
+    "make_learning_rate",
+    "train_step",
+]

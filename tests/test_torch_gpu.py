@@ -1,5 +1,6 @@
-"""The port's CUDA kernel on the card: the fused EGNN layer against its
-plain PyTorch version, and the sampler's route through the kernel.
+"""The port's CUDA kernels on the card: the fused EGNN layer and the
+training neighbour loop (forward and backward) against their plain
+PyTorch versions, and the sampler's and the trainer's routes through them.
 
 Each test skips without a card. This file imports neither JAX nor the JAX
 package, so it runs where only the port is installed:
@@ -7,19 +8,24 @@ package, so it runs where only the port is installed:
     python -m pytest tests/test_torch_gpu.py --noconftest -m gpu
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX.) Inputs and
-tolerances are those of ``chip_smoke.py`` phase 3: fp32 quats and
-torsions 5e-5, translations and features 2e-4 (sum order only); bf16 one
-bf16 ulp of slack on top: quats and torsions 2e-3, translations 2e-2,
-features 1e-2.
+tolerances are those of ``chip_smoke.py`` phase 3. Fused layer: fp32
+quats and torsions 5e-5, translations and features 2e-4 (sum order
+only); bf16 one bf16 ulp of slack on top: quats and torsions 2e-3,
+translations 2e-2, features 1e-2. Loop kernels, as a share of each
+tensor's largest magnitude: fp32 forward 2e-5, gradients 2e-4; bf16
+forward 2e-3, gradients 3e-2 (``LOOP_TOL``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import TOL, layer_case, random_model
+from chip_smoke import LOOP_TOL, TOL, layer_case, loop_case, loop_errors, loop_run, random_model
+from pmhc_tpu_torch.data.synthetic import synthetic_batch
 from pmhc_tpu_torch.ops import egnn_fused as ef
+from pmhc_tpu_torch.ops import egnn_loop as el
 from pmhc_tpu_torch.serve import SamplerService, dummy_entry
+from pmhc_tpu_torch.train import TrainConfig, Trainer
 
 torch.set_num_threads(1)
 
@@ -62,3 +68,35 @@ def test_service_launches_the_kernel_twice_per_step(bf16):
     assert torch.isfinite(q).all()
     torch.testing.assert_close(q.norm(dim=-1), torch.ones(q.shape[:-1], device=dev),
                                atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("batch_size", [3, 64])
+def test_loop_kernels_match_plain(mode, batch_size):
+    """Forward outputs and every gradient of the loop kernels against the
+    plain version and its autograd, both layer shapes."""
+    dev = _card()
+    model = random_model(seed=0).to(dev)
+    for seed, layer in enumerate(("gnn1", "gnn2")):
+        args, cts = loop_case(model, layer, seed=seed + 1, device=dev, batch_size=batch_size)
+        got = loop_run(args, cts, mode == "bf16", kernel=True)
+        want = loop_run(args, cts, mode == "bf16", kernel=False)
+        torch.cuda.synchronize()
+        bad = {n: r for n, r in loop_errors(got, want, LOOP_TOL[mode]).items() if not r[3]}
+        assert not bad, f"{layer}: {bad}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_trainer_launches_two_loop_kernels_each_way_per_step(bf16):
+    dev = _card()
+    tr = Trainer(train_config=TrainConfig(seed=1), bf16=bf16)
+    assert tr.device.type == dev.type
+    el.reset_launches()
+    for k in range(2):
+        sums = tr.train_batch(synthetic_batch(batch_size=4, seed=k))
+    torch.cuda.synchronize()
+    mode = "bf16" if bf16 else "fp32"
+    assert el.LAUNCHES == {k: (4 if k.endswith(mode) else 0) for k in el.LAUNCHES}
+    assert all(torch.isfinite(v) for v in sums.values())

@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``pmhc_tpu_torch/`` (nor
 ``chip_smoke.py``) imports JAX or the JAX package, importing the port
-leaves JAX unloaded, its entry points refuse to fall back to the CPU by
-themselves, and nothing in it turns on TF32."""
+leaves JAX unloaded, its entry points (``SamplerService``, ``Trainer``)
+refuse to fall back to the CPU by themselves, and nothing in it turns on
+TF32."""
 
 import ast
 import os
@@ -47,7 +48,8 @@ def test_port_imports_neither_jax_nor_pmhc_tpu():
 
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys; import pmhc_tpu_torch, pmhc_tpu_torch.serve, "
-            "pmhc_tpu_torch.ops.egnn_fused, pmhc_tpu_torch.models.import_params; "
+            "pmhc_tpu_torch.ops.egnn_fused, pmhc_tpu_torch.models.import_params, "
+            "pmhc_tpu_torch.ops.egnn_loop, pmhc_tpu_torch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pmhc_tpu')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -68,6 +70,19 @@ def test_service_without_device_needs_the_card():
             SamplerService(model, noise_step_count=2)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SamplerService(model, noise_step_count=2, device="cuda")
+
+
+def test_trainer_without_device_needs_the_card():
+    from pmhc_tpu_torch.train import Trainer
+
+    if torch.cuda.is_available():
+        assert Trainer().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer(device="cuda")
+        assert Trainer(device="cpu").device.type == "cpu"
 
 
 def test_no_tf32_switched_on():
