@@ -11,11 +11,13 @@ Phases (any failure exits non-zero):
    registers, shared memory, spills);
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (batch 64, both layer shapes, fp32 and bf16 modes), with
-   the tolerances stated below: the fused sampler layer, and the training
+   the tolerances stated below: the fused sampler layer, the training
    neighbour loop forward (its seven accumulators) and backward (every
-   input's gradient and the loop weights'). The fp32 kernels must fail the
-   bf16 tolerances against the bf16 plain version on some output, so a
-   bf16 mode that skipped its rounding could not pass;
+   input's gradient and the loop weights'), and the round-1 fused layer
+   (TPU kernel #3, fp32, on a batch with peptides shorter than 16, so
+   some rows are fully masked). The fp32 kernels must fail the bf16
+   tolerances against the bf16 plain version on some output, so a bf16
+   mode that skipped its rounding could not pass;
 4. the main paths. Serving: ``SamplerService(batch_size=64,
    noise_step_count=1000)`` answers 3 requests, then two full batches of
    64, in fp32 and in bf16; checks the PDBs parse with finite coordinates
@@ -26,12 +28,21 @@ Phases (any failure exits non-zero):
    in bf16 on synthetic batches; losses must be finite and the loop
    kernels must run exactly 2 forward and 2 backward launches per step.
    Before it, a 5-step trajectory through the kernels, with injected t
-   and noise, is held against the dense autograd path;
+   and noise, is held against the dense autograd path. The ``pallas``
+   backend: a 4-step trajectory against the dense oracle; the HTTP server
+   (``pmhc_tpu_torch.cli.serve_cli.create_server``, ``--backend pallas
+   --batch-size 64 -T 1000``, weights from a ``.pth`` written here)
+   answers ``/healthz``, 3 concurrent requests, one ``?samples=4`` and 64
+   concurrent requests that fill one batch, every PDB parsed, kernel #3
+   launched exactly 2 x 1000 times per dispatched batch and the fused
+   kernel never; ``Trainer(backend="pallas")`` takes 5 batch-64 steps
+   held against a dense ``Trainer`` from the same seed, 2 launches per step;
 5. times with CUDA events after warm-up: each kernel and its plain version
    per launch, beside the bound reckoned from this run's shapes; the wall
-   seconds per batch-64 trajectory and per optimizer step; then
-   ``torch.profiler`` over a strided 100-step batch-64 sampling run and
-   over 10 training steps: device time by kernel, idle share.
+   seconds per batch-64 trajectory, per 64-request HTTP batch and per
+   optimizer step; then ``torch.profiler`` over strided 100-step batch-64
+   sampling runs (fused and pallas) and over 10 training steps: device
+   time by kernel, idle share.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each ported kernel with its launches, error and times, and the
 line before that is ``nvidia-smi``'s name and power limit of the card.
@@ -80,6 +91,12 @@ LOOP_REPLACES = {"fwd_fp32": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:157",
                  "fwd_bf16": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:589",
                  "bwd_fp32": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:237",
                  "bwd_bf16": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:678"}
+# kernel #3 against its plain version: fp32 sums in another order, as the
+# fused kernel's fp32 mode
+PALLAS_TOL = TOL["fp32"]
+PALLAS_REPLACES = "pmhc_tpu/ops/egnn_pallas.py:84"
+# peptide lengths of kernel #3's check batches (padded rows fully masked)
+PALLAS_LENGTHS = (9, 5, 1, 16, 12, 3, 9, 14)
 TRAIN_STEPS = 20
 # 5-step kernel trajectory vs the dense autograd path (Adam, lr 1e-3):
 # losses relative; parameters loosely, absolute: Adam moves a parameter by
@@ -128,9 +145,11 @@ def request_entry(seed: int, protein_len: int = 120):
     return e
 
 
-def layer_case(model, layer: str, seed: int, device, batch_size: int = B):
-    """The fused layer's pre-projected inputs for one layer shape (layer 1:
-    H=23, O=64; layer 2: H=64, O=1), batch 64 unless asked otherwise."""
+def egnn_case(model, layer: str, seed: int, device, batch_size: int = B, lengths=None):
+    """``(layer module, egnn_forward's arguments)`` for one layer shape
+    (layer 1: H=23, O=64; layer 2: H=64, O=1), batch 64 unless asked
+    otherwise: noised frames and torsions, 9-residue peptides, or
+    ``lengths`` residues cycled over the batch (padded rows fully masked)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -138,9 +157,11 @@ def layer_case(model, layer: str, seed: int, device, batch_size: int = B):
     from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
     from pmhc_tpu_torch.diffusion import DiffusionConfig, gen_noise
     from pmhc_tpu_torch.models import relpos_edge_pre
-    from pmhc_tpu_torch.ops.egnn_fused import layer_inputs
 
-    nb = synthetic_batch(batch_size=batch_size, seed=seed)
+    nb = synthetic_batch(batch_size=batch_size, peptide_len=9 if lengths is None else 16, seed=seed)
+    for b in range(batch_size if lengths else 0):
+        nb["mask"][b, lengths[b % len(lengths)]:] = False
+        nb["features"][b, lengths[b % len(lengths)]:] = 0.0
     mb = prepare_batch(nb, device)
     noise = gen_noise(torch.Generator(device=device).manual_seed(seed), (batch_size, 16),
                       DiffusionConfig())
@@ -154,8 +175,20 @@ def layer_case(model, layer: str, seed: int, device, batch_size: int = B):
         ph = F.pad(mb["pocket_features"], (0, 64 - 22))
     mod = getattr(model, layer)
     with torch.no_grad():
-        return layer_inputs(mod, noise["frames"], noise["torsions"], h, relpos_edge_pre(mod, 16),
-                            mb["mask"].float(), ph, mb["pocket_frames"], mb["pocket_mask"].float())
+        edge_pre = relpos_edge_pre(mod, 16)
+    return mod, (noise["frames"], noise["torsions"], h, edge_pre, mb["mask"].float(), ph,
+                 mb["pocket_frames"], mb["pocket_mask"].float())
+
+
+def layer_case(model, layer: str, seed: int, device, batch_size: int = B):
+    """The fused layer's pre-projected inputs for one layer shape."""
+    import torch
+
+    from pmhc_tpu_torch.ops.egnn_fused import layer_inputs
+
+    mod, args = egnn_case(model, layer, seed, device, batch_size)
+    with torch.no_grad():
+        return layer_inputs(mod, *args)
 
 
 def work_of(args, bf16: bool):
@@ -175,6 +208,43 @@ def work_of(args, bf16: bool):
     bound_ms = max(flops / peak, (in_bytes + out_bytes) / PEAK_BYTES) * 1e3
     bound_by = "operations" if flops / peak >= (in_bytes + out_bytes) / PEAK_BYTES else "bytes"
     return flops, in_bytes + out_bytes, bound_ms, bound_by
+
+
+def pallas_case(model, layer: str, seed: int, device, batch_size: int = B):
+    """Kernel #3's inputs (``ops/egnn_pallas.py::PallasContext.inputs``) for
+    one layer shape, with peptides of ``PALLAS_LENGTHS`` residues."""
+    import torch
+
+    from pmhc_tpu_torch.ops.egnn_pallas import pallas_context
+
+    mod, (frames, tors, h, edge_pre, mask, ph, pf, pm) = egnn_case(
+        model, layer, seed, device, batch_size, lengths=PALLAS_LENGTHS)
+    with torch.no_grad():
+        ctx = pallas_context(mod, edge_pre, mask, ph, pf, pm)
+        return ctx.inputs(h.contiguous(), frames.quats.contiguous(), frames.trans.contiguous(),
+                          tors.contiguous())
+
+
+def work_of_pallas(args):
+    """(FLOP, bytes, bound ms, bound_by) of one launch of kernel #3 on these
+    inputs, from its design's own operation count. Per (b, i, j) pair, in
+    multiply-adds: the neighbour projection H x T, the message lin2 T x M,
+    the attention lin1 (M + 2) x T, the rotation lin1 (M + 4) x T, the
+    torsion and translation lin1 M x T each, the four lin2 13 x T; per
+    query row: a_i H x T, the torsion node term 14 x T, the feature MLP
+    (H + M) x T + T x O. Each MAC is 2 operations; each input is read once
+    and each output written once."""
+    w, h, h_all, q_i, t_i, q_j, t_j, tors, mask, edge = args
+    Bn, N, NP = mask.shape
+    H, T, M = h.shape[-1], edge.shape[-1], edge.shape[-1]
+    pair = H * T + T * M + (M + 2) * T + (M + 4) * T + 2 * M * T + 13 * T
+    row = H * T + 14 * T + (H + M) * T + T * w.O
+    flops = 2 * (Bn * N * NP * pair + Bn * N * row)
+    in_bytes = sum(x.numel() * 4 for x in (w.buf,) + tuple(args[1:]))
+    out_bytes = Bn * N * (4 + 3 + 14 + w.O) * 4
+    t_ops, t_bytes = flops / PEAK_FP32, (in_bytes + out_bytes) / PEAK_BYTES
+    return flops, in_bytes + out_bytes, max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
 
 
 def loop_case(model, layer: str, seed: int, device, batch_size: int = B):
@@ -505,6 +575,297 @@ def train_breakdown(dev) -> dict:
     return device_breakdown(run)
 
 
+def trajectory_check(model, dev, backend: str) -> None:
+    """Phase 4: a 4-step batch-4 trajectory through ``backend``'s kernel
+    held against the dense oracle with the same injected noise; the kernel
+    must run 2 launches per step."""
+    import torch
+
+    from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
+    from pmhc_tpu_torch.diffusion import DiffusionConfig, gen_noise, sample
+    from pmhc_tpu_torch.geometry import RigidArray
+    from pmhc_tpu_torch.models import ScoreNetworkConfig
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+
+    cfg4 = DiffusionConfig(noise_step_count=4)
+    nb = synthetic_batch(batch_size=4, seed=5)
+    nb["mask"][1, 4:] = False  # a short peptide: fully masked rows
+    mb = prepare_batch(nb, dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    start = gen_noise(g, (4, 16), cfg4)
+    mb["frames"], mb["torsions"] = start["frames"], start["torsions"]
+    inj = [gen_noise(g, (4, 16), cfg4) for _ in range(4)]
+    inj = {"frames": RigidArray(torch.stack([n["frames"].quats for n in inj]),
+                                torch.stack([n["frames"].trans for n in inj])),
+           "torsions": torch.stack([n["torsions"] for n in inj])}
+    counter = {"fused": ef.LAUNCHES, "pallas": ep.LAUNCHES}[backend]
+    before = counter["fp32"]
+    traj = {bk: sample(model, mb, cfg4, ScoreNetworkConfig(noise_step_count=4, backend=bk),
+                       injected_noise=inj) for bk in (backend, "dense")}
+    torch.cuda.synchronize()
+    if counter["fp32"] - before != 2 * 4:
+        raise AssertionError(f"{backend} trajectory: {counter['fp32'] - before} launches, expected 8")
+    for name, get in (("q", lambda r: r["frames"].quats), ("t", lambda r: r["frames"].trans),
+                      ("tors", lambda r: r["torsions"])):
+        err = float((get(traj[backend]) - get(traj["dense"])).abs().max())
+        log(f"trajectory {backend} vs dense {name}: max_abs_err {err:.3e} (tol {TRAJ_TOL[name]:.0e})")
+        if not err <= TRAJ_TOL[name]:
+            raise AssertionError(f"4-step {backend} trajectory {name} disagrees with the dense oracle")
+
+
+def check_pallas_kernel(cases) -> float:
+    """Phase 3, kernel #3: against its plain version at batch 64, both layer
+    shapes, fp32 tolerances (``PALLAS_TOL``). Returns the max abs error."""
+    import torch
+
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+
+    worst = 0.0
+    for layer, args in cases.items():
+        got = ep.egnn_pallas(*args)
+        want = ep.egnn_pallas_plain(*args)
+        torch.cuda.synchronize()
+        masked = int((args[8].sum(-1) == 0).sum())
+        for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
+            err = float((g - w).abs().max())
+            ok = err <= PALLAS_TOL[name] and bool(torch.isfinite(g).all())
+            log(f"check pallas {layer} {name}: max_abs_err {err:.3e} (tol {PALLAS_TOL[name]:.0e}; "
+                f"{masked} fully masked rows) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernel #3 {layer} {name} disagrees with its plain version")
+            worst = max(worst, err)
+    return worst
+
+
+def split_models(pdb: bytes):
+    """The models of a multi-MODEL PDB, each as a PDB ending in END."""
+    bodies, cur = [], None
+    for ln in pdb.decode().splitlines(keepends=True):
+        if ln.startswith("MODEL "):
+            cur = []
+        elif ln.startswith("ENDMDL"):
+            bodies.append(("".join(cur) + "END\n").encode())
+            cur = None
+        elif cur is not None:
+            cur.append(ln)
+    return bodies
+
+
+def http_main_path(model, card: str):
+    """Phase 4, serving over HTTP: the port's ``serve_cli.create_server`` on
+    127.0.0.1 with ``--backend pallas --batch-size 64 -T 1000``, loading a
+    ``.pth`` written from ``model``; ``/healthz``, 3 concurrent requests,
+    one ``?samples=4``, then 64 concurrent requests that fill one batch.
+    Every PDB must parse, kernel #3 must run 2 x 1000 times per dispatched
+    batch and the fused kernel not at all. Returns the launches of the
+    64-request batch and its wall seconds (request in, PDB out)."""
+    import http.client
+    import io
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pmhc_tpu_torch.cli.serve_cli import build_parser, create_server
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+
+    def post(host, port, entry, query=""):
+        buf = io.BytesIO()
+        np.savez(buf, **entry)
+        conn = http.client.HTTPConnection(host, port, timeout=600)
+        conn.request("POST", "/sample" + query, buf.getvalue())
+        resp = conn.getresponse()
+        body = resp.read()
+        conn.close()
+        if resp.status != 200:
+            raise AssertionError(f"POST /sample{query}: HTTP {resp.status} {body[:200]!r}")
+        return body
+
+    def concurrent(host, port, entries):
+        out = [None] * len(entries)
+        errors = []
+
+        def client(k):
+            try:
+                out[k] = post(host, port, entries[k])
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(len(entries))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.pth")
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+        args = build_parser().parse_args([
+            path, "--host", "127.0.0.1", "--port", "0", "--backend", "pallas",
+            "--batch-size", str(B), "-T", str(STEPS), "--max-wait-ms", "2000", "--seed", "7"])
+        torch.cuda.synchronize()
+        ef.reset_launches()
+        ep.reset_launches()
+        t0 = time.monotonic()
+        server = create_server(args)  # warm-up: one batch
+        log(f"main path http: server up in {time.monotonic() - t0:.1f} s, warm-up launches "
+            f"{ep.LAUNCHES['fp32']} (expected {2 * STEPS})")
+        if ep.LAUNCHES["fp32"] != 2 * STEPS:
+            raise AssertionError(f"http warm-up: {ep.LAUNCHES['fp32']} kernel #3 launches")
+    batcher = server.batcher
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address
+    try:
+        conn = http.client.HTTPConnection(host, port, timeout=60)
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        health = json.loads(resp.read())
+        conn.close()
+        log(f"main path http: GET /healthz {resp.status} {json.dumps(health)}")
+        if resp.status != 200 or health["backend"] != "pallas" or health["batch_size"] != B \
+                or health["precision"] != "f32":
+            raise AssertionError(f"/healthz: {resp.status} {health}")
+        entries3 = [request_entry(seed=300 + i) for i in range(3)]
+        entries64 = [request_entry(seed=400 + i) for i in range(B)]
+        results = {}
+        for label, run, entries in (
+                ("3 concurrent requests", lambda: concurrent(host, port, entries3), entries3),
+                ("?samples=4", lambda: split_models(post(host, port, entries3[0], "?samples=4")),
+                 [entries3[0]] * 4),
+                (f"{B} concurrent requests", lambda: concurrent(host, port, entries64), entries64)):
+            torch.cuda.synchronize()
+            ef.reset_launches()
+            ep.reset_launches()
+            n0 = batcher.batches
+            t0 = time.monotonic()
+            pdbs = run()
+            wall = time.monotonic() - t0
+            batches = batcher.batches - n0
+            count = ep.LAUNCHES["fp32"]
+            log(f"main path http {label}: {len(pdbs)} PDBs in {wall:.2f} s, {batches} batches, "
+                f"kernel #3 launches {count} (expected {2 * STEPS * batches}), fused "
+                f"{sum(ef.LAUNCHES.values())}")
+            if count != 2 * STEPS * batches or batches < 1 or any(ef.LAUNCHES.values()):
+                raise AssertionError(f"http {label}: {count} launches for {batches} batches")
+            if len(pdbs) != len(entries):
+                raise AssertionError(f"http {label}: {len(pdbs)} PDBs for {len(entries)} requests")
+            for pdb, e in zip(pdbs, entries):
+                check_pdb(pdb, e)
+            results[label] = (count, batches, wall)
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+        batcher.close()
+        server.server_close()
+    count, batches, wall = results[f"{B} concurrent requests"]
+    if batches != 1:
+        raise AssertionError(f"{B} concurrent requests took {batches} batches, expected one")
+    log(json.dumps({"metric": "http_batch_s", "backend": "pallas", "batch": B, "steps": STEPS,
+                    "seconds": wall, "card": card}))
+    return count, wall
+
+
+def trainer_pallas_check(dev, card: str, steps: int = 5):
+    """Phase 4, training with the ``pallas`` backend: ``Trainer`` at batch 64
+    takes ``steps`` steps held against a ``Trainer`` on the dense autograd
+    path from the same seed (weights, timesteps, noise), with kernel #3's
+    counter reset just before; it must launch twice per step. Then the
+    wall per step of both and the device breakdown of ``steps`` more
+    ``pallas`` steps. Returns the launches."""
+    import torch
+
+    from pmhc_tpu_torch.data.synthetic import synthetic_batch
+    from pmhc_tpu_torch.models import ScoreNetworkConfig
+    from pmhc_tpu_torch.ops import egnn_loop as el
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+    from pmhc_tpu_torch.train import TrainConfig, Trainer
+
+    trainers = {bk: Trainer(ScoreNetworkConfig(backend=bk), train_config=TrainConfig(
+        seed=11, learning_rate=TRAIN_LR, nan_check_every=0)) for bk in ("pallas", "dense")}
+    batches = [synthetic_batch(batch_size=B, seed=600 + k) for k in range(steps)]
+    torch.cuda.synchronize()
+    ep.reset_launches()
+    el.reset_launches()
+    losses, walls = {}, {}
+    for bk, tr in trainers.items():
+        losses[bk], walls[bk] = [], []
+        for b in batches:
+            t0 = time.monotonic()
+            losses[bk].append(float(tr.train_batch(b)["total loss"]))  # float() syncs
+            walls[bk].append(time.monotonic() - t0)
+    torch.cuda.synchronize()
+    count = ep.LAUNCHES["fp32"]
+    log(f"main path train pallas: {steps} steps, kernel #3 launches {count} (expected {2 * steps}), "
+        f"loop kernels {sum(el.LAUNCHES.values())}")
+    if count != 2 * steps or any(el.LAUNCHES.values()):
+        raise AssertionError(f"train pallas: {count} kernel #3 launches, expected {2 * steps}")
+    for step, (a, b) in enumerate(zip(losses["pallas"], losses["dense"])):
+        rel = abs(a - b) / abs(b)
+        log(f"train pallas step {step}: loss kernel {a:.6f} dense {b:.6f} rel {rel:.2e} "
+            f"(rtol {TRAIN_TOL['loss_rtol']:.0e})")
+        if not rel <= TRAIN_TOL["loss_rtol"]:
+            raise AssertionError(f"pallas training step {step}: loss disagrees with the dense path")
+    worst, worst_name = 0.0, ""
+    for (name, p), q in zip(trainers["pallas"].model.named_parameters(),
+                            trainers["dense"].model.parameters()):
+        diff = float((p.detach() - q.detach()).abs().max())
+        if diff > worst:
+            worst, worst_name = diff, name
+    log(f"train pallas parameters after {steps} steps: max abs diff {worst:.2e} ({worst_name}; "
+        f"tol {TRAIN_TOL['param_atol']:.0e})")
+    if not worst <= TRAIN_TOL["param_atol"]:
+        raise AssertionError(f"pallas training: parameter {worst_name} off by {worst:.2e}")
+    log(json.dumps({"metric": "train_step_s", "backend": "pallas", "batch": B, "steps": steps,
+                    "seconds": walls["pallas"], "dense_seconds": walls["dense"], "card": card}))
+
+    def run():
+        for b in batches:
+            trainers["pallas"].train_batch(b)
+
+    log(json.dumps({"metric": "device_breakdown", "path": "train", "backend": "pallas",
+                    "batch": B, "steps": steps, **device_breakdown(run), "card": card}))
+    return count
+
+
+def pallas_times(cases, launches: int, err: float, card: str) -> dict:
+    """Phase 5, kernel #3: ms per launch (CUDA events) beside its plain
+    version and its bound, averaged over the two layer shapes; returns its
+    row of the kernels line."""
+    import numpy as np
+    import torch
+
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+
+    lib = ep._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    per = {"ms": [], "plain_ms": [], "bound_ms": []}
+    bound_by = None
+    for layer, args in cases.items():
+        ms = time_ms(lambda: ep.launch(lib, *args, stream=stream), 50)
+        plain = time_ms(lambda: ep.egnn_pallas_plain(*args), 5)
+        flops, nbytes, bound_ms, bound_by = work_of_pallas(args)
+        log(json.dumps({"metric": "egnn_pallas_ms", "layer": layer, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+                        "mbytes": nbytes / 1e6, "tflops": flops / ms / 1e9, "card": card}))
+        per["ms"].append(ms)
+        per["plain_ms"].append(plain)
+        per["bound_ms"].append(bound_ms)
+    return {"name": "egnn_pallas_fp32", "route": "cuda",
+            "source": "pmhc_tpu_torch/csrc/egnn_pallas.cu", "replaces": PALLAS_REPLACES,
+            "launches": launches, "max_abs_err": err,
+            # per launch, averaged over the two layer shapes of one step
+            "ms": float(np.mean(per["ms"])), "plain_ms": float(np.mean(per["plain_ms"])),
+            "bound_ms": float(np.mean(per["bound_ms"])), "bound_by": bound_by,
+            "library_ms": None}  # no single PyTorch call computes this layer
+
+
 def check_pdb(pdb: bytes, entry) -> None:
     """ATOM records parse with finite coordinates; chain P holds one
     residue per peptide position, chain M the entry's existing atoms."""
@@ -555,7 +916,7 @@ def main() -> int:
     from pmhc_tpu_torch.ops import egnn_fused as ef
 
     # -- 2. build: one nvcc per source, all started together -------------------------
-    sources = ("egnn_fused", "egnn_loop")
+    sources = ("egnn_fused", "egnn_loop", "egnn_pallas")
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as pool:
         infos = dict(zip(sources, pool.map(lambda n: _build.build(n, ptxas_verbose=True), sources)))
@@ -602,32 +963,14 @@ def main() -> int:
                     raise AssertionError(f"bf16 tolerances cannot tell fp32 from bf16 on {layer}")
         max_err[mode] = max(errs)
     loop_cases, loop_err = check_loop_kernels(model, dev)
+    pallas_cases = {layer: pallas_case(model, layer, seed=20 + i, device=dev)
+                    for i, layer in enumerate(("gnn1", "gnn2"))}
+    pallas_err = check_pallas_kernel(pallas_cases)
 
     # -- 4. the main paths ----------------------------------------------------------
-    from pmhc_tpu_torch.diffusion import DiffusionConfig, gen_noise, sample
-    from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
-    from pmhc_tpu_torch.geometry import RigidArray
-    from pmhc_tpu_torch.models import ScoreNetworkConfig
     from pmhc_tpu_torch.serve import SamplerService
 
-    # short trajectory: kernel vs dense oracle, same injected noise
-    cfg4 = DiffusionConfig(noise_step_count=4)
-    mb = prepare_batch(synthetic_batch(batch_size=4, seed=5), dev)
-    g = torch.Generator(device=dev).manual_seed(11)
-    start = gen_noise(g, (4, 16), cfg4)
-    mb["frames"], mb["torsions"] = start["frames"], start["torsions"]
-    inj = [gen_noise(g, (4, 16), cfg4) for _ in range(4)]
-    inj = {"frames": RigidArray(torch.stack([n["frames"].quats for n in inj]),
-                                torch.stack([n["frames"].trans for n in inj])),
-           "torsions": torch.stack([n["torsions"] for n in inj])}
-    traj = {bk: sample(model, mb, cfg4, ScoreNetworkConfig(noise_step_count=4, backend=bk),
-                       injected_noise=inj) for bk in ("fused", "dense")}
-    for name, get in (("q", lambda r: r["frames"].quats), ("t", lambda r: r["frames"].trans),
-                      ("tors", lambda r: r["torsions"])):
-        err = float((get(traj["fused"]) - get(traj["dense"])).abs().max())
-        log(f"trajectory fused vs dense {name}: max_abs_err {err:.3e} (tol {TRAJ_TOL[name]:.0e})")
-        if not err <= TRAJ_TOL[name]:
-            raise AssertionError(f"4-step trajectory {name} disagrees with the dense oracle")
+    trajectory_check(model, dev, "fused")
 
     entries3 = [request_entry(seed=100 + i) for i in range(3)]
     entries64 = [request_entry(seed=200 + i) for i in range(B)]
@@ -672,6 +1015,11 @@ def main() -> int:
     train_trajectory_check(dev)
     train_launches, train_walls = train_main_path(dev, card)
 
+    # the pallas path: its trajectory, the HTTP server, the trainer
+    trajectory_check(model, dev, "pallas")
+    pallas_launches, _ = http_main_path(model, card)
+    trainer_pallas_check(dev, card)
+
     # -- 5. times -------------------------------------------------------------------
     kernels = []
     for mode in ("fp32", "bf16"):
@@ -700,6 +1048,7 @@ def main() -> int:
         })
 
     kernels += loop_times(loop_cases, loop_err, train_launches, card)
+    kernels.append(pallas_times(pallas_cases, pallas_launches, pallas_err, card))
 
     # device busy and idle share over a strided K=100 batch-64 run (same
     # per-step work as T=1000, a trace 10x shorter)
@@ -710,6 +1059,12 @@ def main() -> int:
     bd = device_breakdown(lambda: svc.dispatch(entries64, gen))
     log(json.dumps({"metric": "device_breakdown", "mode": "fp32", "batch": B, "steps": steps_k,
                     **bd, "card": card}))
+    svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=steps_k,
+                         backend="pallas", seed=7)
+    svc.sample_entries(entries64[:1])  # warm-up
+    bd = device_breakdown(lambda: svc.dispatch(entries64, gen))
+    log(json.dumps({"metric": "device_breakdown", "backend": "pallas", "batch": B,
+                    "steps": steps_k, **bd, "card": card}))
     for mode in ("fp32", "bf16"):
         w = sorted(train_walls[mode][1:])  # the first step loads the kernels
         log(json.dumps({"metric": "train_step_s_median", "mode": mode, "batch": B,

@@ -14,7 +14,10 @@ Each step then runs the layer-2 peptide projection relu(inner) @ W1[H:2H]
 ``remove_noise``. In bf16 mode the neighbour projections take one bf16
 pass (operands rounded, fp32 sums), as ``sample_lane``'s DEFAULT-precision
 XLA matmuls do on the TPU. The dense backend evaluates ``score_network_forward``
-per step instead (the oracle path).
+per step instead (the oracle path). The ``pallas`` backend runs the JAX
+package's generic sampler step, two ``ops/egnn_pallas.py`` launches per
+step, with its static context (packed weights, message mask, edge terms,
+the pocket halves of ``h_all``, ``q_j`` and ``t_j``) built once.
 
 Semantics match ``sample_lane``: t runs T..1 with the model evaluated at
 t = T first; ``injected_noise`` (a Noise dict with a leading [T] axis,
@@ -46,6 +49,7 @@ from pmhc_tpu_torch.models.score import (
     score_network_forward,
 )
 from pmhc_tpu_torch.ops.egnn_fused import layer_context
+from pmhc_tpu_torch.ops.egnn_pallas import pallas_context
 
 Forward = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int], tuple]
 
@@ -86,6 +90,38 @@ def fused_forward(model: ScoreNetwork, batch: Dict[str, Any],
     return forward
 
 
+def pallas_forward(model: ScoreNetwork, batch: Dict[str, Any],
+                   model_config: ScoreNetworkConfig) -> Forward:
+    """``score_network_forward`` with the ``pallas`` backend, its static
+    context built once; return forward(q, t, tors, step)."""
+    mask = batch["mask"].float()
+    pocket_mask = batch["pocket_mask"].float()
+    B, N = mask.shape
+    P = pocket_mask.shape[-1]
+    H1, H2 = model_config.node_feature_size, model_config.inner_size
+    g1, g2 = model.gnn1, model.gnn2
+    dev = mask.device
+
+    feats22 = batch["features"].float()
+    pocket_h = torch.cat(
+        (batch["pocket_features"].float(), torch.zeros((B, P, 1), device=dev)), dim=-1)
+    pf = batch["pocket_frames"]
+    with torch.no_grad():
+        ctx1 = pallas_context(g1, relpos_edge_pre(g1, N), mask, pocket_h, pf, pocket_mask)
+        ctx2 = pallas_context(g2, relpos_edge_pre(g2, N), mask, F.pad(pocket_h, (0, H2 - H1)), pf,
+                              pocket_mask)
+    T_f32 = np.float32(model_config.noise_step_count)
+
+    def forward(q, t, tors, step: int):
+        tf = float(np.float32(step) / T_f32)  # t / T in fp32, as score_network_forward
+        h1 = torch.cat((feats22, torch.full((B, N, 1), tf, device=dev)), dim=-1)
+        q1, t1, tors1, inner = ctx1(h1, q, t, tors)
+        q2, t2, tors2, _ = ctx2(torch.relu(inner), q1, t1, tors1)
+        return q2, t2, tors2
+
+    return forward
+
+
 def dense_forward(model: ScoreNetwork, batch: Dict[str, Any],
                   model_config: ScoreNetworkConfig) -> Forward:
     def forward(q, t, tors, step: int):
@@ -111,7 +147,8 @@ def sample(
     """Full reverse diffusion from the noised state in ``batch``.
 
     ``batch``: the ``score_network_forward`` contract, all on one device.
-    ``bf16`` selects the fused kernel's bf16 mode. ``num_steps`` (K) below
+    ``bf16`` selects the fused kernel's bf16 mode (the ``pallas`` and
+    ``dense`` backends run fp32). ``num_steps`` (K) below
     T runs the strided few-step sampler. Fresh per-step noise comes from
     ``generator`` (on the batch's device) unless ``injected_noise`` is
     given. Returns ``batch`` with ``frames`` and ``torsions`` replaced.
@@ -127,8 +164,11 @@ def sample(
     if injected_noise is None and generator is None:
         raise ValueError("sample needs a generator or injected_noise")
 
-    if resolve_backend(model_config.backend) == "fused":
+    backend = resolve_backend(model_config.backend)
+    if backend == "fused":
         forward = fused_forward(model, batch, model_config, bf16)
+    elif backend == "pallas":
+        forward = pallas_forward(model, batch, model_config)
     else:
         forward = dense_forward(model, batch, model_config)
 

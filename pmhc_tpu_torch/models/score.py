@@ -9,13 +9,18 @@ Counterpart of ``pmhc_tpu/models/score.py``:
 - layer 1: H=23 -> 64 features; ReLU; pocket features zero-padded 23->64;
   layer 2: 64 -> 1.
 
-``ScoreNetworkConfig.backend`` picks the layer: ``"dense"``, the oracle
-layer of ``models/egnn.py``, or ``"fused"`` (also spelled ``"auto"``,
-``"pallas_lane"`` or ``"g8"``, the JAX package's names). Under ``"fused"``
-``score_network_forward`` runs the training layer
-(``ops/egnn_loop.py::egnn_forward_loop``: the neighbour-loop kernels with
-their hand-written backward), and ``diffusion/sampler.py`` runs the
-forward-only fused layer of ``ops/egnn_fused.py``.
+``ScoreNetworkConfig.backend`` picks the layer (``resolve_backend``; the
+JAX package's names are accepted):
+
+- ``"dense"`` (also ``"xla"``, the JAX package's default): the oracle layer
+  of ``models/egnn.py``;
+- ``"fused"`` (also ``"auto"``, ``"pallas_lane"``, ``"g8"``):
+  ``score_network_forward`` runs the training layer
+  (``ops/egnn_loop.py::egnn_forward_loop``: the neighbour-loop kernels with
+  their hand-written backward), and ``diffusion/sampler.py`` runs the
+  forward-only fused layer of ``ops/egnn_fused.py``;
+- ``"pallas"``: the round-1 fused layer of ``ops/egnn_pallas.py`` (its
+  kernel forward, the dense layer's autograd backward), fp32 only.
 """
 
 from __future__ import annotations
@@ -31,16 +36,22 @@ from pmhc_tpu_torch.geometry import RigidArray
 from pmhc_tpu_torch.models.egnn import EGNNLayer, egnn_forward
 from pmhc_tpu_torch.models.nn import init_uniform_
 
-FUSED_BACKENDS = ("fused", "auto", "pallas_lane", "g8")
+BACKENDS = {"dense": "dense", "xla": "dense", "fused": "fused", "auto": "fused",
+            "pallas_lane": "fused", "g8": "fused", "pallas": "pallas"}
+# the JAX package's backends that the port has not ported yet
+NOT_PORTED = {"blockwise": "ROADMAP Queue 1, the remaining modules (models/egnn_blockwise.py)",
+              "cp": "ROADMAP Queue 1, multi-GPU (context parallelism)",
+              "ring": "ROADMAP Queue 1, multi-GPU (context parallelism)"}
 
 
 def resolve_backend(name: str) -> str:
-    """``"dense"`` or ``"fused"`` for a backend name (JAX names accepted)."""
-    if name == "dense":
-        return "dense"
-    if name in FUSED_BACKENDS:
-        return "fused"
-    raise ValueError(f"unknown backend {name!r}: use 'dense' or one of {FUSED_BACKENDS}")
+    """``"dense"``, ``"fused"`` or ``"pallas"`` for a backend name (the JAX
+    package's names accepted)."""
+    if name in BACKENDS:
+        return BACKENDS[name]
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"backend {name!r} is not ported yet: {NOT_PORTED[name]}")
+    raise ValueError(f"unknown backend {name!r}: use one of {sorted(BACKENDS)}")
 
 
 @dataclass(frozen=True)
@@ -105,14 +116,18 @@ def score_network_forward(
     ``features`` [B, N, 22], ``mask`` [B, N], ``pocket_frames`` (RigidArray
     [B, P]), ``pocket_mask`` [B, P], ``pocket_features`` [B, P, 22].
     ``t``: int, or a [B] tensor of per-sample timesteps. ``bf16`` selects
-    the loop kernels' bf16 mode (``"fused"`` backend only).
+    the loop kernels' bf16 mode (``"fused"`` backend only: ``"pallas"``
+    runs fp32 whatever it asks, as in the JAX package).
     Returns ``{"frames": RigidArray, "torsions": [B, N, 7, 2]}``.
     """
-    if resolve_backend(config.backend) == "fused":
+    backend = resolve_backend(config.backend)
+    if backend == "fused":
         from pmhc_tpu_torch.ops.egnn_loop import egnn_forward_loop
 
         def layer(*args):
             return egnn_forward_loop(*args, bf16=bf16)
+    elif backend == "pallas":
+        from pmhc_tpu_torch.ops.egnn_pallas import egnn_forward_pallas_trainable as layer
     else:
         layer = egnn_forward
     frames: RigidArray = batch["frames"]

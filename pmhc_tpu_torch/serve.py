@@ -1,22 +1,41 @@
-"""Serving: a resident sampler for one batch shape, entries in, PDB bytes out.
+"""Serving: a resident sampler for one batch shape, entries in, PDB bytes
+out, and a micro-batching front over it.
 
-Counterpart of ``pmhc_tpu/serve.py::SamplerService``: ``sample_entries``
-takes up to ``batch_size`` single-complex entry dicts (numpy, the
-``ENTRY_SPECS`` contract), replaces the peptide state with pure noise,
-runs the reverse chain (``diffusion.sampler.sample``), converts frames
-and torsions to atom14 on the device and returns one PDB per entry.
-``dispatch`` / ``finalize`` split the device work from the host
-serialization so a caller can overlap them.
+Counterpart of ``pmhc_tpu/serve.py``:
+
+- ``SamplerService``: ``sample_entries`` takes up to ``batch_size``
+  single-complex entry dicts (numpy, the ``ENTRY_SPECS`` contract),
+  replaces the peptide state with pure noise, runs the reverse chain
+  (``diffusion.sampler.sample``), converts frames and torsions to atom14 on
+  the device and returns one PDB per entry. ``dispatch`` / ``finalize``
+  split the device work from the host serialization so a caller can
+  overlap them.
+- ``BatchingSampler``: a thread-safe ``submit(entry) -> Future`` front. A
+  collector thread packs queued requests into batches (full batch or
+  ``max_wait_ms``, whichever first) and launches them; a finisher thread
+  fetches and serializes the previous batch's PDBs while the device runs
+  the next. ``max_queue`` bounds the undispatched backlog (``Overloaded``).
+- ``frame_models``: N conformations as one multi-MODEL PDB.
+- The HTTP front end is ``pmhc_tpu_torch.cli.serve_cli``.
 
 The service runs on the card: ``device=None`` means ``"cuda"``, and with
 no card it raises unless the caller asks for ``device="cpu"``. Randomness
 comes from explicit ``torch.Generator``s on the service's device; a
-service built with ``seed`` owns one, used when a call passes none.
+service built with ``seed`` owns one, used when a call passes none. The
+JAX package's ``fold_in(base_key, counter)`` per dispatched batch becomes
+``SamplerService.batch_generator(counter)``: a fresh generator seeded
+``batch_seed(seed, counter) = (seed mod 2**32) * 2**32 + counter`` (the
+``BatchingSampler``'s batches count from 0). A request's trajectory
+depends on the batch it lands in, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import logging
+import queue
+import threading
 import time
+from concurrent.futures import Future
 from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
@@ -26,6 +45,8 @@ from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
 from pmhc_tpu_torch.diffusion import DiffusionConfig, ScheduleTables, gen_noise, sample
 from pmhc_tpu_torch.io.pdb import convert_batch_for_pdb, fetch_pdb_arrays, pdb_bytes
 from pmhc_tpu_torch.models.score import ScoreNetwork, ScoreNetworkConfig, resolve_backend
+
+_log = logging.getLogger(__name__)
 
 # Single-entry request contract: name -> (shape with None for the
 # variable protein length, accepted dtype kinds).
@@ -119,8 +140,11 @@ class SamplerService:
     ``params``: a ``ScoreNetwork`` or its ``state_dict``. ``backend``:
     ``"auto"`` (also ``"pallas_lane"``/``"g8"``/``"fused"``) takes the fused
     layer — its CUDA kernel on the card, its plain version on the CPU;
-    ``"dense"`` the oracle layer. ``bf16`` selects the kernel's bf16 mode.
-    ``fast_f32`` runs the fp32 mode: the port has no 3-pass mode yet.
+    ``"pallas"`` the round-1 fused layer (``ops/egnn_pallas.py``), the same
+    way; ``"dense"`` (also ``"xla"``) the oracle layer. ``bf16`` selects the
+    fused kernel's bf16 mode; the ``pallas`` and ``dense`` backends run
+    fp32 whatever it asks (``precision`` says what runs). ``fast_f32`` runs
+    the fp32 mode: the port has no 3-pass mode yet.
     """
 
     def __init__(
@@ -155,7 +179,18 @@ class SamplerService:
             model.load_state_dict(params, strict=True)
         self.model = model.to(self.device).eval()
         self.num_steps = num_steps
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.seed = int(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+
+    @property
+    def precision(self) -> str:
+        """The precision the layers run at: ``"bf16"`` only for the fused
+        backend asked for bf16, else ``"f32"``."""
+        return "bf16" if self.bf16 and self.backend == "fused" else "f32"
+
+    def batch_generator(self, counter: int) -> torch.Generator:
+        """The generator of dispatched batch ``counter`` (``batch_seed``)."""
+        return torch.Generator(device=self.device).manual_seed(batch_seed(self.seed, counter))
 
     # -- device side -------------------------------------------------------
 
@@ -199,8 +234,156 @@ class SamplerService:
 
     def warmup(self) -> float:
         """Run one synthetic entry end to end (builds the kernel on first
-        use); returns elapsed seconds."""
+        use) with batch 0's generator; returns elapsed seconds."""
         t0 = time.monotonic()
-        self.sample_entries([dummy_entry()])
+        self.sample_entries([dummy_entry()], self.batch_generator(0))
         return time.monotonic() - t0
 
+
+
+def batch_seed(seed: int, counter: int) -> int:
+    """The seed of dispatched batch ``counter`` of a service seeded
+    ``seed``: ``(seed mod 2**32) * 2**32 + counter mod 2**32``."""
+    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(counter) & 0xFFFFFFFF)
+
+
+class Overloaded(RuntimeError):
+    """Raised by :meth:`BatchingSampler.submit` when the pending-request
+    queue is at ``max_queue``: the fail-fast overload signal (the HTTP front
+    end maps it to 503 + Retry-After)."""
+
+
+class BatchingSampler:
+    """Thread-safe micro-batching front over a :class:`SamplerService`.
+
+    ``submit(entry)`` returns a ``concurrent.futures.Future`` resolving to
+    that entry's PDB bytes. A collector thread packs the queue into batches
+    (dispatching as soon as the batch is full or the oldest queued request
+    has waited ``max_wait_ms``) with the generator of that batch's number
+    (``SamplerService.batch_generator``); a finisher thread fetches and
+    serializes batch k while the device samples batch k+1.
+
+    Both threads stay on the device's default stream (the current stream is
+    per thread in PyTorch), so the finisher's fetch orders after the
+    collector's sampling. At most two dispatched batches are in flight (the
+    ``maxsize=2`` done queue blocks the collector until the finisher
+    drains), and ``max_queue`` bounds the undispatched backlog: beyond it
+    ``submit`` raises :class:`Overloaded`. ``close()`` drains: every future
+    already accepted is resolved (result or exception) before the threads
+    exit. ``batches`` counts the dispatched batches.
+    """
+
+    def __init__(self, service: SamplerService, max_wait_ms: float = 25.0,
+                 max_queue: int | None = None):
+        self.service = service
+        self.max_queue = max_queue
+        self.max_wait = max_wait_ms / 1000.0
+        self._q: "queue.Queue" = queue.Queue()
+        self._done: "queue.Queue" = queue.Queue(maxsize=2)  # backpressure
+        self._closed = threading.Event()
+        self.batches = 0
+        # serializes the max_queue headroom check against concurrent
+        # submitters (the collector only shrinks the queue, so a
+        # check-then-put under this lock never overshoots the bound)
+        self._submit_lock = threading.Lock()
+        self._collector = threading.Thread(
+            target=self._collect_loop, name="pmhc-serve-collect", daemon=True)
+        self._finisher = threading.Thread(
+            target=self._finish_loop, name="pmhc-serve-finish", daemon=True)
+        self._collector.start()
+        self._finisher.start()
+
+    def submit(self, entry: Dict[str, np.ndarray]) -> Future:
+        return self.submit_many([entry])[0]
+
+    def submit_many(self, entries) -> List[Future]:
+        """Atomically enqueue a group of entries (all or none): either every
+        entry is accepted (each future resolves to its PDB bytes, or to the
+        validation error of that entry) or the whole group is rejected with
+        :class:`Overloaded`."""
+        if self._closed.is_set():
+            raise RuntimeError("BatchingSampler is closed")
+        futures: List[Future] = [Future() for _ in entries]
+        accepted = []
+        for entry, fut in zip(entries, futures):
+            try:
+                accepted.append((validate_entry(entry), fut))
+            except ValueError as e:
+                fut.set_exception(e)
+        with self._submit_lock:
+            if (self.max_queue is not None and accepted
+                    and self._q.qsize() + len(accepted) > self.max_queue):
+                raise Overloaded(f"pending queue at max_queue={self.max_queue}; retry later")
+            for item in accepted:
+                self._q.put(item)
+        return futures
+
+    def close(self) -> None:
+        self._closed.set()
+        self._collector.join(timeout=30)
+        self._finisher.join(timeout=30)
+
+    # -- internals ---------------------------------------------------------
+
+    def _collect_loop(self) -> None:
+        B = self.service.batch_size
+        while True:
+            try:
+                first = self._q.get(timeout=0.05)
+            except queue.Empty:
+                if self._closed.is_set():
+                    self._done.put(None)
+                    return
+                continue
+            batch = [first]
+            deadline = time.monotonic() + self.max_wait
+            while len(batch) < B:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                try:
+                    batch.append(self._q.get(timeout=left))
+                except queue.Empty:
+                    break
+            entries = [e for e, _ in batch]
+            futures = [f for _, f in batch]
+            generator = self.service.batch_generator(self.batches)
+            self.batches += 1
+            try:
+                handle = self.service.dispatch(entries, generator)
+            except Exception as e:  # noqa: BLE001 — propagate to callers
+                for f in futures:
+                    f.set_exception(e)
+                continue
+            self._done.put((handle, futures))
+
+    def _finish_loop(self) -> None:
+        while True:
+            item = self._done.get()
+            if item is None:
+                return
+            handle, futures = item
+            try:
+                pdbs = self.service.finalize(handle)
+            except Exception as e:  # noqa: BLE001
+                _log.exception("serializing a batch failed")
+                for f in futures:
+                    f.set_exception(e)
+                continue
+            for f, p in zip(futures, pdbs):
+                f.set_result(p)
+
+
+def frame_models(pdbs: List[bytes]) -> bytes:
+    """Join N conformations of one complex into a single multi-MODEL PDB
+    (NMR-style framing), as one response body."""
+    if len(pdbs) == 1:
+        return pdbs[0]
+    parts = []
+    for i, p in enumerate(pdbs):
+        body = p[:-len(b"END\n")] if p.endswith(b"END\n") else p
+        parts.append(b"MODEL %8d\n" % (i + 1))
+        parts.append(body)
+        parts.append(b"ENDMDL\n")
+    parts.append(b"END\n")
+    return b"".join(parts)

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: the fused EGNN layer and the
-training neighbour loop (forward and backward) against their plain
-PyTorch versions, and the sampler's and the trainer's routes through them.
+"""The port's CUDA kernels on the card: the fused EGNN layer, the
+training neighbour loop (forward and backward) and the round-1 fused
+layer (``pallas`` backend) against their plain PyTorch versions, and the
+sampler's and the trainer's routes through them.
 
 Each test skips without a card. This file imports neither JAX nor the JAX
 package, so it runs where only the port is installed:
@@ -13,17 +14,31 @@ quats and torsions 5e-5, translations and features 2e-4 (sum order
 only); bf16 one bf16 ulp of slack on top: quats and torsions 2e-3,
 translations 2e-2, features 1e-2. Loop kernels, as a share of each
 tensor's largest magnitude: fp32 forward 2e-5, gradients 2e-4; bf16
-forward 2e-3, gradients 3e-2 (``LOOP_TOL``).
+forward 2e-3, gradients 3e-2 (``LOOP_TOL``). Round-1 fused layer: the
+fused layer's fp32 tolerances (``PALLAS_TOL``); its sampler against the
+dense one: ``TRAJ_TOL``.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import LOOP_TOL, TOL, layer_case, loop_case, loop_errors, loop_run, random_model
+from chip_smoke import (
+    LOOP_TOL,
+    PALLAS_TOL,
+    TOL,
+    layer_case,
+    loop_case,
+    loop_errors,
+    loop_run,
+    pallas_case,
+    random_model,
+    trajectory_check,
+)
 from pmhc_tpu_torch.data.synthetic import synthetic_batch
 from pmhc_tpu_torch.ops import egnn_fused as ef
 from pmhc_tpu_torch.ops import egnn_loop as el
+from pmhc_tpu_torch.ops import egnn_pallas as ep
 from pmhc_tpu_torch.serve import SamplerService, dummy_entry
 from pmhc_tpu_torch.train import TrainConfig, Trainer
 
@@ -100,3 +115,27 @@ def test_trainer_launches_two_loop_kernels_each_way_per_step(bf16):
     mode = "bf16" if bf16 else "fp32"
     assert el.LAUNCHES == {k: (4 if k.endswith(mode) else 0) for k in el.LAUNCHES}
     assert all(torch.isfinite(v) for v in sums.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch_size", [5, 64])
+def test_pallas_kernel_matches_plain(batch_size):
+    """Kernel #3 at both layer shapes, on batches with fully masked rows."""
+    dev = _card()
+    model = random_model(seed=0).to(dev)
+    for seed, layer in enumerate(("gnn1", "gnn2")):
+        args = pallas_case(model, layer, seed=seed + 1, device=dev, batch_size=batch_size)
+        assert int((args[8].sum(-1) == 0).sum()) > 0
+        got = ep.egnn_pallas(*args)
+        want = ep.egnn_pallas_plain(*args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=PALLAS_TOL[name],
+                                       err_msg=f"{layer} {name}")
+
+
+@pytest.mark.gpu
+def test_pallas_sampler_matches_dense_sampler():
+    """A 4-step trajectory through kernel #3 (2 launches per step) against
+    the dense oracle with the same injected noise (``TRAJ_TOL``)."""
+    trajectory_check(random_model(seed=1).to(_card()), torch.device("cuda"), "pallas")

@@ -1,8 +1,8 @@
 """The port stands alone: no file of ``pmhc_tpu_torch/`` (nor
 ``chip_smoke.py``) imports JAX or the JAX package, importing the port
-leaves JAX unloaded, its entry points (``SamplerService``, ``Trainer``)
-refuse to fall back to the CPU by themselves, and nothing in it turns on
-TF32."""
+leaves JAX unloaded, its entry points (``SamplerService``, ``Trainer``,
+the HTTP server's ``create_server``) refuse to fall back to the CPU by
+themselves, and nothing in it turns on TF32."""
 
 import ast
 import os
@@ -49,7 +49,8 @@ def test_port_imports_neither_jax_nor_pmhc_tpu():
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys; import pmhc_tpu_torch, pmhc_tpu_torch.serve, "
             "pmhc_tpu_torch.ops.egnn_fused, pmhc_tpu_torch.models.import_params, "
-            "pmhc_tpu_torch.ops.egnn_loop, pmhc_tpu_torch.train; "
+            "pmhc_tpu_torch.ops.egnn_loop, pmhc_tpu_torch.train, pmhc_tpu_torch.ops.egnn_pallas, "
+            "pmhc_tpu_torch.cli.serve_cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pmhc_tpu')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -70,6 +71,25 @@ def test_service_without_device_needs_the_card():
             SamplerService(model, noise_step_count=2)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SamplerService(model, noise_step_count=2, device="cuda")
+
+
+def test_server_without_device_needs_the_card(tmp_path):
+    from pmhc_tpu_torch.cli.serve_cli import build_parser, create_server
+    from pmhc_tpu_torch.models import ScoreNetwork
+
+    path = str(tmp_path / "model.pth")
+    torch.save(ScoreNetwork().state_dict(), path)
+    args = build_parser().parse_args([path, "--port", "0", "-T", "2", "--batch-size", "1",
+                                      "--backend", "pallas"])
+    assert args.device == "cuda"
+    if torch.cuda.is_available():
+        server = create_server(args)
+        assert server.batcher.service.device.type == "cuda"
+        server.batcher.close()
+        server.server_close()
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            create_server(args)
 
 
 def test_trainer_without_device_needs_the_card():

@@ -8,9 +8,11 @@ card has 3 SMs) without a card. The card's compiler, timing and races are
 ``chip_smoke.py``'s and ``test_torch_gpu.py``'s to show.
 
 Tolerances are ``chip_smoke.py``'s: loop kernels ``LOOP_TOL`` (a share of
-each tensor's largest magnitude), fused kernel ``TOL``. Batch 1 and one
-layer shape per case keep the emulation (one OS thread per CUDA thread)
-to seconds. Skips without g++.
+each tensor's largest magnitude), fused kernel ``TOL``, kernel #3
+``PALLAS_TOL``. Batch 1 (batch 3 for kernel #3, whose batch holds
+peptides of 9, 5 and 1 residues: fully masked rows) and one layer shape
+per case keep the emulation (one OS thread per CUDA thread) to seconds.
+Skips without g++.
 """
 
 import numpy as np
@@ -19,17 +21,20 @@ import torch
 
 from chip_smoke import (
     LOOP_TOL,
+    PALLAS_TOL,
     TOL,
     layer_case,
     loop_case,
     loop_errors,
     loop_named,
     loop_run,
+    pallas_case,
     random_model,
 )
 from pmhc_tpu_torch.ops import _emulate
 from pmhc_tpu_torch.ops import egnn_fused as ef
 from pmhc_tpu_torch.ops import egnn_loop as el
+from pmhc_tpu_torch.ops import egnn_pallas as ep
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -62,3 +67,20 @@ def test_fused_kernel_emulated_matches_plain(mode):
     want = ef.egnn_fused_plain(*args, bf16=bf16)
     for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL[mode][name], err_msg=name)
+
+
+@pytest.mark.parametrize("layer,q_scale", [("gnn1", 1.0), ("gnn2", 1.3)])
+def test_pallas_kernel_emulated_matches_plain(layer, q_scale):
+    """``q_scale``: the peptide quaternions (q_i and the peptide half of
+    q_j) scaled off the unit sphere, where the kernel's second
+    normalisation of the updated quaternion is not a no-op."""
+    lib = _lib("egnn_pallas", ep.bind)
+    args = list(pallas_case(random_model(seed=0), layer, seed=3, device=CPU, batch_size=3))
+    N = args[3].shape[1]
+    args[3] = args[3] * q_scale
+    args[5] = torch.cat((args[5][:, :N] * q_scale, args[5][:, N:]), dim=1)
+    assert lib.egnn_pallas_weights_size(args[0].H, args[0].E, args[0].O) == args[0].buf.numel()
+    got = ep.launch(lib, *args)
+    want = ep.egnn_pallas_plain(*args)
+    for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=PALLAS_TOL[name], err_msg=name)
