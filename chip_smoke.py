@@ -211,8 +211,10 @@ def work_of(args, bf16: bool):
 
 
 def pallas_case(model, layer: str, seed: int, device, batch_size: int = B):
-    """Kernel #3's inputs (``ops/egnn_pallas.py::PallasContext.inputs``) for
-    one layer shape, with peptides of ``PALLAS_LENGTHS`` residues."""
+    """Kernel #3's static context (``ops/egnn_pallas.py::pallas_context``,
+    the main path's entry) and the peptide state ``(h, q, t, tors)`` it is
+    called with, for one layer shape, with peptides of ``PALLAS_LENGTHS``
+    residues. ``ctx.inputs(*step)`` are the kernel's ten inputs."""
     import torch
 
     from pmhc_tpu_torch.ops.egnn_pallas import pallas_context
@@ -221,25 +223,26 @@ def pallas_case(model, layer: str, seed: int, device, batch_size: int = B):
         model, layer, seed, device, batch_size, lengths=PALLAS_LENGTHS)
     with torch.no_grad():
         ctx = pallas_context(mod, edge_pre, mask, ph, pf, pm)
-        return ctx.inputs(h.contiguous(), frames.quats.contiguous(), frames.trans.contiguous(),
-                          tors.contiguous())
+    return ctx, (h.contiguous(), frames.quats.contiguous(), frames.trans.contiguous(),
+                 tors.contiguous())
 
 
 def work_of_pallas(args):
     """(FLOP, bytes, bound ms, bound_by) of one launch of kernel #3 on these
-    inputs, from its design's own operation count. Per (b, i, j) pair, in
-    multiply-adds: the neighbour projection H x T, the message lin2 T x M,
-    the attention lin1 (M + 2) x T, the rotation lin1 (M + 4) x T, the
-    torsion and translation lin1 M x T each, the four lin2 13 x T; per
-    query row: a_i H x T, the torsion node term 14 x T, the feature MLP
-    (H + M) x T + T x O. Each MAC is 2 operations; each input is read once
-    and each output written once."""
+    inputs: the operations the layer needs. Per (b, i, j) pair, in
+    multiply-adds: the message lin2 T x M, the attention lin1 (M + 2) x T,
+    the rotation lin1 (M + 4) x T, the torsion and translation lin1 M x T
+    each, the four lin2 13 x T; per query row: a_i H x T, the torsion node
+    term 14 x T, the feature MLP (H + M) x T + T x O; per (b, j) neighbour:
+    its projection h_j H x T (the kernel repeats it for every query row,
+    as the TPU kernel does; the function needs it once). Each MAC is 2
+    operations; each input is read once and each output written once."""
     w, h, h_all, q_i, t_i, q_j, t_j, tors, mask, edge = args
     Bn, N, NP = mask.shape
     H, T, M = h.shape[-1], edge.shape[-1], edge.shape[-1]
-    pair = H * T + T * M + (M + 2) * T + (M + 4) * T + 2 * M * T + 13 * T
+    pair = T * M + (M + 2) * T + (M + 4) * T + 2 * M * T + 13 * T
     row = H * T + 14 * T + (H + M) * T + T * w.O
-    flops = 2 * (Bn * N * NP * pair + Bn * N * row)
+    flops = 2 * (Bn * N * NP * pair + Bn * N * row + Bn * NP * H * T)
     in_bytes = sum(x.numel() * 4 for x in (w.buf,) + tuple(args[1:]))
     out_bytes = Bn * N * (4 + 3 + 14 + w.O) * 4
     t_ops, t_bytes = flops / PEAK_FP32, (in_bytes + out_bytes) / PEAK_BYTES
@@ -615,18 +618,19 @@ def trajectory_check(model, dev, backend: str) -> None:
 
 
 def check_pallas_kernel(cases) -> float:
-    """Phase 3, kernel #3: against its plain version at batch 64, both layer
+    """Phase 3, kernel #3: through the main path's entry (the layer's
+    ``PallasContext``) against its plain version at batch 64, both layer
     shapes, fp32 tolerances (``PALLAS_TOL``). Returns the max abs error."""
     import torch
 
     from pmhc_tpu_torch.ops import egnn_pallas as ep
 
     worst = 0.0
-    for layer, args in cases.items():
-        got = ep.egnn_pallas(*args)
-        want = ep.egnn_pallas_plain(*args)
+    for layer, (ctx, step) in cases.items():
+        got = ctx(*step)
+        want = ep.egnn_pallas_plain(*ctx.inputs(*step))
         torch.cuda.synchronize()
-        masked = int((args[8].sum(-1) == 0).sum())
+        masked = int((ctx.msg_mask.sum(-1) == 0).sum())
         for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
             err = float((g - w).abs().max())
             ok = err <= PALLAS_TOL[name] and bool(torch.isfinite(g).all())
@@ -847,7 +851,8 @@ def pallas_times(cases, launches: int, err: float, card: str) -> dict:
     stream = torch.cuda.current_stream().cuda_stream
     per = {"ms": [], "plain_ms": [], "bound_ms": []}
     bound_by = None
-    for layer, args in cases.items():
+    for layer, (ctx, step) in cases.items():
+        args = ctx.inputs(*step)
         ms = time_ms(lambda: ep.launch(lib, *args, stream=stream), 50)
         plain = time_ms(lambda: ep.egnn_pallas_plain(*args), 5)
         flops, nbytes, bound_ms, bound_by = work_of_pallas(args)

@@ -183,9 +183,12 @@ def create_server(args) -> ThreadingHTTPServer:
             except ValueError:
                 self._refuse(400, {"error": f"samples must be in [1, {max_samples}]"})
                 return
-            length = int(self.headers.get("Content-Length", 0))
-            if not 0 < length <= MAX_BODY:
-                self._refuse(400, {"error": "missing or oversized body"})
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                if not 0 < length <= MAX_BODY:
+                    raise ValueError
+            except ValueError:
+                self._refuse(400, {"error": "missing, malformed or oversized body"})
                 return
             body = self.rfile.read(length)
             try:

@@ -33,12 +33,13 @@
 // Bound. Per (b, i, j) pair, in multiply-adds: message lin2 T*M = 4,096;
 // attention lin1 4,096 (+ 2 x 64 rank-1); rotation lin1 (M+4) T = 4,352;
 // torsion lin1 4,096 (its 14-column node part once per row); translation
-// lin1 4,096; the four lin2 13 x 64 = 832; the neighbour projection H x T
-// (1,472 at H = 23, 4,096 at H = 64): ~23.2 K / 25.8 K MAC per pair. At
-// B = 64 (98,304 pairs) that is ~4.6 / 5.1 GFLOP per launch against ~2.2
-// / 3.1 MB of inputs and outputs (mostly h_all, the mask and the edge
-// terms): bound by operations. fp32 FMA peak 67 TFLOP/s -> >= ~0.068 /
-// 0.076 ms (chip_smoke.py::work_of_pallas counts it from the run's shapes).
+// lin1 4,096; the four lin2 13 x 64 = 832: ~21.7 K MAC per pair; plus the
+// neighbour projection H x T once per (b, j) (1,472 at H = 23, 4,096 at
+// H = 64). At B = 64 (98,304 pairs) that is ~4.31 / 4.34 GFLOP per launch
+// against ~2.2 / 3.1 MB of inputs and outputs (mostly h_all, the mask and
+// the edge terms): bound by operations. fp32 FMA peak 67 TFLOP/s ->
+// >= ~0.064 / 0.065 ms (chip_smoke.py::work_of_pallas counts it from the
+// run's shapes).
 //
 // Design. One block of 256 threads per query row (b, i): B*N = 1,024
 // blocks at B = 64, two resident per SM (__launch_bounds__(256, 2),
@@ -56,7 +57,8 @@
 // the softmax and the 14 weighted neighbour sums are warp reductions,
 // and thread 0 writes the geometry. The neighbour projection
 // h_j @ mw1[H:2H] is part of #3's body and is recomputed per row, as on
-// the TPU. fp32 IEEE FMA throughout (no TF32, no tensor cores: wgmma and
+// the TPU: 16x the work the layer needs for it (6 / 15 % of the kernel's
+// FLOP at H = 23 / 64), which a redesign can hoist. fp32 IEEE FMA throughout (no TF32, no tensor cores: wgmma and
 // TMA are later work).
 //
 // Interface: plain C, loaded with ctypes. The launcher allocates

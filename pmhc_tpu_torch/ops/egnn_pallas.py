@@ -22,8 +22,9 @@ fp32 only: the JAX package runs this kernel at HIGHEST precision whatever
 ``--bf16`` or ``--fast-f32`` ask (its score network passes no precision
 to the ``pallas`` backend), and so does the port.
 
-``egnn_pallas`` launches the kernel for CUDA tensors and takes
-``egnn_pallas_plain`` only for CPU tensors. ``EGNNPallasFn`` makes the
+A layer's ``PallasContext`` (``pallas_context``) is the one checked entry:
+called with the peptide state, it launches the kernel for CUDA tensors
+and takes ``egnn_pallas_plain`` only for CPU tensors. ``EGNNPallasFn`` makes the
 layer differentiable as the JAX package's custom VJP does: the forward is
 the kernel; the backward re-runs the dense layer (``models/egnn.py``)
 under autograd and differentiates it (rematerialisation). There is no
@@ -253,21 +254,6 @@ def _check_step(w: PackedPallas, h, q_i, t_i, tors, B: int, N: int, dev) -> None
     for name, x, shape in (("h", h, (B, N, w.H)), ("q_i", q_i, (B, N, 4)), ("t_i", t_i, (B, N, 3)),
                            ("tors", tors, (B, N, N_TORSIONS, 2))):
         _check(name, x, shape, dev, who="egnn_pallas")
-
-
-def egnn_pallas(w: PackedPallas, h, h_all, q_i, t_i, q_j, t_j, tors, msg_mask, edge):
-    """The layer on the kernel's inputs: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. Raises on anything the kernel does
-    not take."""
-    B, N, NP = msg_mask.shape
-    dev = h.device
-    _check_weights(w, dev)
-    _check_step(w, h, q_i, t_i, tors, B, N, dev)
-    for name, x, shape in (("h_all", h_all, (B, NP, w.H)), ("q_j", q_j, (B, NP, 4)),
-                           ("t_j", t_j, (B, NP, 3)), ("msg_mask", msg_mask, (B, N, NP)),
-                           ("edge", edge, (N, NP, T))):
-        _check(name, x, shape, dev, who="egnn_pallas")
-    return _run(w, h, h_all, q_i, t_i, q_j, t_j, tors, msg_mask, edge)
 
 
 @dataclass

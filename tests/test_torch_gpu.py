@@ -120,14 +120,15 @@ def test_trainer_launches_two_loop_kernels_each_way_per_step(bf16):
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch_size", [5, 64])
 def test_pallas_kernel_matches_plain(batch_size):
-    """Kernel #3 at both layer shapes, on batches with fully masked rows."""
+    """Kernel #3 at both layer shapes, on batches with fully masked rows,
+    through the main path's entry (the layer's ``PallasContext``)."""
     dev = _card()
     model = random_model(seed=0).to(dev)
     for seed, layer in enumerate(("gnn1", "gnn2")):
-        args = pallas_case(model, layer, seed=seed + 1, device=dev, batch_size=batch_size)
-        assert int((args[8].sum(-1) == 0).sum()) > 0
-        got = ep.egnn_pallas(*args)
-        want = ep.egnn_pallas_plain(*args)
+        ctx, step = pallas_case(model, layer, seed=seed + 1, device=dev, batch_size=batch_size)
+        assert int((ctx.msg_mask.sum(-1) == 0).sum()) > 0
+        got = ctx(*step)
+        want = ep.egnn_pallas_plain(*ctx.inputs(*step))
         torch.cuda.synchronize()
         for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=PALLAS_TOL[name],

@@ -75,10 +75,8 @@ def test_pallas_kernel_emulated_matches_plain(layer, q_scale):
     q_j) scaled off the unit sphere, where the kernel's second
     normalisation of the updated quaternion is not a no-op."""
     lib = _lib("egnn_pallas", ep.bind)
-    args = list(pallas_case(random_model(seed=0), layer, seed=3, device=CPU, batch_size=3))
-    N = args[3].shape[1]
-    args[3] = args[3] * q_scale
-    args[5] = torch.cat((args[5][:, :N] * q_scale, args[5][:, N:]), dim=1)
+    ctx, (h, q, t, tors) = pallas_case(random_model(seed=0), layer, seed=3, device=CPU, batch_size=3)
+    args = ctx.inputs(h, q * q_scale, t, tors)
     assert lib.egnn_pallas_weights_size(args[0].H, args[0].E, args[0].O) == args[0].buf.numel()
     got = ep.launch(lib, *args)
     want = ep.egnn_pallas_plain(*args)

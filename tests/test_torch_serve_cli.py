@@ -247,6 +247,14 @@ def test_http_server_end_to_end(tmp_path, model, monkeypatch):
         resp = conn.getresponse()
         assert resp.status == 400
         assert b"mask" in resp.read()
+        # a non-integer Content-Length -> 400 on a closed connection
+        raw = http.client.HTTPConnection(host, port, timeout=60)
+        raw.putrequest("POST", "/sample")
+        raw.putheader("Content-Length", "12x")
+        raw.endheaders()
+        resp = raw.getresponse()
+        assert resp.status == 400 and b"body" in resp.read()
+        raw.close()
 
         # unknown paths -> 404
         conn.request("GET", "/sample")
