@@ -8,7 +8,9 @@ Phases (any failure exits non-zero):
    power limit as ``nvidia-smi`` reports them;
 2. build: compiles every CUDA source of the port from this checkout with
    nvcc, one process per source, all started together (``-Xptxas -v``:
-   registers, shared memory, spills);
+   registers, shared memory, spills). The fused kernel's two
+   instantiations must not spill, and ``cuobjdump -sass`` must find HMMA
+   (tensor-core) instructions in the bf16 one and none in the fp32 one;
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (batch 64, both layer shapes, fp32 and bf16 modes), with
    the tolerances stated below: the fused sampler layer, the training
@@ -17,7 +19,8 @@ Phases (any failure exits non-zero):
    (TPU kernel #3, fp32, on a batch with peptides shorter than 16, so
    some rows are fully masked). The fp32 kernels must fail the bf16
    tolerances against the bf16 plain version on some output, so a bf16
-   mode that skipped its rounding could not pass;
+   mode that skipped its rounding could not pass. The fused layer also
+   runs with its neighbours cut to NP = 90 (a ragged last row tile);
 4. the main paths. Serving: ``SamplerService(batch_size=64,
    noise_step_count=1000)`` answers 3 requests, then two full batches of
    64, in fp32 and in bf16; checks the PDBs parse with finite coordinates
@@ -38,11 +41,14 @@ Phases (any failure exits non-zero):
    kernel never; ``Trainer(backend="pallas")`` takes 5 batch-64 steps
    held against a dense ``Trainer`` from the same seed, 2 launches per step;
 5. times with CUDA events after warm-up: each kernel and its plain version
-   per launch, beside the bound reckoned from this run's shapes; the wall
-   seconds per batch-64 trajectory, per 64-request HTTP batch and per
-   optimizer step; then ``torch.profiler`` over strided 100-step batch-64
-   sampling runs (fused and pallas) and over 10 training steps: device
-   time by kernel, idle share.
+   per launch, beside the bound reckoned from this run's shapes (for the
+   fused layer also ``gemm_ms``, the yardstick of its dominant product
+   alone: one ``torch.matmul`` of [B*N*NP, 64] @ [64, 256] in the mode's
+   precision, which the port never calls); the wall seconds per batch-64
+   trajectory, per 64-request HTTP batch and per optimizer step; then
+   ``torch.profiler`` over strided 100-step batch-64 sampling runs (fused
+   fp32 and bf16, pallas) and over 10 training steps: device time by
+   kernel, idle share.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each ported kernel with its launches, error and times, and the
 line before that is ``nvidia-smi``'s name and power limit of the card.
@@ -52,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -189,6 +196,15 @@ def layer_case(model, layer: str, seed: int, device, batch_size: int = B):
     mod, args = egnn_case(model, layer, seed, device, batch_size)
     with torch.no_grad():
         return layer_inputs(mod, *args)
+
+
+def ragged_case(args, n_neighbours: int = 90):
+    """The fused layer's inputs cut to ``n_neighbours`` along the neighbour
+    axis (a_j, q_j, t_j, edge, mask): NP not a multiple of 16, so the
+    kernel's last mma row tile is partly padding."""
+    w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, mask = args
+    cut = lambda x, axis: x.narrow(axis, 0, n_neighbours).contiguous()
+    return (w, h, q_i, t_i, tors, cut(a_j, 1), cut(q_j, 1), cut(t_j, 1), cut(edge, 1), cut(mask, 2))
 
 
 def work_of(args, bf16: bool):
@@ -466,6 +482,80 @@ def train_main_path(dev, card: str):
         log(json.dumps({"metric": "train_step_s", "mode": mode, "batch": B, "steps": TRAIN_STEPS,
                         "seconds": walls[mode], "card": card}))
     return launches, walls
+
+
+def cuobjdump_path() -> str:
+    """``cuobjdump`` beside ``nvcc``, else the copy in Triton's package."""
+    from pmhc_tpu_torch.ops import _build
+
+    cand = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if os.path.exists(cand):
+        return cand
+    import triton
+
+    cand = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin", "cuobjdump")
+    if not os.path.exists(cand):
+        raise RuntimeError("cuobjdump not found beside nvcc nor in the triton package")
+    return cand
+
+
+def check_fused_build(info: dict) -> dict:
+    """Phase 2, the fused kernel's two instantiations (``<true>`` bf16,
+    ``<false>`` fp32): registers and spills from ``ptxas -v``, and the HMMA
+    (tensor-core) instructions in the built library's SASS. The bf16 one
+    must have some, the fp32 one none (no TF32 either); neither may spill.
+    Returns {mode: {"registers", "spill_bytes", "hmma"}}."""
+    mode_of = lambda name: "bf16" if "egnn_fused_kernelILb1E" in name else \
+        "fp32" if "egnn_fused_kernelILb0E" in name else None
+    res, cur = {}, None
+    for ln in info["log"].splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
+        if m:
+            cur = mode_of(m.group(1))
+            if cur:
+                res.setdefault(cur, {"registers": None, "spill_bytes": 0, "hmma": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            res[cur]["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            res[cur]["registers"] = int(m.group(1))
+    sass = subprocess.run([cuobjdump_path(), "-sass", info["path"]], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    cur = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = mode_of(m.group(1))
+        elif cur and re.search(r"\bHMMA\b", ln):
+            res[cur]["hmma"] += 1
+    log(f"build egnn_fused instantiations: {json.dumps(res)}")
+    if set(res) != {"fp32", "bf16"} or any(r["registers"] is None for r in res.values()):
+        raise AssertionError(f"egnn_fused: ptxas did not report both instantiations: {res}")
+    if not res["bf16"]["hmma"] or res["fp32"]["hmma"]:
+        raise AssertionError("egnn_fused: the bf16 instantiation must use the tensor cores (HMMA) "
+                             f"and the fp32 one must not: {res}")
+    if any(r["spill_bytes"] for r in res.values()):
+        raise AssertionError(f"egnn_fused spills registers: {res}")
+    return res
+
+
+def gemm_ms(args, bf16: bool) -> float:
+    """ms of one ``torch.matmul`` of [B*N*NP, T] @ [T, 4T] in the mode's
+    precision (fp32 without TF32, or bf16): the fused layer's dominant
+    product alone, a yardstick the port never calls."""
+    import torch
+
+    _, h, _, _, _, a_j, _, _, _, mask = args
+    T = a_j.shape[-1]
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    g = torch.Generator(device=h.device).manual_seed(0)
+    x = torch.randn((mask.numel(), T), generator=g, device=h.device).to(dtype)
+    wt = torch.randn((T, 4 * T), generator=g, device=h.device).to(dtype)
+    return time_ms(lambda: torch.matmul(x, wt), iters=100)
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -931,16 +1021,19 @@ def main() -> int:
         for ln in info["log"].splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 log(f"  ptxas: {ln.strip()}")
+    check_fused_build(infos["egnn_fused"])
 
     # -- 3. kernel vs plain version ---------------------------------------------
     model = random_model(seed=0).to(dev).eval()
     cases = {layer: layer_case(model, layer, seed=i + 1, device=dev)
              for i, layer in enumerate(("gnn1", "gnn2"))}
+    # and a ragged last row tile: layer 2's neighbours cut to NP = 90
+    checks = {**cases, "gnn2 NP=90": ragged_case(cases["gnn2"])}
     max_err = {}
     for mode in ("fp32", "bf16"):
         bf16 = mode == "bf16"
         errs = []
-        for layer, args in cases.items():
+        for layer, args in checks.items():
             got = ef.egnn_fused(*args, bf16=bf16)
             want = ef.egnn_fused_plain(*args, bf16=bf16)
             torch.cuda.synchronize()
@@ -952,7 +1045,7 @@ def main() -> int:
                 if not ok:
                     raise AssertionError(f"kernel {mode} {layer} {name} disagrees with plain version")
                 errs.append(err)
-            if not bf16:
+            if not bf16 and layer in cases:
                 # the bf16 tolerances must be tight enough to catch a bf16 mode
                 # that skips its rounding: the fp32 kernel, held against the
                 # bf16 plain version, has to fail them on some output
@@ -1027,21 +1120,28 @@ def main() -> int:
 
     # -- 5. times -------------------------------------------------------------------
     kernels = []
+    # launched as the loop and pallas kernels are timed: through the library
+    # alone, since the checked wrapper's host work per call can exceed the
+    # bf16 kernel's time on a busy host and starve the card
+    fused_lib = ef._lib()
+    stream = torch.cuda.current_stream().cuda_stream
     for mode in ("fp32", "bf16"):
         bf16 = mode == "bf16"
-        per = {"ms": [], "plain_ms": [], "bound_ms": []}
+        per = {"ms": [], "plain_ms": [], "bound_ms": [], "gemm_ms": []}
         bound_by = None
         for layer, args in cases.items():
-            ms = time_ms(lambda: ef.egnn_fused(*args, bf16=bf16), iters=100)
+            ms = time_ms(lambda: ef.launch(fused_lib, *args, bf16=bf16, stream=stream), iters=100)
             plain = time_ms(lambda: ef.egnn_fused_plain(*args, bf16=bf16), iters=10)
+            gemm = gemm_ms(args, bf16)
             flops, nbytes, bound_ms, bound_by = work_of(args, bf16)
             log(json.dumps({"metric": "egnn_fused_ms", "mode": mode, "layer": layer, "ms": ms,
-                            "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
-                            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                            "plain_ms": plain, "gemm_ms": gemm, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                             "tflops": flops / ms / 1e9, "card": card}))
             per["ms"].append(ms)
             per["plain_ms"].append(plain)
             per["bound_ms"].append(bound_ms)
+            per["gemm_ms"].append(gemm)
         kernels.append({
             "name": f"egnn_fused_{mode}", "route": "cuda",
             "source": "pmhc_tpu_torch/csrc/egnn_fused.cu", "replaces": REPLACES[mode],
@@ -1050,6 +1150,8 @@ def main() -> int:
             "ms": float(np.mean(per["ms"])), "plain_ms": float(np.mean(per["plain_ms"])),
             "bound_ms": float(np.mean(per["bound_ms"])), "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes this layer
+            # its dominant product alone, a yardstick (not the layer's function)
+            "gemm_ms": float(np.mean(per["gemm_ms"])),
         })
 
     kernels += loop_times(loop_cases, loop_err, train_launches, card)
@@ -1058,12 +1160,14 @@ def main() -> int:
     # device busy and idle share over a strided K=100 batch-64 run (same
     # per-step work as T=1000, a trace 10x shorter)
     steps_k = 100
-    svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=steps_k, seed=7)
-    svc.sample_entries(entries64[:1])  # warm-up
     gen = torch.Generator(device=dev).manual_seed(99)
-    bd = device_breakdown(lambda: svc.dispatch(entries64, gen))
-    log(json.dumps({"metric": "device_breakdown", "mode": "fp32", "batch": B, "steps": steps_k,
-                    **bd, "card": card}))
+    for mode in ("fp32", "bf16"):
+        svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=steps_k,
+                             bf16=mode == "bf16", seed=7)
+        svc.sample_entries(entries64[:1])  # warm-up
+        bd = device_breakdown(lambda: svc.dispatch(entries64, gen))
+        log(json.dumps({"metric": "device_breakdown", "mode": mode, "batch": B, "steps": steps_k,
+                        **bd, "card": card}))
     svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=steps_k,
                          backend="pallas", seed=7)
     svc.sample_entries(entries64[:1])  # warm-up

@@ -1,6 +1,8 @@
-// Device code shared by the fused sampler layer (egnn_fused.cu) and the
-// training neighbour loop (egnn_loop.cu): the per-chunk recompute of one
-// query row's neighbours, and the online-softmax fold.
+// Device code of the training neighbour loop (egnn_loop.cu): the
+// per-chunk recompute of one query row's neighbours, and the
+// online-softmax fold. Its constants, bf16 rounding, geometry record
+// layout and quaternion and warp helpers are shared with the fused
+// sampler layer (egnn_fused.cu) and the round-1 layer (egnn_pallas.cu).
 //
 // Layout. One block of HEADS = 256 threads per query row (b, i); thread
 // u owns head hidden unit u (head = u / T: 0 attention, 1 rotation,

@@ -6,8 +6,10 @@
 // Shared memory is filled with NaN before each block, so a read of a
 // slot the kernel never wrote shows up in its results. What this cannot
 // show: anything of the card's compiler (registers, spills, launch
-// limits), timing, or races that a barrier here hides.
+// limits), timing, or races that a barrier here hides. PMHC_CUDA_EMU
+// selects the emulated bodies of the PTX primitives (csrc/mma_bf16.cuh).
 #pragma once
+#define PMHC_CUDA_EMU 1
 #include <atomic>
 #include <barrier>
 #include <cmath>
@@ -32,6 +34,9 @@
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct emu_uint3 { unsigned x, y, z; };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
+struct alignas(8) uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -47,6 +52,7 @@ struct EmuBlock {
   std::barrier<>* bar;
   std::vector<std::barrier<>*> wbar;
   float shfl[32][32];
+  uint32_t frag[32][32][6];  // per warp and lane: an mma's A (4) and B (2) registers
 };
 inline thread_local EmuBlock* emu_blk = nullptr;
 

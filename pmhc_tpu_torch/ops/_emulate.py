@@ -23,7 +23,7 @@ from pmhc_tpu_torch.ops._build import BUILD_DIR, CSRC
 
 EMU_DIR = os.path.join(CSRC, "emu")
 GXX_FLAGS = ["-std=c++20", "-O1", "-pthread", "-shared", "-fPIC"]
-SMEM_FLOATS = 40960  # the largest kernel's dynamic shared memory, in floats
+SMEM_FLOATS = 58112  # the card's largest dynamic shared memory a block may opt into, in floats
 
 _TU = """#include "cuda_runtime.h"
 #include "{name}.cu"

@@ -12,8 +12,10 @@ frames ``q_j`` [B, NP, 4] / ``t_j`` [B, NP, 3] (peptide first, then
 pocket), ``edge`` [N, NP, T] (zero toward the pocket) and ``msg_mask``
 [B, N, NP]. Outputs ``(q [B,N,4], t [B,N,3], tors [B,N,7,2], feat [B,N,O])``.
 
-Modes: fp32 (IEEE fp32, no TF32) and bf16 (every MLP matmul operand
-rounded to bf16, fp32 accumulation; geometry, softmax and fold in fp32).
+Modes: fp32 (IEEE fp32, no TF32; the kernel's products on the CUDA
+cores) and bf16 (every MLP matmul operand rounded to bf16, fp32
+accumulation; geometry, softmax and fold in fp32; the kernel's
+per-neighbour products on the tensor cores).
 ``egnn_fused`` launches the kernel for CUDA tensors and takes
 ``egnn_fused_plain`` only for CPU tensors. ``layer_context`` builds and
 checks a layer's static inputs once (the sampler's per-trajectory
@@ -255,7 +257,12 @@ def device_ctx(dev: torch.device):
 def launch(lib, w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16: bool,
            stream: int = 0):
     """One launch of the kernel on checked inputs; returns (q, t, tors,
-    feat). ``stream`` is the CUDA stream handle (0: the default)."""
+    feat). ``stream`` is the CUDA stream handle (0: the default). The
+    kernel copies a_j, q_j and edge in 16-byte pieces (``cp.async``), so
+    their storage must start 16-byte aligned."""
+    for name, x in (("a_j", a_j), ("q_j", q_j), ("edge", edge)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"egnn_fused: {name} must start at a 16-byte aligned address")
     B, N, NP = msg_mask.shape
     dev = h.device
     out_q = torch.empty((B, N, 4), dtype=torch.float32, device=dev)

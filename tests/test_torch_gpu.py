@@ -32,6 +32,7 @@ from chip_smoke import (
     loop_errors,
     loop_run,
     pallas_case,
+    ragged_case,
     random_model,
     trajectory_check,
 )
@@ -66,6 +67,20 @@ def test_cuda_kernel_matches_plain(mode, batch_size):
         for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=TOL[mode][name],
                                        err_msg=f"{layer} {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_cuda_kernel_ragged_tile_matches_plain(mode):
+    """NP = 90, the neighbours cut along their axis: the kernel's last mma
+    row tile is partly zero padding, masked out of the fold."""
+    dev = _card()
+    args = ragged_case(layer_case(random_model(seed=0).to(dev), "gnn2", seed=2, device=dev))
+    got = ef.egnn_fused(*args, bf16=mode == "bf16")
+    want = ef.egnn_fused_plain(*args, bf16=mode == "bf16")
+    torch.cuda.synchronize()
+    for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=TOL[mode][name], err_msg=name)
 
 
 @pytest.mark.gpu

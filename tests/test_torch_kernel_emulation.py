@@ -12,6 +12,8 @@ each tensor's largest magnitude), fused kernel ``TOL``, kernel #3
 ``PALLAS_TOL``. Batch 1 (batch 3 for kernel #3, whose batch holds
 peptides of 9, 5 and 1 residues: fully masked rows) and one layer shape
 per case keep the emulation (one OS thread per CUDA thread) to seconds.
+The fused kernel also runs a ragged neighbour tile (NP = 90) and two
+neighbour tiles per query row (NP = 136, batch 2).
 Skips without g++.
 """
 
@@ -30,6 +32,7 @@ from chip_smoke import (
     loop_run,
     pallas_case,
     random_model,
+    ragged_case,
 )
 from pmhc_tpu_torch.ops import _emulate
 from pmhc_tpu_torch.ops import egnn_fused as ef
@@ -58,15 +61,50 @@ def test_loop_kernels_emulated_match_plain(mode):
     assert not bad, bad
 
 
+def _fused_matches_plain(lib, args, mode):
+    got = ef.launch(lib, *args, bf16=mode == "bf16")
+    want = ef.egnn_fused_plain(*args, bf16=mode == "bf16")
+    for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL[mode][name], err_msg=name)
+
+
 @pytest.mark.parametrize("mode", ["fp32", "bf16"])
 def test_fused_kernel_emulated_matches_plain(mode):
     lib = _lib("egnn_fused", ef.bind)
-    bf16 = mode == "bf16"
     args = layer_case(random_model(seed=0), "gnn1", seed=2, device=CPU, batch_size=1)
-    got = ef.launch(lib, *args, bf16=bf16)
-    want = ef.egnn_fused_plain(*args, bf16=bf16)
-    for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
-        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL[mode][name], err_msg=name)
+    assert lib.egnn_fused_weights_size(args[0].H, args[0].O) == args[0].buf.numel()
+    _fused_matches_plain(lib, args, mode)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_fused_kernel_emulated_ragged_tile(mode):
+    """NP = 90, not a multiple of 16: the last mma row tile is padded with
+    zero rows and its neighbours masked out of the fold."""
+    args = ragged_case(layer_case(random_model(seed=0), "gnn2", seed=5, device=CPU, batch_size=1))
+    _fused_matches_plain(_lib("egnn_fused", ef.bind), args, mode)
+
+
+def _two_tiles(args, extra: int = 40):
+    """The fused layer's inputs with ``extra`` more neighbours (perturbed
+    copies of pocket slots, random mask) at batch 2: NP = 96 + extra, two
+    neighbour tiles, the second ragged over rows a first tile wrote."""
+    w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, mask = args
+    rng = np.random.default_rng(6)
+    more = lambda x, axis: torch.cat((x, x.narrow(axis, 20, extra) + torch.from_numpy(
+        0.1 * rng.standard_normal(x.narrow(axis, 20, extra).shape).astype(np.float32))), axis).contiguous()
+    m = torch.from_numpy((rng.random(mask.shape[:2] + (extra,)) > 0.3).astype(np.float32))
+    mask = torch.cat((mask, m), 2).contiguous()
+    mask[1, 3] = 0.0  # a fully masked row
+    return w, h, q_i, t_i, tors, more(a_j, 1), more(q_j, 1), more(t_j, 1), more(edge, 1), mask
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_fused_kernel_emulated_two_tiles(mode):
+    """NP = 136: the online fold merges two neighbour tiles per query row,
+    the second tile's padding rows hold the first tile's data (and must be
+    zeroed), and the batch's two elements cross a block's rows."""
+    args = _two_tiles(layer_case(random_model(seed=0), "gnn1", seed=7, device=CPU, batch_size=2))
+    _fused_matches_plain(_lib("egnn_fused", ef.bind), args, mode)
 
 
 @pytest.mark.parametrize("layer,q_scale", [("gnn1", 1.0), ("gnn2", 1.3)])
