@@ -9,8 +9,9 @@ Phases (any failure exits non-zero):
 2. build: compiles every CUDA source of the port from this checkout with
    nvcc, one process per source, all started together (``-Xptxas -v``:
    registers, shared memory, spills). The fused kernel's two
-   instantiations must not spill, and ``cuobjdump -sass`` must find HMMA
-   (tensor-core) instructions in the bf16 one and none in the fp32 one;
+   instantiations and kernel #3 must not spill, and ``cuobjdump -sass``
+   must find HMMA (tensor-core) instructions in the fused kernel's bf16
+   instantiation and none in its fp32 one;
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (batch 64, both layer shapes, fp32 and bf16 modes), with
    the tolerances stated below: the fused sampler layer, the training
@@ -19,8 +20,9 @@ Phases (any failure exits non-zero):
    (TPU kernel #3, fp32, on a batch with peptides shorter than 16, so
    some rows are fully masked). The fp32 kernels must fail the bf16
    tolerances against the bf16 plain version on some output, so a bf16
-   mode that skipped its rounding could not pass. The fused layer also
-   runs with its neighbours cut to NP = 90 (a ragged last row tile);
+   mode that skipped its rounding could not pass. The fused layer and
+   kernel #3 also run with their neighbours cut to NP = 90 (a ragged last
+   row tile; for #3 a partial 32-neighbour block);
 4. the main paths. Serving: ``SamplerService(batch_size=64,
    noise_step_count=1000)`` answers 3 requests, then two full batches of
    64, in fp32 and in bf16; checks the PDBs parse with finite coordinates
@@ -241,6 +243,22 @@ def pallas_case(model, layer: str, seed: int, device, batch_size: int = B):
         ctx = pallas_context(mod, edge_pre, mask, ph, pf, pm)
     return ctx, (h.contiguous(), frames.quats.contiguous(), frames.trans.contiguous(),
                  tors.contiguous())
+
+
+def pallas_ragged(ctx, n_neighbours: int = 90):
+    """Kernel #3's context with its neighbours cut to ``n_neighbours`` (the
+    last pocket slots dropped from h_pocket, q_pocket, t_pocket, edge and
+    the mask): NP not a multiple of 32, so the kernel's last 32-neighbour
+    block is partial, and at H = 23 the batch elements' h_all blocks do not
+    start 16-byte aligned."""
+    import dataclasses
+
+    n_pocket = n_neighbours - ctx.msg_mask.shape[1]
+    cut = lambda x, axis, n: x.narrow(axis, 0, n).contiguous()
+    return dataclasses.replace(
+        ctx, h_pocket=cut(ctx.h_pocket, 1, n_pocket), q_pocket=cut(ctx.q_pocket, 1, n_pocket),
+        t_pocket=cut(ctx.t_pocket, 1, n_pocket), edge=cut(ctx.edge, 1, n_neighbours),
+        msg_mask=cut(ctx.msg_mask, 2, n_neighbours))
 
 
 def work_of_pallas(args):
@@ -499,21 +517,18 @@ def cuobjdump_path() -> str:
     return cand
 
 
-def check_fused_build(info: dict) -> dict:
-    """Phase 2, the fused kernel's two instantiations (``<true>`` bf16,
-    ``<false>`` fp32): registers and spills from ``ptxas -v``, and the HMMA
-    (tensor-core) instructions in the built library's SASS. The bf16 one
-    must have some, the fp32 one none (no TF32 either); neither may spill.
-    Returns {mode: {"registers", "spill_bytes", "hmma"}}."""
-    mode_of = lambda name: "bf16" if "egnn_fused_kernelILb1E" in name else \
-        "fp32" if "egnn_fused_kernelILb0E" in name else None
+def ptxas_entries(log: str, kind_of) -> dict:
+    """{kind: {"registers", "spill_bytes", "smem_bytes"}} from an
+    ``nvcc -Xptxas -v`` log, for each entry function that ``kind_of(mangled
+    name)`` names (None: not reported). ``smem_bytes`` is the static shared
+    memory (the kernels' tiles are dynamic)."""
     res, cur = {}, None
-    for ln in info["log"].splitlines():
+    for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
         if m:
-            cur = mode_of(m.group(1))
+            cur = kind_of(m.group(1))
             if cur:
-                res.setdefault(cur, {"registers": None, "spill_bytes": 0, "hmma": 0})
+                res.setdefault(cur, {"registers": None, "spill_bytes": 0, "smem_bytes": 0})
             continue
         if cur is None:
             continue
@@ -523,6 +538,36 @@ def check_fused_build(info: dict) -> dict:
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             res[cur]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            res[cur]["smem_bytes"] = int(m.group(1))
+    return res
+
+
+def check_pallas_build(info: dict) -> dict:
+    """Phase 2, kernel #3: ``egnn_pallas_kernel`` must be reported by
+    ``ptxas -v`` and must not spill. Returns its registers, spill bytes and
+    static shared memory."""
+    res = ptxas_entries(info["log"], lambda name: "fp32" if "egnn_pallas_kernel" in name else None)
+    log(f"build egnn_pallas kernel: {json.dumps(res)}")
+    if set(res) != {"fp32"} or res["fp32"]["registers"] is None:
+        raise AssertionError(f"egnn_pallas: ptxas did not report the kernel: {res}")
+    if res["fp32"]["spill_bytes"]:
+        raise AssertionError(f"egnn_pallas spills registers: {res}")
+    return res["fp32"]
+
+
+def check_fused_build(info: dict) -> dict:
+    """Phase 2, the fused kernel's two instantiations (``<true>`` bf16,
+    ``<false>`` fp32): registers and spills from ``ptxas -v``, and the HMMA
+    (tensor-core) instructions in the built library's SASS. The bf16 one
+    must have some, the fp32 one none (no TF32 either); neither may spill.
+    Returns {mode: {"registers", "spill_bytes", "smem_bytes", "hmma"}}."""
+    mode_of = lambda name: "bf16" if "egnn_fused_kernelILb1E" in name else \
+        "fp32" if "egnn_fused_kernelILb0E" in name else None
+    res = ptxas_entries(info["log"], mode_of)
+    for r in res.values():
+        r["hmma"] = 0
     sass = subprocess.run([cuobjdump_path(), "-sass", info["path"]], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     cur = None
@@ -1022,6 +1067,7 @@ def main() -> int:
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 log(f"  ptxas: {ln.strip()}")
     check_fused_build(infos["egnn_fused"])
+    check_pallas_build(infos["egnn_pallas"])
 
     # -- 3. kernel vs plain version ---------------------------------------------
     model = random_model(seed=0).to(dev).eval()
@@ -1063,7 +1109,9 @@ def main() -> int:
     loop_cases, loop_err = check_loop_kernels(model, dev)
     pallas_cases = {layer: pallas_case(model, layer, seed=20 + i, device=dev)
                     for i, layer in enumerate(("gnn1", "gnn2"))}
-    pallas_err = check_pallas_kernel(pallas_cases)
+    # and a partial last neighbour block: layer 2's neighbours cut to NP = 90
+    pallas_err = check_pallas_kernel({**pallas_cases, "gnn2 NP=90": (
+        pallas_ragged(pallas_cases["gnn2"][0]), pallas_cases["gnn2"][1])})
 
     # -- 4. the main paths ----------------------------------------------------------
     from pmhc_tpu_torch.serve import SamplerService

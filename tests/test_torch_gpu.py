@@ -32,6 +32,7 @@ from chip_smoke import (
     loop_errors,
     loop_run,
     pallas_case,
+    pallas_ragged,
     ragged_case,
     random_model,
     trajectory_check,
@@ -148,6 +149,20 @@ def test_pallas_kernel_matches_plain(batch_size):
         for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=PALLAS_TOL[name],
                                        err_msg=f"{layer} {name}")
+
+
+@pytest.mark.gpu
+def test_pallas_kernel_ragged_matches_plain():
+    """Kernel #3 with its neighbours cut to NP = 90 at batch 64
+    (``pallas_ragged``): a partial last 32-neighbour block."""
+    dev = _card()
+    ctx, step = pallas_case(random_model(seed=0).to(dev), "gnn2", seed=2, device=dev)
+    ctx = pallas_ragged(ctx)
+    got = ctx(*step)
+    want = ep.egnn_pallas_plain(*ctx.inputs(*step))
+    torch.cuda.synchronize()
+    for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=PALLAS_TOL[name], err_msg=name)
 
 
 @pytest.mark.gpu

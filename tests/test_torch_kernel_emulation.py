@@ -9,11 +9,12 @@ card has 3 SMs) without a card. The card's compiler, timing and races are
 
 Tolerances are ``chip_smoke.py``'s: loop kernels ``LOOP_TOL`` (a share of
 each tensor's largest magnitude), fused kernel ``TOL``, kernel #3
-``PALLAS_TOL``. Batch 1 (batch 3 for kernel #3, whose batch holds
+``PALLAS_TOL``. Batch 1 (batch 2-3 for kernel #3, whose batch holds
 peptides of 9, 5 and 1 residues: fully masked rows) and one layer shape
 per case keep the emulation (one OS thread per CUDA thread) to seconds.
 The fused kernel also runs a ragged neighbour tile (NP = 90) and two
-neighbour tiles per query row (NP = 136, batch 2).
+neighbour tiles per query row (NP = 136, batch 2); kernel #3 runs blocks
+that cross a batch element (batch 2) and a ragged NP = 90.
 Skips without g++.
 """
 
@@ -31,6 +32,7 @@ from chip_smoke import (
     loop_named,
     loop_run,
     pallas_case,
+    pallas_ragged,
     random_model,
     ragged_case,
 )
@@ -107,13 +109,24 @@ def test_fused_kernel_emulated_two_tiles(mode):
     _fused_matches_plain(_lib("egnn_fused", ef.bind), args, mode)
 
 
-@pytest.mark.parametrize("layer,q_scale", [("gnn1", 1.0), ("gnn2", 1.3)])
-def test_pallas_kernel_emulated_matches_plain(layer, q_scale):
+@pytest.mark.parametrize("layer,q_scale,batch_size,n_neighbours", [
+    ("gnn1", 1.0, 3, None), ("gnn2", 1.3, 3, None),
+    ("gnn1", 1.0, 2, None), ("gnn2", 1.0, 2, None),
+    ("gnn1", 1.0, 3, 90), ("gnn2", 1.3, 2, 90)])
+def test_pallas_kernel_emulated_matches_plain(layer, q_scale, batch_size, n_neighbours):
     """``q_scale``: the peptide quaternions (q_i and the peptide half of
     q_j) scaled off the unit sphere, where the kernel's second
-    normalisation of the updated quaternion is not a no-op."""
+    normalisation of the updated quaternion is not a no-op. Batch 2 on the
+    emulated card's 3 SMs gives blocks of 11 / 11 / 10 rows: the second
+    crosses a batch element (its neighbour projection is rebuilt mid-block)
+    and the last is partial. ``n_neighbours`` = 90 (``pallas_ragged``): a
+    partial last 32-neighbour block and, at H = 23, h_all blocks that do
+    not start 16-byte aligned."""
     lib = _lib("egnn_pallas", ep.bind)
-    ctx, (h, q, t, tors) = pallas_case(random_model(seed=0), layer, seed=3, device=CPU, batch_size=3)
+    ctx, (h, q, t, tors) = pallas_case(random_model(seed=0), layer, seed=3, device=CPU,
+                                       batch_size=batch_size)
+    if n_neighbours is not None:
+        ctx = pallas_ragged(ctx, n_neighbours)
     args = ctx.inputs(h, q * q_scale, t, tors)
     assert lib.egnn_pallas_weights_size(args[0].H, args[0].E, args[0].O) == args[0].buf.numel()
     got = ep.launch(lib, *args)
