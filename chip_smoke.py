@@ -9,9 +9,10 @@ Phases (any failure exits non-zero):
 2. build: compiles every CUDA source of the port from this checkout with
    nvcc, one process per source, all started together (``-Xptxas -v``:
    registers, shared memory, spills). The fused kernel's two
-   instantiations and kernel #3 must not spill, and ``cuobjdump -sass``
-   must find HMMA (tensor-core) instructions in the fused kernel's bf16
-   instantiation and none in its fp32 one;
+   instantiations, the loop kernels' four and kernel #3 must not spill,
+   and ``cuobjdump -sass`` must find HMMA (tensor-core) instructions in
+   the fused kernel's and the loop backward's bf16 instantiations and none
+   in their fp32 ones;
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (batch 64, both layer shapes, fp32 and bf16 modes), with
    the tolerances stated below: the fused sampler layer, the training
@@ -20,9 +21,10 @@ Phases (any failure exits non-zero):
    (TPU kernel #3, fp32, on a batch with peptides shorter than 16, so
    some rows are fully masked). The fp32 kernels must fail the bf16
    tolerances against the bf16 plain version on some output, so a bf16
-   mode that skipped its rounding could not pass. The fused layer and
-   kernel #3 also run with their neighbours cut to NP = 90 (a ragged last
-   row tile; for #3 a partial 32-neighbour block);
+   mode that skipped its rounding could not pass. The fused layer, the
+   loop kernels and kernel #3 also run with their neighbours cut to NP =
+   90 (a ragged last row tile; for the loop backward a partial second
+   48-neighbour tile; for #3 a partial 32-neighbour block);
 4. the main paths. Serving: ``SamplerService(batch_size=64,
    noise_step_count=1000)`` answers 3 requests, then two full batches of
    64, in fp32 and in bf16; checks the PDBs parse with finite coordinates
@@ -307,6 +309,15 @@ def loop_case(model, layer: str, seed: int, device, batch_size: int = B):
     return (w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, mask), cts
 
 
+def loop_ragged(args, n_neighbours: int = 90):
+    """The loop kernels' inputs cut to ``n_neighbours`` along the neighbour
+    axis (``ragged_case``'s slice of a_j, q_j, t_j, edge and the mask): the
+    backward's last 48-neighbour tile is partly padding."""
+    w, a_i, tor, q_i, t_i, a_j, q_j, t_j, edge, mask = args
+    cut = lambda x, axis: x.narrow(axis, 0, n_neighbours).contiguous()
+    return (w, a_i, tor, q_i, t_i, cut(a_j, 1), cut(q_j, 1), cut(t_j, 1), cut(edge, 1), cut(mask, 2))
+
+
 def loop_run(args, cts, bf16: bool, kernel: bool):
     """The loop's seven outputs and the gradients of <outputs, cts> with
     respect to its nine differentiable inputs (the loop weights as their
@@ -377,18 +388,20 @@ def work_of_loop(args, m, cts, kind: str, bf16: bool):
 
 def check_loop_kernels(model, dev):
     """Phase 3, training loop: both kernels against their plain versions
-    at batch 64 with each layer's weights, fp32 and bf16, forward outputs
-    and every gradient. Returns the cases and the max abs error per mode
-    and kernel."""
+    at batch 64 with each layer's weights and on layer 2's inputs cut to
+    NP = 90, fp32 and bf16, forward outputs and every gradient. Returns the
+    two layers' cases and the max abs error per mode and kernel."""
     cases = {layer: loop_case(model, layer, seed=10 + k, device=dev)
              for k, layer in enumerate(("gnn1", "gnn2"))}
+    # and a ragged last backward tile: layer 2's neighbours cut to NP = 90
+    checks = {**cases, "gnn2 NP=90": (loop_ragged(cases["gnn2"][0]), cases["gnn2"][1])}
     import torch
 
     max_err = {}
     for mode in ("fp32", "bf16"):
         bf16 = mode == "bf16"
         worst = {"fwd": 0.0, "bwd": 0.0}
-        for layer, (args, cts) in cases.items():
+        for layer, (args, cts) in checks.items():
             got = loop_run(args, cts, bf16, kernel=True)
             want = loop_run(args, cts, bf16, kernel=False)
             torch.cuda.synchronize()
@@ -399,7 +412,7 @@ def check_loop_kernels(model, dev):
                     raise AssertionError(f"loop kernel {mode} {layer} {name} disagrees with plain version")
                 kind = "fwd" if name.startswith("out ") else "bwd"
                 worst[kind] = max(worst[kind], err)
-            if not bf16:
+            if not bf16 and layer in cases:
                 # the bf16 tolerances must catch a bf16 mode that skips its
                 # rounding: the fp32 kernels against the bf16 plain version
                 want16 = loop_run(args, cts, True, kernel=False)
@@ -557,15 +570,11 @@ def check_pallas_build(info: dict) -> dict:
     return res["fp32"]
 
 
-def check_fused_build(info: dict) -> dict:
-    """Phase 2, the fused kernel's two instantiations (``<true>`` bf16,
-    ``<false>`` fp32): registers and spills from ``ptxas -v``, and the HMMA
-    (tensor-core) instructions in the built library's SASS. The bf16 one
-    must have some, the fp32 one none (no TF32 either); neither may spill.
-    Returns {mode: {"registers", "spill_bytes", "smem_bytes", "hmma"}}."""
-    mode_of = lambda name: "bf16" if "egnn_fused_kernelILb1E" in name else \
-        "fp32" if "egnn_fused_kernelILb0E" in name else None
-    res = ptxas_entries(info["log"], mode_of)
+def build_entries(info: dict, kind_of) -> dict:
+    """``ptxas_entries`` of a built library, each with ``hmma``: its count
+    of HMMA (tensor-core) instructions in the library's SASS
+    (``cuobjdump -sass``)."""
+    res = ptxas_entries(info["log"], kind_of)
     for r in res.values():
         r["hmma"] = 0
     sass = subprocess.run([cuobjdump_path(), "-sass", info["path"]], capture_output=True, text=True,
@@ -574,9 +583,48 @@ def check_fused_build(info: dict) -> dict:
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            cur = mode_of(m.group(1))
+            cur = kind_of(m.group(1))
         elif cur and re.search(r"\bHMMA\b", ln):
             res[cur]["hmma"] += 1
+    return res
+
+
+def check_loop_build(info: dict) -> dict:
+    """Phase 2, the loop kernels' four instantiations (forward and backward,
+    ``<false>`` fp32 and ``<true>`` bf16): registers and spills from ``ptxas
+    -v`` and HMMA counts from the SASS. None may spill; the bf16 backward
+    must use the tensor cores and the fp32 backward must not (no TF32
+    either). Returns {kind: {"registers", "spill_bytes", "smem_bytes",
+    "hmma"}}."""
+    def kind_of(name):
+        for kind in ("fwd", "bwd"):
+            for flag, mode in (("0", "fp32"), ("1", "bf16")):
+                if f"egnn_loop_{kind}_kernelILb{flag}E" in name:
+                    return f"{kind}_{mode}"
+        return None
+
+    res = build_entries(info, kind_of)
+    log(f"build egnn_loop instantiations: {json.dumps(res)}")
+    kinds = {"fwd_fp32", "fwd_bf16", "bwd_fp32", "bwd_bf16"}
+    if set(res) != kinds or any(r["registers"] is None for r in res.values()):
+        raise AssertionError(f"egnn_loop: ptxas did not report all four instantiations: {res}")
+    if not res["bwd_bf16"]["hmma"] or res["bwd_fp32"]["hmma"]:
+        raise AssertionError("egnn_loop: the bf16 backward must use the tensor cores (HMMA) and "
+                             f"the fp32 backward must not: {res}")
+    if any(r["spill_bytes"] for r in res.values()):
+        raise AssertionError(f"egnn_loop spills registers: {res}")
+    return res
+
+
+def check_fused_build(info: dict) -> dict:
+    """Phase 2, the fused kernel's two instantiations (``<true>`` bf16,
+    ``<false>`` fp32): registers and spills from ``ptxas -v``, and the HMMA
+    (tensor-core) instructions in the built library's SASS. The bf16 one
+    must have some, the fp32 one none (no TF32 either); neither may spill.
+    Returns {mode: {"registers", "spill_bytes", "smem_bytes", "hmma"}}."""
+    mode_of = lambda name: "bf16" if "egnn_fused_kernelILb1E" in name else \
+        "fp32" if "egnn_fused_kernelILb0E" in name else None
+    res = build_entries(info, mode_of)
     log(f"build egnn_fused instantiations: {json.dumps(res)}")
     if set(res) != {"fp32", "bf16"} or any(r["registers"] is None for r in res.values()):
         raise AssertionError(f"egnn_fused: ptxas did not report both instantiations: {res}")
@@ -1067,6 +1115,7 @@ def main() -> int:
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 log(f"  ptxas: {ln.strip()}")
     check_fused_build(infos["egnn_fused"])
+    check_loop_build(infos["egnn_loop"])
     check_pallas_build(infos["egnn_pallas"])
 
     # -- 3. kernel vs plain version ---------------------------------------------

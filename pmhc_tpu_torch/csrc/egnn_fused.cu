@@ -62,7 +62,8 @@
 //    reduce-scatter that leaves each lane one neighbour's lin2 rows.
 // 4. Loads in flight: cp.async prefetches the next tile's a_j, edge,
 //    q_j, t_j, mask and the next row group's node inputs while the
-//    current tile computes.
+//    current tile computes (16-byte copies of a_j, q_j and edge where
+//    their tensors start 16-byte aligned, else 4-byte copies).
 // 5. No ragged grid tail: one persistent block of 12 warps per SM, each
 //    a contiguous run of query rows (8 at B=64: 128 blocks, one wave,
 //    where a block per row left 3.88 waves of 264 slots); whm, the lin2
@@ -436,20 +437,32 @@ egnn_fused_kernel(const float* __restrict__ w,
 
   // -- prefetch of one work item (row, tile) into the raw buffers, and of
   // -- the node inputs of the row group it opens --------------------------
+  // a_j, q_j and edge rows start 16-byte aligned wherever their tensors do:
+  // 16-byte copies then, else 4-byte copies (a view may start anywhere)
+  const bool al_aj = (reinterpret_cast<uintptr_t>(aj) & 15) == 0;
+  const bool al_qj = (reinterpret_cast<uintptr_t>(qj) & 15) == 0;
+  const bool al_ed = (reinterpret_cast<uintptr_t>(edge) & 15) == 0;
+  auto copy16 = [](float* dst, const float* src, bool aligned) {
+    if (aligned) {
+      cp_async16(dst, src);
+    } else {
+      for (int k = 0; k < 4; ++k) cp_async4(dst + k, src + k);
+    }
+  };
   auto prefetch = [&](int it, bool with_bj) {
     const int row = row_lo + it / tiles, tl = it % tiles;
     const int b = row / N, i = row - b * N;
     const int j0 = tl * TILE, nj = min(TILE, NP - j0);
     if (with_bj) {
       const float* src = aj + ((size_t)b * NP + j0) * T;
-      for (int c = tid; c < nj * T / 4; c += THREADS) cp_async16(sm + S::AJ + 4 * c, src + 4 * c);
+      for (int c = tid; c < nj * T / 4; c += THREADS) copy16(sm + S::AJ + 4 * c, src + 4 * c, al_aj);
       for (int c = tid; c < nj; c += THREADS)
-        cp_async16(sm + S::QJ + 4 * c, qj + ((size_t)b * NP + j0 + c) * 4);
+        copy16(sm + S::QJ + 4 * c, qj + ((size_t)b * NP + j0 + c) * 4, al_qj);
       for (int c = tid; c < nj * 3; c += THREADS)
         cp_async4(sm + S::TJ + c, tj + ((size_t)b * NP + j0) * 3 + c);
     }
     const float* esrc = edge + ((size_t)i * NP + j0) * T;
-    for (int c = tid; c < nj * T / 4; c += THREADS) cp_async16(sm + S::ED + 4 * c, esrc + 4 * c);
+    for (int c = tid; c < nj * T / 4; c += THREADS) copy16(sm + S::ED + 4 * c, esrc + 4 * c, al_ed);
     for (int c = tid; c < nj; c += THREADS) cp_async4(sm + S::MK + c, mask + (size_t)row * NP + j0 + c);
     if (tl == 0 && (row - row_lo) % RG == 0) {
       const int rg = min(RG, row_hi - row);

@@ -18,37 +18,26 @@
 // row, two blocks per SM.
 //
 // Backward. Takes the cotangents of D, GD, TA, TR, HID (m and CNT carry
-// none) and the forward's final m. Flash-style: each chunk of 32
-// neighbours is recomputed (egnn_common.cuh), then
-//   B  warp 0, lane = neighbour: e = exp(logit - m); the value-path
-//      adjoints (softmax numerators, translation, the rotation chain
-//      above the sigmoid) -> d(lin2 outputs) [13];
-//   C  thread u: lin2 backward through its unit -> d(pre_heads)[u]
-//      (relu-gated), its dW2 row entries, bias / wad / waq / wrq grads,
-//      and its dW row of whm (outer product with hid, 64 registers);
-//   D  d(hid) = whm^T d(pre_heads) + d(HID), from whm in shared memory
-//      (thread = 4 columns x 2 neighbours), relu-gated to d(pre):
-//      d(a_i) summed in the block, d(a_j) and d(edge) by atomics;
-//   E  per neighbour, sums over the head units: d(local quat) = wrq^T
-//      d(rot), wad . d(att), waq . d(att);
-//   F  warp 0, lane = neighbour: the quaternion and distance adjoints ->
-//      d(q_i), d(t_i) (summed in the lane), d(q_j), d(t_j) by atomics.
-// Blocks are persistent (as many as fit on the card, each looping over
-// rows), so every weight gradient is summed in registers across all the
-// rows of a block, written once per block as a partial, and the partials
-// are summed by a second kernel: no atomics and a fixed order for the
-// weight gradients. d(a_j), d(q_j), d(t_j) (over the 16 query rows of an
-// entry) and d(edge) (over the batch) are summed with fp32 atomics, so
-// their last bits vary from run to run.
+// none) and the forward's final m, recomputes each neighbour tile
+// (flash-style) and runs the adjoints; the design is described above the
+// kernel (egnn_loop_bwd_kernel). Blocks are persistent (one per SM, each a
+// contiguous run of rows), so every weight gradient is summed in registers
+// or shared memory across all the rows of a block, written once per block
+// as a partial, and the partials are summed by a second kernel: no atomics
+// and a fixed order for the weight gradients. d(a_j), d(q_j), d(t_j) (over
+// the 16 query rows of an entry) and d(edge) (over the batch) are summed
+// with fp32 atomics (vector atomics for d(a_j), d(edge)), so their last
+// bits vary from run to run.
 //
 // Bound. Per (b, i, j) pair the forward is ~35 kFLOP (see
 // egnn_fused.cu); the backward recomputes it and adds the whm outer
 // product and whm^T d(pre_heads) (2 x 256 x 64 MACs) and the lin2 terms:
 // ~100 kFLOP, ~10 GFLOP per launch at B=64, N=16, NP=96 against a few MB:
 // bound by operations (>= ~0.15 ms at the H100 SXM's published 67 TFLOP/s
-// fp32 peak, 700 W). The
-// backward holds two 64-float rows per thread (whm for the recompute, its
-// gradient), so it runs one block of 256 threads per SM.
+// fp32 peak, >= ~0.01 ms at 989 TFLOP/s bf16; 700 W). fp32: its three
+// products are FFMA in register tiles; bf16: they run on the tensor cores,
+// and the CUDA-core work around them (recompute epilogues, adjoints, the
+// per-unit sums, atomics) sets the time.
 //
 // bf16 mode: the rounding points of egnn_common.cuh in the recompute;
 // in the backward, the operands of the dW2 and dwhm/dwrq outer products,
@@ -58,14 +47,19 @@
 // torsion node term enter the recompute in fp32 (the TPU's HEADPACK
 // rounds them), and the sums over query rows and over the batch are not
 // rounded (the TPU's collapse and d(edge) matmuls round their cotangent
-// operand). tests/test_torch_egnn_loop.py measures the difference.
+// operand). tests/test_torch_egnn_loop.py measures the difference. The
+// backward's bias, wad and waq gradients, d(tor_node), d(a_i) and the sums
+// of phase E's attention terms take unrounded d(pre_heads), as the plain
+// version's autograd does.
 //
 // Interface: plain C, loaded with ctypes. Launchers allocate nothing,
 // launch on the caller's stream and return the CUDA error code.
 
 #include "egnn_common.cuh"
+#include "mma_bf16.cuh"
 
 #include <stddef.h>
+#include <stdint.h>
 
 #include <atomic>
 
@@ -174,123 +168,986 @@ __global__ void __launch_bounds__(HEADS, 2) egnn_loop_fwd_kernel(const Inputs in
     out.TR[(size_t)row * 3 + tid - 5 - NTOR] = fold_s[F_TR + tid - 5 - NTOR];
   }
 }
+// ---------------------------------------------------------------------------
+// Backward. Replaces the TPU kernels _make_loop_bwd (#6, fp32) and
+// _make_loop_bwd_g8 (#7, bf16). One persistent block of 12 warps per SM
+// over a contiguous run of query rows; the weights are staged once per
+// block. Per row, neighbours go in tiles of BT = 48 (NP = 96: two tiles;
+// NP <= MAXNP). Per tile, between barriers:
+//   S0 build  the hid tile (rows past the tile's neighbours zero; 8- or
+//             16-byte loads of a_j and edge where they are aligned, else
+//             4-byte), the geometry records (warps 10-11, lane = neighbour);
+//   S1        warp w = (16-neighbour block jb, head hd): act = relu(hid @
+//             whm^T + extra) for its 16 x 64 (neighbour, unit) tile into DP,
+//             and the head's lin2 rows from it;
+//   S2 B      warps 8-9, lane = neighbour: the value-path adjoints -> the
+//             lin2 outputs' cotangents d(out) [13], d(t_i) into RQL, and
+//             d(q_j), d(q_j^-1), d(t_j) over the lane's lin2 output row;
+//   S3        the same warp tasks: the dW2 partials (shared memory, one slot
+//             per neighbour block, summed over the block's rows); d(act) =
+//             w2^T d(out), relu-gated over act in DP to d(pre_heads); the
+//             per-neighbour sums over the head units of phase E;
+//   P         warps 0-7: dwhm += d(pre_heads)^T @ hid (accumulators in
+//             shared memory, each owned by one lane), (fp32) d(hid) of
+//             neighbours 32-47, then thread u's sums over the tile's
+//             neighbours (bias, wad, waq, wrq grads, d(tor)); warps 8-9:
+//             phase F (quaternion and distance adjoints, lane = neighbour,
+//             d(q_i) into RQL); warps 8-11: d(hid) of neighbours 0-31 (fp32)
+//             or all 48 (bf16). d(hid) = d(pre_heads) @ whm + d(HID),
+//             relu-gated: d(a_i) summed per tile into shared memory, d(a_j)
+//             and d(edge) by vector atomics. The split evens the work per
+//             warp.
+// bf16 (template BF16): the products on mma.sync m16n8k16 (bf16 operands,
+// fp32 sums): whm as two sets of B fragments (for act and for d(hid)), the
+// lin2 forward from act's C fragments, the lin2 backward and dW2 from DP;
+// fp32: IEEE FMA in register tiles (no TF32, no tensor cores).
+// The per-element state (q_j, q_j^-1, t_j of the row's batch element) is
+// cached for all NP neighbours and rebuilt when a block's run of rows
+// crosses into the next batch element.
+// Measured (NVIDIA H100 80GB HBM3, 700 W, chip_ab.py): fp32 ~0.43 ms, bf16
+// ~0.23 ms per launch at batch 64; the products and the per-unit sums are
+// the largest parts (PERF.md, section 6).
 
-// per-neighbour records of the backward
-constexpr int NB_LD = 12;   // d(q_j)[4], d(q_j^-1)[4], d(t_j)[3]
-constexpr int RED_LD = 8;   // d(local quat)[4], wad . d(att), waq . d(att)
+constexpr int BWARPS = 12;
+constexpr int BTHREADS = 32 * BWARPS;
+constexpr int BT = 48;                 // neighbours per tile: three 16-row blocks
+constexpr int MAXNP = 96;              // neighbours per row the per-element cache holds
+constexpr int HF_LD = T + 4;           // fp32 whm and hid row stride (floats)
+constexpr int DP_LD = HEADS + 4;       // act, then d(pre_heads): row stride (floats)
+constexpr int HA_LD = T / 2 + 4;       // bf16 hid [j][k] row stride (words)
+constexpr int HT_LD = BT / 2 + 4;      // bf16 hid^T [k][j] row stride (words)
+constexpr int GEO_LD = GEO + 1;
+constexpr int DV_LD = 14;              // lin2 outputs (then phase B's records) and their cotangents
+constexpr int RED_LD = 8;              // d(local quat)[4], wad . d(att), waq . d(att)
+constexpr int FR_LD = 12;              // cached per neighbour: q_j[4], q_j^-1[4], t_j[3]
+constexpr int F_QJ = 0, F_INV = 4, F_TJ = 8;
 constexpr int CT_M = 0, CT_D = 1, CT_GD = 2, CT_TA = 6, CT_TR = 13, CT_N = 16;
 
-constexpr size_t BWD_SMEM_FLOATS = HEADS * T                         // whm
-                                   + CH * T + CH * ACT_LD + CH * GEO  // hid, act / d(pre_heads), geo
-                                   + 2 * CH * OUT_LD                  // lin2 out, d(lin2 out)
-                                   + CH * NB_LD + CH * RED_LD         // neighbour records
-                                   + 16 * T + 2 * T + 8 + CT_N;       // d(a_i) partials, a_i, d(HID), node, cotangents
-constexpr size_t BWD_SMEM_BYTES = BWD_SMEM_FLOATS * sizeof(float);
+// Shared memory of the backward, in floats (every region 16-byte aligned).
+template <bool BF16>
+struct BSmem {
+  static constexpr int WHM = 0;   // bf16: B fragments of whm^T [4 heads][8 n][4 k][32] uint2; fp32: whm [HEADS][HF_LD]
+  static constexpr int WHT = WHM + (BF16 ? HEADS * T / 2 : HEADS * HF_LD);  // bf16: B fragments of whm [8 n][16 k][32] uint2
+  static constexpr int W2F = WHT + (BF16 ? HEADS * T / 2 : 0);   // bf16: lin2 B fragments [4 heads][4 k][32] uint2
+  static constexpr int W2T = W2F + (BF16 ? 4 * 4 * 32 * 2 : 0);  // bf16: lin2^T B fragments [4 heads][8 n][32] uint32
+  static constexpr int DW = W2T + (BF16 ? 4 * 8 * 32 : 0);       // dwhm accumulators [8 warps][16][32 lanes] float4
+  static constexpr int DP = DW + HEADS * T;                       // act (S1 -> S3), then d(pre_heads) [BT][DP_LD]
+  static constexpr int HID = DP + BT * DP_LD;                     // bf16: hid [BT][HA_LD] words; fp32 [BT][HF_LD]
+  static constexpr int HIDT = HID + BT * (BF16 ? HA_LD : HF_LD);  // bf16: hid^T [T][HT_LD] words
+  static constexpr int GEOS = HIDT + (BF16 ? T * HT_LD : 0);      // [BT][GEO_LD]
+  static constexpr int OUTS = GEOS + BT * GEO_LD;                 // lin2 outputs, then B's d(q_j), d(q_j^-1), d(t_j) [BT][DV_LD]
+  static constexpr int DOUT = OUTS + BT * DV_LD;                  // their cotangents [BT][DV_LD]
+  static constexpr int REDS = DOUT + BT * DV_LD;                  // [BT][RED_LD]
+  static constexpr int FRM = REDS + BT * RED_LD;                  // the batch element's neighbours [MAXNP][FR_LD]
+  static constexpr int AI = FRM + MAXNP * FR_LD;                  // a_i [T]
+  static constexpr int GH = AI + T;                               // d(HID) [T]
+  static constexpr int TN = GH + T;                               // torsion node term + bt1 [T]
+  static constexpr int NODE = TN + T;                             // q_i[4], t_i[3]
+  static constexpr int CT = NODE + 8;                             // m and the cotangents [CT_N]
+  static constexpr int DAI = CT + CT_N;                           // d(a_i) partials [DAI_SLOTS][T]
+  static constexpr int DAI_SLOTS = BF16 ? 1 : 5;
+  static constexpr int RQL = DAI + DAI_SLOTS * T;                 // d(q_i)[4], d(t_i)[3] per neighbour slot [BT][8]
+  static constexpr int DW2 = RQL + BT * 8;                        // dW2 sums [3 neighbour blocks][NOUT][T]
+  static constexpr int W2S = DW2 + 3 * NOUT * T;                  // fp32: w2 [NOUT][T]
+  static constexpr int TOTAL = W2S + (BF16 ? 0 : NOUT * T);
+  static constexpr size_t BYTES = TOTAL * sizeof(float);
+  static_assert(BYTES <= 232448, "backward shared memory exceeds the H100's 227 KB");
+};
+
+__host__ __device__ constexpr int row0_of(int head) { return head == 0 ? 0 : head == 1 ? 1 : head == 2 ? 5 : 12; }
+__host__ __device__ constexpr int rows_of(int head) { return head == 1 ? 4 : head == 2 ? 7 : 1; }
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float comp(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float bf_lo(uint32_t r) { return __uint_as_float(r << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t r) { return __uint_as_float(r & 0xffff0000u); }
+
+// One halving step of a reduce-scatter over the lanes that differ in lane
+// bit BIT: lanes with the bit set keep the upper half of v, summed.
+template <int N, int BIT>
+__device__ __forceinline__ void rs_step(const float (&v)[N], float (&o)[N / 2], int lane) {
+  const bool up = lane & BIT;
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k) {
+    const float keep = up ? v[N / 2 + k] : v[k], send = up ? v[k] : v[N / 2 + k];
+    o[k] = keep + __shfl_xor_sync(0xffffffffu, send, BIT);
+  }
+}
+
+// The extra term's coefficients of head unit u (HEAD = u / T): c0..c3, cb.
+template <bool BF16, int HEAD>
+__device__ __forceinline__ void unit_coef(const LoopW& w, const float* tn, int uu, float* c) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  if constexpr (HEAD == 0) {
+    c[0] = __ldg(w.wad + uu);
+    c[1] = __ldg(w.waq + uu);
+    c[4] = __ldg(w.ba1 + uu);
+  } else if constexpr (HEAD == 1) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c[r] = rnd<BF16>(__ldg(w.wrq + uu * 4 + r));
+    c[4] = __ldg(w.br1 + uu);
+  } else if constexpr (HEAD == 2) {
+    c[4] = tn[uu];
+  } else {
+    c[4] = __ldg(w.bl1 + uu);
+  }
+}
+
+// The neighbour's operands of the extra term: att -d2, qdot^2; rot the
+// local quat (the geometry record holds it rounded in bf16 mode).
+template <bool BF16, int HEAD>
+__device__ __forceinline__ void pair_ops(const float* geo, int j, float* e) {
+  const float* g = geo + j * GEO_LD;
+  if constexpr (HEAD == 0) {
+    e[0] = g[G_ND2];
+    e[1] = g[G_QD2];
+  } else if constexpr (HEAD == 1) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) e[c] = g[G_LQ + c];  // rounded in bf16 mode
+  }
+}
+
+template <int HEAD>
+__device__ __forceinline__ float extra_of(const float* e, const float* c) {
+  if constexpr (HEAD == 0) {
+    return c[0] * e[0] + c[1] * e[1] + c[4];
+  } else if constexpr (HEAD == 1) {
+    return c[0] * e[0] + c[1] * e[1] + c[2] * e[2] + c[3] * e[3] + c[4];
+  } else {
+    return c[4];
+  }
+}
+
+// S1, fp32: lane (pg, ug) = (lane / 8, lane % 8) holds neighbours jb + pg + 4q
+// (q < 4) x units HEAD * T + ug + 8v (v < 8), in two halves of 4 units (one
+// 32-float tile would push the kernel past 168 registers into spills). act =
+// relu(hid @ whm^T + extra) goes to DP for S3; the head's lin2 rows go to
+// OUTS.
+template <int HEAD>
+__device__ __forceinline__ void s1_fp32(float* sm, const LoopW& w, int jb, int lane) {
+  using S = BSmem<false>;
+  constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
+  constexpr int NE = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 1;
+  const int pg = lane >> 3, ug = lane & 7;
+  const float* hrow = sm + S::HID + (jb + pg) * HF_LD;
+  float e[4][NE];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) pair_ops<false, HEAD>(sm + S::GEOS, jb + pg + 4 * q, e[q]);
+  float part[4 * R];
+#pragma unroll
+  for (int k = 0; k < 4 * R; ++k) part[k] = 0.f;
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {  // units HEAD * T + ug + 8v, v = 4 half + vv
+    const float* wrow = sm + S::WHM + (HEAD * T + ug + 32 * half) * HF_LD;
+    float act[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int vv = 0; vv < 4; ++vv) act[q][vv] = 0.f;
+#pragma unroll 4
+    for (int k0 = 0; k0 < T; k0 += 4) {
+      float4 x[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = ld4(hrow + 4 * q * HF_LD + k0);
+#pragma unroll
+      for (int vv = 0; vv < 4; ++vv) {
+        const float4 wv = ld4(wrow + 8 * vv * HF_LD + k0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          act[q][vv] = fmaf(wv.w, x[q].w, fmaf(wv.z, x[q].z, fmaf(wv.y, x[q].y, fmaf(wv.x, x[q].x, act[q][vv]))));
+      }
+    }
+#pragma unroll
+    for (int vv = 0; vv < 4; ++vv) {
+      const int uu = ug + 32 * half + 8 * vv;
+      float c[5];
+      unit_coef<false, HEAD>(w, sm + S::TN, uu, c);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        act[q][vv] = fmaxf(act[q][vv] + extra_of<HEAD>(e[q], c), 0.f);
+        sm[S::DP + (jb + pg + 4 * q) * DP_LD + HEAD * T + uu] = act[q][vv];
+      }
+#pragma unroll
+      for (int o = 0; o < R; ++o) {
+        const float wv = sm[S::W2S + (R0 + o) * T + uu];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[q * R + o] = fmaf(wv, act[q][vv], part[q * R + o]);
+      }
+    }
+  }
+  float h[2 * R], r[R];
+  rs_step<4 * R, 4>(part, h, lane);
+  rs_step<2 * R, 2>(h, r, lane);
+#pragma unroll
+  for (int o = 0; o < R; ++o) r[o] += __shfl_xor_sync(0xffffffffu, r[o], 1);
+  if (!(lane & 1)) {
+    const int q = 2 * ((lane >> 2) & 1) + ((lane >> 1) & 1);
+#pragma unroll
+    for (int o = 0; o < R; ++o) sm[S::OUTS + (jb + pg + 4 * q) * DV_LD + R0 + o] = r[o] + __ldg(w.b2 + R0 + o);
+  }
+}
+
+// S3, fp32, the S1 task's lanes: d(pre_heads) = relu'(act) (w2^T d(out)) over
+// act in DP; the dW2 partials summed over the lane's neighbours and its 4 pg lanes,
+// added to the warp's slot of DW2 (the lane owns rows R0 + o x units ug +
+// 8 (2 pg + vv), vv < 2); phase E's sums. d(out) rows past the tile's
+// neighbours read as 0: padding carries no gradient into DP, dW2 or the sums.
+template <int HEAD>
+__device__ __forceinline__ void s3_fp32(float* sm, const LoopW& w, int jb, int nj, int lane, float* dw2) {
+  using S = BSmem<false>;
+  constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
+  const int pg = lane >> 3, ug = lane & 7;
+  float act[4][8], dp[4][8];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) act[q][v] = sm[S::DP + (jb + pg + 4 * q) * DP_LD + HEAD * T + ug + 8 * v];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) dp[q][v] = 0.f;
+#pragma unroll
+  for (int o = 0; o < R; ++o) {
+    float d[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = jb + pg + 4 * q;
+      d[q] = j < nj ? sm[S::DOUT + j * DV_LD + R0 + o] : 0.f;
+    }
+    float p[8];
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      const float wv = sm[S::W2S + (R0 + o) * T + ug + 8 * v];
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        s = fmaf(d[q], act[q][v], s);
+        dp[q][v] = fmaf(wv, d[q], dp[q][v]);
+      }
+      p[v] = s;
+    }
+    float h[4], r[2];
+    rs_step<8, 16>(p, h, lane);
+    rs_step<4, 8>(h, r, lane);
+    dw2[(R0 + o) * T + ug + 16 * pg] += r[0];
+    dw2[(R0 + o) * T + ug + 16 * pg + 8] += r[1];
+  }
+  // E: per neighbour, sums over the head's units (attention: wad, waq;
+  // rotation: wrq^T d(rot)), over the lane's 8 units and its 8 ug lanes
+  constexpr int NS = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 0;
+  float ev[4 * NS + 1];
+#pragma unroll
+  for (int k = 0; k < 4 * NS; ++k) ev[k] = 0.f;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const int uu = ug + 8 * v;
+    float cs[NS + 1];
+    if constexpr (HEAD == 0) {
+      cs[0] = __ldg(w.wad + uu);
+      cs[1] = __ldg(w.waq + uu);
+    } else if constexpr (HEAD == 1) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) cs[s] = __ldg(w.wrq + uu * 4 + s);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float x = act[q][v] > 0.f ? dp[q][v] : 0.f;
+      sm[S::DP + (jb + pg + 4 * q) * DP_LD + HEAD * T + uu] = x;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) ev[q * NS + s] = fmaf(cs[s], x, ev[q * NS + s]);
+    }
+  }
+  if constexpr (NS > 0) {
+    float h1[2 * NS], h2[NS], h3[NS / 2];
+    rs_step<4 * NS, 4>(reinterpret_cast<float(&)[4 * NS]>(ev), h1, lane);
+    rs_step<2 * NS, 2>(h1, h2, lane);
+    rs_step<NS, 1>(h2, h3, lane);
+    const int blk = lane & 7;  // index block (NS / 2 values) of ev this lane holds
+#pragma unroll
+    for (int k = 0; k < NS / 2; ++k) {
+      const int f = blk * (NS / 2) + k, q = f / NS, s = f % NS;
+      sm[S::REDS + (jb + pg + 4 * q) * RED_LD + (HEAD == 0 ? 4 + s : s)] = h3[k];
+    }
+  }
+}
+
+// S1, bf16: one m16 tile (neighbours jb .. jb + 15) x the 64 units of HEAD on
+// the tensor cores (g = lane / 4, c = lane % 4). act (rounded) goes to DP for
+// S3, and its C fragments are the lin2's A fragments (units 16t .. 16t +
+// 15); the lin2 rows go to OUTS.
+template <int HEAD>
+__device__ __forceinline__ void s1_bf16(float* sm, const LoopW& w, int jb, int lane) {
+  using S = BSmem<true>;
+  constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
+  constexpr int NE = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 1;
+  const int g = lane >> 2, c = lane & 3;
+  const uint32_t* hid = reinterpret_cast<const uint32_t*>(sm + S::HID);
+  const uint2* whf = reinterpret_cast<const uint2*>(sm + S::WHM);
+  const uint2* w2f = reinterpret_cast<const uint2*>(sm + S::W2F) + HEAD * 4 * 32 + lane;
+  const int j = jb + g;
+  uint32_t a[4][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    a[ks][0] = hid[j * HA_LD + ks * 8 + c];
+    a[ks][1] = hid[(j + 8) * HA_LD + ks * 8 + c];
+    a[ks][2] = hid[j * HA_LD + ks * 8 + 4 + c];
+    a[ks][3] = hid[(j + 8) * HA_LD + ks * 8 + 4 + c];
+  }
+  float e[2][NE];
+  pair_ops<true, HEAD>(sm + S::GEOS, j, e[0]);
+  pair_ops<true, HEAD>(sm + S::GEOS, j + 8, e[1]);
+  float lacc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int t = 0; t < 4; ++t) {
+    uint32_t la[4];
+    float cc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        const uint2 bv = whf[((HEAD * 8 + 2 * t + nn) * 4 + ks) * 32 + lane];
+        const uint32_t b[2] = {bv.x, bv.y};
+        mma_bf16_16816(cc[nn], a[ks], b);
+      }
+    }
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {
+      const int uu = 16 * t + 8 * nn + 2 * c;
+      float c0[5], c1[5];
+      unit_coef<true, HEAD>(w, sm + S::TN, uu, c0);
+      unit_coef<true, HEAD>(w, sm + S::TN, uu + 1, c1);
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const float x0 = fmaxf(cc[nn][2 * h8] + extra_of<HEAD>(e[h8], c0), 0.f);
+        const float x1 = fmaxf(cc[nn][2 * h8 + 1] + extra_of<HEAD>(e[h8], c1), 0.f);
+        const uint32_t pk = pack_bf16x2(x0, x1);
+        la[2 * nn + h8] = pk;
+        *reinterpret_cast<float2*>(sm + S::DP + (j + 8 * h8) * DP_LD + HEAD * T + uu) =
+            float2{bf_lo(pk), bf_hi(pk)};
+      }
+    }
+    const uint2 wv = w2f[t * 32];
+    const uint32_t b2[2] = {wv.x, wv.y};
+    mma_bf16_16816(lacc, la, b2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = 2 * c + r;
+    if (n < R) {
+      const float bias = __ldg(w.b2 + R0 + n);
+      sm[S::OUTS + j * DV_LD + R0 + n] = lacc[r] + bias;
+      sm[S::OUTS + (j + 8) * DV_LD + R0 + n] = lacc[2 + r] + bias;
+    }
+  }
+}
+
+// S3, bf16, on the tensor cores: dW2 += d(out)^T @ act into the warp's slot
+// of DW2 (the lane owns rows R0 + g x units 8nt + 2c + r); d(act) = d(out) @
+// w2, relu-gated by act, over act in DP; phase E's sums. d(out) rows past
+// the tile's neighbours read as 0: padding carries no gradient into DP, dW2
+// or the sums.
+template <int HEAD>
+__device__ __forceinline__ void s3_bf16(float* sm, const LoopW& w, int jb, int nj, int lane, float* dw2) {
+  using S = BSmem<true>;
+  constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
+  constexpr int NS = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 0;
+  const int g = lane >> 2, c = lane & 3;
+  const int ja = jb + g, jc = jb + g + 8;
+  auto dv = [&](int j, int o) { return j < nj && o < R ? sm[S::DOUT + j * DV_LD + R0 + o] : 0.f; };
+  // act (from S1, in DP) at (row g | g + 8, unit 8nt + 2c + e): av[nt][2 h8 + e]
+  float av[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float* src = sm + S::DP + HEAD * T + 8 * nt + 2 * c;
+    const float2 x0 = *reinterpret_cast<const float2*>(src + ja * DP_LD);
+    const float2 x1 = *reinterpret_cast<const float2*>(src + jc * DP_LD);
+    av[nt][0] = x0.x, av[nt][1] = x0.y, av[nt][2] = x1.x, av[nt][3] = x1.y;
+  }
+  // dW2[R0 + o][unit] += d(out)^T @ act over the warp's 16 neighbours on the
+  // tensor cores: A rows = lin2 rows o (g < R), k = neighbours; B = act (k =
+  // neighbours, n = units) from DP, read before this warp overwrites it
+  {
+    const uint32_t ad[4] = {pack_bf16x2(dv(jb + 2 * c, g), dv(jb + 2 * c + 1, g)), 0u,
+                            pack_bf16x2(dv(jb + 2 * c + 8, g), dv(jb + 2 * c + 9, g)), 0u};
+    const float* ar = sm + S::DP + (jb + 2 * c) * DP_LD + HEAD * T + g;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float* r = ar + 8 * nt;
+      const uint32_t b[2] = {pack_bf16x2(r[0], r[DP_LD]), pack_bf16x2(r[8 * DP_LD], r[9 * DP_LD])};
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16_16816(acc, ad, b);
+      if (g < R) {
+        dw2[(R0 + g) * T + 8 * nt + 2 * c] += acc[0];
+        dw2[(R0 + g) * T + 8 * nt + 2 * c + 1] += acc[1];
+      }
+    }
+    __syncwarp();
+  }
+  const uint32_t a[4] = {pack_bf16x2(dv(ja, 2 * c), dv(ja, 2 * c + 1)),
+                         pack_bf16x2(dv(jc, 2 * c), dv(jc, 2 * c + 1)), 0u, 0u};
+  const uint32_t* w2t = reinterpret_cast<const uint32_t*>(sm + S::W2T) + HEAD * 8 * 32 + lane;
+  float ev[2 * NS + 1];
+#pragma unroll
+  for (int k = 0; k < 2 * NS; ++k) ev[k] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const uint32_t b[2] = {w2t[nt * 32], 0u};
+    mma_bf16_16816(acc, a, b);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = av[nt][k] > 0.f ? acc[k] : 0.f;
+    float* dst = sm + S::DP + HEAD * T + 8 * nt + 2 * c;
+    *reinterpret_cast<float2*>(dst + ja * DP_LD) = float2{acc[0], acc[1]};
+    *reinterpret_cast<float2*>(dst + jc * DP_LD) = float2{acc[2], acc[3]};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int uu = 8 * nt + 2 * c + e;
+      float cs[NS + 1];
+      if constexpr (HEAD == 0) {
+        cs[0] = __ldg(w.wad + uu);
+        cs[1] = __ldg(w.waq + uu);
+      } else if constexpr (HEAD == 1) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) cs[s] = rnd<true>(__ldg(w.wrq + uu * 4 + s));
+      }
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const float x = HEAD == 1 ? rnd<true>(acc[2 * h8 + e]) : acc[2 * h8 + e];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) ev[h8 * NS + s] = fmaf(cs[s], x, ev[h8 * NS + s]);
+      }
+    }
+  }
+  if constexpr (NS > 0) {
+    float h1[NS], h2[NS / 2];
+    rs_step<2 * NS, 2>(reinterpret_cast<float(&)[2 * NS]>(ev), h1, lane);
+    rs_step<NS, 1>(h1, h2, lane);
+#pragma unroll
+    for (int k = 0; k < NS / 2; ++k) {
+      const int f = c * (NS / 2) + k, h8 = f / NS, s = f % NS;
+      sm[S::REDS + (h8 ? jc : ja) * RED_LD + (HEAD == 0 ? 4 + s : s)] = h2[k];
+    }
+  }
+}
+
+// P, warps 0-7, fp32: dwhm += d(pre_heads)^T @ hid over the tile. Lane (ua,
+// cb) = (lane / 8, lane % 8) of warp w owns units 32w + 4ua + a and 32w + 16
+// + 4ua + a (a < 4) x columns 4cb + k and 32 + 4cb + k (k < 4): 64 sums kept
+// in DW as 16 float4 (slot 2a' + h: unit index a' < 8, column half h).
+__device__ __forceinline__ void p3_fp32(float* sm, int warp, int lane) {
+  using S = BSmem<false>;
+  const int ua = lane >> 3, cb = lane & 7;
+  float4* dw = reinterpret_cast<float4*>(sm + S::DW) + warp * 16 * 32 + lane;
+  float acc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const float4 l = dw[(2 * a) * 32], h = dw[(2 * a + 1) * 32];
+    acc[a][0] = l.x, acc[a][1] = l.y, acc[a][2] = l.z, acc[a][3] = l.w;
+    acc[a][4] = h.x, acc[a][5] = h.y, acc[a][6] = h.z, acc[a][7] = h.w;
+  }
+  const float* dp = sm + S::DP + 32 * warp + 4 * ua;
+  const float* hd = sm + S::HID + 4 * cb;
+#pragma unroll 2
+  for (int j = 0; j < BT; ++j) {
+    const float4 d0 = ld4(dp + j * DP_LD), d1 = ld4(dp + j * DP_LD + 16);
+    const float4 h0 = ld4(hd + j * HF_LD), h1 = ld4(hd + j * HF_LD + 32);
+    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+    const float hv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[a][k] = fmaf(dv[a], hv[k], acc[a][k]);
+  }
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    dw[(2 * a) * 32] = float4{acc[a][0], acc[a][1], acc[a][2], acc[a][3]};
+    dw[(2 * a + 1) * 32] = float4{acc[a][4], acc[a][5], acc[a][6], acc[a][7]};
+  }
+}
+
+// P, warps 0-7, bf16: the same product on the tensor cores. Warp w owns the
+// m16 tiles of units 32w .. 32w + 31 (A = d(pre_heads)^T, k = neighbours,
+// 3 k-steps) x the 8 n-tiles of columns (B = hid^T fragments): its C
+// fragments are kept in DW, slot mt * 8 + nt.
+__device__ __forceinline__ void p3_bf16(float* sm, int warp, int lane) {
+  using S = BSmem<true>;
+  const int g = lane >> 2, c = lane & 3;
+  const float* dp = sm + S::DP;
+  const uint32_t* ht = reinterpret_cast<const uint32_t*>(sm + S::HIDT);
+  uint32_t a[2][3][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int u = 32 * warp + 16 * mt + g;
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) {
+      const float* r = dp + (16 * ks + 2 * c) * DP_LD + u;
+      a[mt][ks][0] = pack_bf16x2(r[0], r[DP_LD]);
+      a[mt][ks][1] = pack_bf16x2(r[8], r[DP_LD + 8]);
+      a[mt][ks][2] = pack_bf16x2(r[8 * DP_LD], r[9 * DP_LD]);
+      a[mt][ks][3] = pack_bf16x2(r[8 * DP_LD + 8], r[9 * DP_LD + 8]);
+    }
+  }
+  float4* dw = reinterpret_cast<float4*>(sm + S::DW) + warp * 16 * 32 + lane;
+#pragma unroll 2
+  for (int nt = 0; nt < 8; ++nt) {
+    uint32_t b[3][2];
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) {
+      b[ks][0] = ht[(8 * nt + g) * HT_LD + 8 * ks + c];
+      b[ks][1] = ht[(8 * nt + g) * HT_LD + 8 * ks + 4 + c];
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float4 v = dw[(mt * 8 + nt) * 32];
+      float acc[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int ks = 0; ks < 3; ++ks) mma_bf16_16816(acc, a[mt][ks], b[ks]);
+      dw[(mt * 8 + nt) * 32] = float4{acc[0], acc[1], acc[2], acc[3]};
+    }
+  }
+}
+
+// The relu-gated d(pre) of one neighbour and 4 (fp32) or 2 (bf16)
+// consecutive columns of d(hid): summed into d(a_i) (registers), d(a_j) and
+// d(edge) by vector atomics (sm_90; the wrapper's fresh outputs and the
+// column offsets keep them 16- / 8-byte aligned).
+__device__ __forceinline__ void dpre_out4(const BwdIO& io, size_t aj_at, size_t edge_at, float4 v,
+                                          float (&dai)[4]) {
+  dai[0] += v.x;
+  dai[1] += v.y;
+  dai[2] += v.z;
+  dai[3] += v.w;
+  atomicAdd(reinterpret_cast<float4*>(io.daj + aj_at), v);
+  atomicAdd(reinterpret_cast<float4*>(io.dedge + edge_at), v);
+}
+
+__device__ __forceinline__ void dpre_out2(const BwdIO& io, size_t aj_at, size_t edge_at, float2 v,
+                                          float& dai0, float& dai1) {
+  dai0 += v.x;
+  dai1 += v.y;
+  atomicAdd(reinterpret_cast<float2*>(io.daj + aj_at), v);
+  atomicAdd(reinterpret_cast<float2*>(io.dedge + edge_at), v);
+}
+
+// P, d(hid) = d(pre_heads) @ whm + d(HID), relu-gated. fp32: in two parts
+// that even out the FMA per warp with dwhm: warps 8-11 take neighbours
+// 0-31, warps 0-7 (after dwhm) neighbours 32-47. bf16: warps 8-11 take all
+// (the tensor cores make it short; warps 0-7 carry the per-unit sums).
+// dai[k] sums the lane's columns over its neighbours.
+//
+// fp32, warps 8-11: lane (nq, cg) = (lane / 16 + 2 (warp - 8), lane % 16):
+// neighbours nq + 8q (q < 4) x columns 4cg + k.
+__device__ __forceinline__ void p2a_fp32(const float* sm, const BwdIO& io, size_t aj0, size_t ed0,
+                                         int nj, int warp, int lane, float (&dai)[4]) {
+  using S = BSmem<false>;
+  const int nq = (lane >> 4) + 2 * (warp - 8), col = 4 * (lane & 15);
+  float acc[4][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
+  const float* dp = sm + S::DP + nq * DP_LD;
+  const float* wc = sm + S::WHM + col;
+#pragma unroll 2
+  for (int k0 = 0; k0 < HEADS; k0 += 4) {
+    float4 x[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x[q] = ld4(dp + 8 * q * DP_LD + k0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 wv = ld4(wc + (k0 + kk) * HF_LD);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float xv = comp(x[q], kk);
+        acc[q][0] = fmaf(wv.x, xv, acc[q][0]);
+        acc[q][1] = fmaf(wv.y, xv, acc[q][1]);
+        acc[q][2] = fmaf(wv.z, xv, acc[q][2]);
+        acc[q][3] = fmaf(wv.w, xv, acc[q][3]);
+      }
+    }
+  }
+  const float4 gh = ld4(sm + S::GH + col);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = nq + 8 * q;
+    if (j < nj) {
+      const float4 h = ld4(sm + S::HID + j * HF_LD + col);
+      const float4 v = {h.x > 0.f ? acc[q][0] + gh.x : 0.f, h.y > 0.f ? acc[q][1] + gh.y : 0.f,
+                        h.z > 0.f ? acc[q][2] + gh.z : 0.f, h.w > 0.f ? acc[q][3] + gh.w : 0.f};
+      const size_t at = (size_t)j * T + col;
+      dpre_out4(io, aj0 + at, ed0 + at, v, dai);
+    }
+  }
+}
+
+// fp32, warps 0-7: lane (n, h) = (lane / 2, lane % 2): neighbour 32 + n x
+// columns 8 warp + 4h + k.
+__device__ __forceinline__ void p2b_fp32(const float* sm, const BwdIO& io, size_t aj0, size_t ed0,
+                                         int nj, int warp, int lane, float (&dai)[4]) {
+  using S = BSmem<false>;
+  const int j = 32 + (lane >> 1), col = 8 * warp + 4 * (lane & 1);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const float* dp = sm + S::DP + j * DP_LD;
+  const float* wc = sm + S::WHM + col;
+#pragma unroll 4
+  for (int k0 = 0; k0 < HEADS; k0 += 4) {
+    const float4 x = ld4(dp + k0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 wv = ld4(wc + (k0 + kk) * HF_LD);
+      const float xv = comp(x, kk);
+      acc[0] = fmaf(wv.x, xv, acc[0]);
+      acc[1] = fmaf(wv.y, xv, acc[1]);
+      acc[2] = fmaf(wv.z, xv, acc[2]);
+      acc[3] = fmaf(wv.w, xv, acc[3]);
+    }
+  }
+  if (j < nj) {
+    const float4 gh = ld4(sm + S::GH + col);
+    const float4 h = ld4(sm + S::HID + j * HF_LD + col);
+    const float4 v = {h.x > 0.f ? acc[0] + gh.x : 0.f, h.y > 0.f ? acc[1] + gh.y : 0.f,
+                      h.z > 0.f ? acc[2] + gh.z : 0.f, h.w > 0.f ? acc[3] + gh.w : 0.f};
+    const size_t at = (size_t)j * T + col;
+    dpre_out4(io, aj0 + at, ed0 + at, v, dai);
+  }
+}
+
+// bf16, on the tensor cores (A = d(pre_heads) rounded from DP, B = whm
+// fragments WHT, k = 256 units): MT m-tiles from m-tile mt0 x NN n-tiles
+// from n-tile nt0. dai[2 nn + r] sums column 8 (nt0 + nn) + 2c + r.
+template <int MT, int NN>
+__device__ __forceinline__ void p2_bf16(const float* sm, const BwdIO& io, size_t aj0, size_t ed0,
+                                        int nj, int mt0, int nt0, int lane, float (&dai)[4]) {
+  using S = BSmem<true>;
+  const int g = lane >> 2, c = lane & 3;
+  float acc[MT][NN][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn) acc[m][nn][0] = acc[m][nn][1] = acc[m][nn][2] = acc[m][nn][3] = 0.f;
+  const uint2* wht = reinterpret_cast<const uint2*>(sm + S::WHT) + lane;
+#pragma unroll 2
+  for (int ks = 0; ks < HEADS / 16; ++ks) {
+    uint32_t b[NN][2];
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn) {
+      const uint2 bv = wht[((nt0 + nn) * 16 + ks) * 32];
+      b[nn][0] = bv.x;
+      b[nn][1] = bv.y;
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float* r0 = sm + S::DP + (16 * (mt0 + m) + g) * DP_LD + 16 * ks + 2 * c;
+      const float* r1 = r0 + 8 * DP_LD;
+      const float2 x00 = *reinterpret_cast<const float2*>(r0), x10 = *reinterpret_cast<const float2*>(r1);
+      const float2 x01 = *reinterpret_cast<const float2*>(r0 + 8), x11 = *reinterpret_cast<const float2*>(r1 + 8);
+      const uint32_t a[4] = {pack_bf16x2(x00.x, x00.y), pack_bf16x2(x10.x, x10.y),
+                             pack_bf16x2(x01.x, x01.y), pack_bf16x2(x11.x, x11.y)};
+#pragma unroll
+      for (int nn = 0; nn < NN; ++nn) mma_bf16_16816(acc[m][nn], a, b[nn]);
+    }
+  }
+  const uint32_t* ha = reinterpret_cast<const uint32_t*>(sm + S::HID);
+#pragma unroll
+  for (int nn = 0; nn < NN; ++nn) {
+    const int col = 8 * (nt0 + nn) + 2 * c;
+    const float gh0 = sm[S::GH + col], gh1 = sm[S::GH + col + 1];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const int j = 16 * (mt0 + m) + g + 8 * h8;
+        if (j < nj) {
+          const uint32_t hw = ha[j * HA_LD + col / 2];
+          const float d0 = bf_lo(hw) > 0.f ? acc[m][nn][2 * h8] + gh0 : 0.f;
+          const float d1 = bf_hi(hw) > 0.f ? acc[m][nn][2 * h8 + 1] + gh1 : 0.f;
+          const size_t at = (size_t)j * T + col;
+          dpre_out2(io, aj0 + at, ed0 + at, float2{d0, d1}, dai[2 * nn], dai[2 * nn + 1]);
+        }
+      }
+    }
+  }
+}
+
+// Built with -DPMHC_LOOP_PHASES (chip_ab.py --phases) the backward adds up,
+// per warp and phase, the cycles from the phase's start to the warp's
+// arrival at the phase's closing barrier (row [warp]), and on thread 0 the
+// cycles from barrier to barrier (row [BWARPS]); egnn_loop_bwd_phases
+// copies them out and clears them. Phases: 0 row set-up, 1 S0 build, 2 S1,
+// 3 S2 (B), 4 S3, 5 P, 6 row end. Without the flag phase_sync(k) is a
+// barrier.
+#ifdef PMHC_LOOP_PHASES
+constexpr int NPHASE = 7;
+__device__ unsigned long long g_phase_cycles[BWARPS + 1][NPHASE];
+__device__ __forceinline__ long long clock_now() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+#define phase_sync(k)                                                                   \
+  do {                                                                                  \
+    const long long t_arrive = clock_now();                                             \
+    if (lane == 0) atomicAdd(&g_phase_cycles[warp][k], (unsigned long long)(t_arrive - t_phase)); \
+    asm volatile("bar.sync 0;" ::: "memory");                                           \
+    const long long t_now = clock_now();                                                \
+    if (tid == 0) atomicAdd(&g_phase_cycles[BWARPS][k], (unsigned long long)(t_now - t_phase)); \
+    t_phase = t_now;                                                                    \
+  } while (0)
+#else
+#define phase_sync(k) __syncthreads()
+#endif
 
 template <bool BF16>
-__global__ void __launch_bounds__(HEADS, 1)
+__global__ void __launch_bounds__(BTHREADS, 1)
     egnn_loop_bwd_kernel(const Inputs in, const BwdIO io) {
+  using S = BSmem<BF16>;
   extern __shared__ __align__(16) float smem[];
-  float* whm_s = smem;                    // [HEADS][T], rounded in bf16 mode
-  float* hid_s = whm_s + HEADS * T;       // [CH][T]
-  float* act_s = hid_s + CH * T;          // [CH][ACT_LD] act, then d(pre_heads)
-  float* geo_s = act_s + CH * ACT_LD;     // [CH][GEO]
-  float* out_s = geo_s + CH * GEO;        // [CH][OUT_LD] lin2 outputs
-  float* dout_s = out_s + CH * OUT_LD;    // [CH][OUT_LD] their cotangents
-  float* nb_s = dout_s + CH * OUT_LD;     // [CH][NB_LD]
-  float* red_s = nb_s + CH * NB_LD;       // [CH][RED_LD]
-  float* dai_s = red_s + CH * RED_LD;     // [16][T]
-  float* ai_s = dai_s + 16 * T;           // [T]
-  float* ghid_s = ai_s + T;               // [T]
-  float* node_s = ghid_s + T;             // q_i[4], t_i[3]
-  float* ct_s = node_s + 8;               // m, g_D, g_GD[4], g_TA[7], g_TR[3]
-
+  float* sm = smem;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int head = tid / T;               // warp-uniform
-  const int uu = tid - head * T;
-  const int o0 = head_row0(head), no = head_rows(head);
-  const int kq = tid & 15, jp = tid >> 4;  // phase D: columns 4kq..4kq+3, neighbours 2jp, 2jp+1
-  const LoopW lw = loop_w(in.w);
   const int NP = in.NP;
+  const int rows = in.B * in.N;
+  const int per_block = (rows + gridDim.x - 1) / gridDim.x;
+  const int row_lo = min(rows, (int)blockIdx.x * per_block);
+  const int row_hi = min(rows, row_lo + per_block);
 
-  HeadUnit<BF16> hu;
-  hu.load_row(lw, tid);
-  for (int e = tid; e < HEADS * T; e += HEADS) whm_s[e] = rnd<BF16>(lw.whm[e]);
-  float w2u[7];  // this unit's column of its head's lin2 rows
-#pragma unroll
-  for (int q = 0; q < 7; ++q) w2u[q] = q < no ? rnd<BF16>(lw.w2[(o0 + q) * T + uu]) : 0.f;
+  // -- the block's weights, once ------------------------------------------
+  // (the weight pointers are rebuilt from in.w where they are used: kept
+  // live across the rows, they would cost 20 registers)
+  if constexpr (BF16) {
+    const LoopW lw = loop_w(in.w);
+    uint2* whf = reinterpret_cast<uint2*>(sm + S::WHM);  // B[k = column][n = unit] = whm[unit][column]
+    for (int e = tid; e < 4 * 8 * 4 * 32; e += BTHREADS) {
+      const int l = e & 31, ks = (e >> 5) & 3, nt = e >> 7;
+      const float* wr = lw.whm + (nt * 8 + (l >> 2)) * T + 16 * ks + 2 * (l & 3);
+      whf[e] = make_uint2(pack_bf16x2(wr[0], wr[1]), pack_bf16x2(wr[8], wr[9]));
+    }
+    uint2* wht = reinterpret_cast<uint2*>(sm + S::WHT);  // B[k = unit][n = column] = whm[unit][column]
+    for (int e = tid; e < 8 * 16 * 32; e += BTHREADS) {
+      const int l = e & 31, ks = (e >> 5) & 15, nt = e >> 9;
+      const float* wc = lw.whm + (16 * ks + 2 * (l & 3)) * T + 8 * nt + (l >> 2);
+      wht[e] = make_uint2(pack_bf16x2(wc[0], wc[T]), pack_bf16x2(wc[8 * T], wc[9 * T]));
+    }
+    uint2* w2f = reinterpret_cast<uint2*>(sm + S::W2F);  // B[k = unit][n = lin2 row], rows padded to 8
+    for (int e = tid; e < 4 * 4 * 32; e += BTHREADS) {
+      const int l = e & 31, t = (e >> 5) & 3, hd = e >> 7, n = l >> 2;
+      const float* wr = lw.w2 + (row0_of(hd) + n) * T + 16 * t + 2 * (l & 3);
+      w2f[e] = n < rows_of(hd) ? make_uint2(pack_bf16x2(wr[0], wr[1]), pack_bf16x2(wr[8], wr[9]))
+                               : make_uint2(0u, 0u);
+    }
+    uint32_t* w2t = reinterpret_cast<uint32_t*>(sm + S::W2T);  // B[k = lin2 row][n = unit], k >= 8 zero
+    for (int e = tid; e < 4 * 8 * 32; e += BTHREADS) {
+      const int l = e & 31, nt = (e >> 5) & 7, hd = e >> 8;
+      const int o = 2 * (l & 3), uu = 8 * nt + (l >> 2), R = rows_of(hd), R0 = row0_of(hd);
+      w2t[e] = pack_bf16x2(o < R ? lw.w2[(R0 + o) * T + uu] : 0.f, o + 1 < R ? lw.w2[(R0 + o + 1) * T + uu] : 0.f);
+    }
+  } else {
+    const LoopW lw = loop_w(in.w);
+    // whm rows: 16-byte copies where the buffer is aligned, else 4-byte
+    const bool al = (reinterpret_cast<uintptr_t>(lw.whm) & 15) == 0;
+    for (int e = tid; e < HEADS * T / 4; e += BTHREADS) {
+      const int u = e / (T / 4), k4 = e % (T / 4);
+      float* dst = sm + S::WHM + u * HF_LD + 4 * k4;
+      const float* src = lw.whm + u * T + 4 * k4;
+      if (al) {
+        cp_async16(dst, src);
+      } else {
+        for (int c = 0; c < 4; ++c) cp_async4(dst + c, src + c);
+      }
+    }
+    cp_async_commit();
+    for (int e = tid; e < NOUT * T; e += BTHREADS) sm[S::W2S + e] = lw.w2[e];
+  }
+  for (int e = tid; e < HEADS * T / 4; e += BTHREADS)
+    reinterpret_cast<float4*>(sm + S::DW)[e] = float4{0.f, 0.f, 0.f, 0.f};
+  for (int e = tid; e < 3 * NOUT * T; e += BTHREADS) sm[S::DW2 + e] = 0.f;
+  for (int e = tid; e < BT * 8; e += BTHREADS) sm[S::RQL + e] = 0.f;  // re-zeroed as each row reads it
+  for (int e = tid; e < S::DAI_SLOTS * T; e += BTHREADS) sm[S::DAI + e] = 0.f;  // the same
+  cp_async_wait_all();
+  __syncthreads();
+#ifdef PMHC_LOOP_PHASES
+  long long t_phase = clock_now();
+#endif
 
-  // weight gradients, summed over every row of this block
-  float dwhm[T];
-#pragma unroll
-  for (int k = 0; k < T; ++k) dwhm[k] = 0.f;
-  float dw2a[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float accb = 0.f;                        // this unit's bias
-  float accx[4] = {0.f, 0.f, 0.f, 0.f};    // att: wad, waq; rot: wrq[4]
-  float db2 = 0.f;                         // lin2 bias row tid (tid < NOUT)
+  // the S1 / S3 task of this warp: 16-neighbour block jb x head hd (the heads
+  // rotate over the SM's four sub-partitions, warp % 4)
+  const int jb = 16 * (warp >> 2), hd = (warp + (warp >> 2)) & 3;
+  // warps 0-7, thread = head unit tid: its sums over the block's rows
+  float accb = 0.f;                      // its bias
+  float accx[4] = {0.f, 0.f, 0.f, 0.f};  // att: wad, waq; rot: wrq[4]
+  float db2 = 0.f;                       // lin2 bias row tid (tid < NOUT)
+  const bool aligned = ((reinterpret_cast<uintptr_t>(in.aj) | reinterpret_cast<uintptr_t>(in.edge)) &
+                        (BF16 ? 7 : 15)) == 0;
+  int cur_b = -1;
 
-  for (int row = blockIdx.x; row < in.B * in.N; row += gridDim.x) {
+  for (int row = row_lo; row < row_hi; ++row) {
     const int b = row / in.N;
     const int i = row - b * in.N;
-    __syncthreads();  // the previous row's readers are done
     if (tid < T) {
-      ai_s[tid] = in.ai[(size_t)row * T + tid];
-      ghid_s[tid] = io.gHID[(size_t)row * T + tid];
+      sm[S::AI + tid] = in.ai[(size_t)row * T + tid];
+      sm[S::GH + tid] = io.gHID[(size_t)row * T + tid];
+      sm[S::TN + tid] = in.tor[(size_t)row * T + tid] + __ldg(loop_w(in.w).bt1 + tid);
+    } else if (tid < T + 4) {
+      sm[S::NODE + tid - T] = in.qi[(size_t)row * 4 + tid - T];
+    } else if (tid < T + 7) {
+      sm[S::NODE + tid - T] = in.ti[(size_t)row * 3 + tid - T - 4];
+    } else if (tid == 96) {
+      sm[S::CT + CT_M] = io.m[row];
+    } else if (tid == 97) {
+      sm[S::CT + CT_D] = io.gD[row];
+    } else if (tid >= 98 && tid < 102) {
+      sm[S::CT + CT_GD + tid - 98] = io.gGD[(size_t)row * 4 + tid - 98];
+    } else if (tid >= 102 && tid < 102 + NTOR) {
+      sm[S::CT + CT_TA + tid - 102] = io.gTA[(size_t)row * NTOR + tid - 102];
+    } else if (tid >= 109 && tid < 112) {
+      sm[S::CT + CT_TR + tid - 109] = io.gTR[(size_t)row * 3 + tid - 109];
     }
-    if (tid < 4) node_s[tid] = in.qi[(size_t)row * 4 + tid];
-    if (tid >= 4 && tid < 7) node_s[tid] = in.ti[(size_t)row * 3 + tid - 4];
-    if (tid == 32) ct_s[CT_M] = io.m[row];
-    if (tid == 33) ct_s[CT_D] = io.gD[row];
-    if (tid >= 34 && tid < 38) ct_s[CT_GD + tid - 34] = io.gGD[(size_t)row * 4 + tid - 34];
-    if (tid >= 38 && tid < 38 + NTOR) ct_s[CT_TA + tid - 38] = io.gTA[(size_t)row * NTOR + tid - 38];
-    if (tid >= 45 && tid < 48) ct_s[CT_TR + tid - 45] = io.gTR[(size_t)row * 3 + tid - 45];
-    hu.load_coef(lw, tid, head == 2 ? in.tor[(size_t)row * T + uu] : 0.f);
-    float rowb = 0.f;                       // sum over the row's neighbours of d(pre_heads)[u]
-    float dai_acc[4] = {0.f, 0.f, 0.f, 0.f};
-    float dqi_l[4] = {0.f, 0.f, 0.f, 0.f};  // warp 0: this lane's d(q_i), d(t_i)
-    float dti_l[3] = {0.f, 0.f, 0.f};
-    __syncthreads();
+    if (b != cur_b) {  // a new batch element: its neighbours' q_j, q_j^-1, t_j
+      for (int j = tid; j < NP; j += BTHREADS) {
+        float* f = sm + S::FRM + j * FR_LD;
+        float q_j[4];
+        for (int c = 0; c < 4; ++c) q_j[c] = in.qj[((size_t)b * NP + j) * 4 + c];
+        // zero-quat guard: padded frames may carry all-zero quats
+        const float n2 = fmaxf(q_j[0] * q_j[0] + q_j[1] * q_j[1] + q_j[2] * q_j[2] + q_j[3] * q_j[3],
+                               1e-30f);
+        for (int c = 0; c < 4; ++c) {
+          f[F_QJ + c] = q_j[c];
+          f[F_INV + c] = (c == 0 ? q_j[c] : -q_j[c]) / n2;
+        }
+        for (int c = 0; c < 3; ++c) f[F_TJ + c] = in.tj[((size_t)b * NP + j) * 3 + c];
+      }
+      cur_b = b;
+    }
+    float rowb = 0.f;                       // warps 0-7: d(pre_heads)[tid] summed over the row
+    phase_sync(0);
 
-    for (int j0 = 0; j0 < NP; j0 += CH) {
-      const int nj = min(CH, NP - j0);
-      build_chunk<BF16>(in.aj, in.qj, in.tj, in.edge, in.mask, ai_s, node_s, hid_s, geo_s, b, i, row,
-                        NP, j0, nj, tid);
-      __syncthreads();
-      head_chunk<BF16>(hu, hid_s, geo_s, act_s, tid);
-      __syncthreads();
-      lin2_chunk<BF16>(lw, act_s, out_s, warp, lane);
-      __syncthreads();
+    for (int j0 = 0; j0 < NP; j0 += BT) {
+      const int nj = min(BT, NP - j0);
+      // -- S0: the hid tile (rows past nj zero), the geometry records --------
+      if constexpr (BF16) {
+        uint32_t* ha = reinterpret_cast<uint32_t*>(sm + S::HID);
+        uint32_t* ht = reinterpret_cast<uint32_t*>(sm + S::HIDT);
+        for (int e = tid; e < (BT / 2) * (T / 2); e += BTHREADS) {
+          const int p = e / (T / 2), q = e % (T / 2);  // neighbours 2p, 2p + 1; columns 2q, 2q + 1
+          float v[2][2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int j = 2 * p + r;
+            v[r][0] = v[r][1] = 0.f;
+            if (j < nj) {
+              const float* x = in.aj + ((size_t)b * NP + j0 + j) * T + 2 * q;
+              const float* y = in.edge + ((size_t)i * NP + j0 + j) * T + 2 * q;
+              float2 xv, yv;
+              if (aligned) {
+                xv = *reinterpret_cast<const float2*>(x);
+                yv = *reinterpret_cast<const float2*>(y);
+              } else {
+                xv = float2{x[0], x[1]};
+                yv = float2{y[0], y[1]};
+              }
+              v[r][0] = fmaxf(sm[S::AI + 2 * q] + xv.x + yv.x, 0.f);
+              v[r][1] = fmaxf(sm[S::AI + 2 * q + 1] + xv.y + yv.y, 0.f);
+            }
+          }
+          ha[(2 * p) * HA_LD + q] = pack_bf16x2(v[0][0], v[0][1]);
+          ha[(2 * p + 1) * HA_LD + q] = pack_bf16x2(v[1][0], v[1][1]);
+          ht[(2 * q) * HT_LD + p] = pack_bf16x2(v[0][0], v[1][0]);
+          ht[(2 * q + 1) * HT_LD + p] = pack_bf16x2(v[0][1], v[1][1]);
+        }
+      } else {
+        for (int e = tid; e < BT * T / 4; e += BTHREADS) {
+          const int j = e / (T / 4), k4 = e % (T / 4);
+          float4 h = float4{0.f, 0.f, 0.f, 0.f};
+          if (j < nj) {
+            const float* x = in.aj + ((size_t)b * NP + j0 + j) * T + 4 * k4;
+            const float* y = in.edge + ((size_t)i * NP + j0 + j) * T + 4 * k4;
+            const float4 xv = aligned ? ld4(x) : float4{x[0], x[1], x[2], x[3]};
+            const float4 yv = aligned ? ld4(y) : float4{y[0], y[1], y[2], y[3]};
+            const float4 av = ld4(sm + S::AI + 4 * k4);
+            h = float4{fmaxf(av.x + xv.x + yv.x, 0.f), fmaxf(av.y + xv.y + yv.y, 0.f),
+                       fmaxf(av.z + xv.z + yv.z, 0.f), fmaxf(av.w + xv.w + yv.w, 0.f)};
+          }
+          *reinterpret_cast<float4*>(sm + S::HID + j * HF_LD + 4 * k4) = h;
+        }
+      }
+      if (tid >= 320 && tid < 320 + BT) {
+        const int jj = tid - 320;
+        float* g = sm + S::GEOS + jj * GEO_LD;
+        if (jj < nj) {
+          const float* f = sm + S::FRM + (j0 + jj) * FR_LD;
+          const float* q_i = sm + S::NODE;
+          float dx[3], tmp[4], lq[4];
+          for (int c = 0; c < 3; ++c) dx[c] = sm[S::NODE + 4 + c] - f[F_TJ + c];
+          const float d2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2];
+          const float qdot = q_i[0] * f[F_QJ] + q_i[1] * f[F_QJ + 1] + q_i[2] * f[F_QJ + 2] +
+                             q_i[3] * f[F_QJ + 3];
+          qmul(q_i, f + F_QJ, tmp);
+          qmul(f + F_INV, tmp, lq);
+          g[G_ND2] = -d2;
+          g[G_QD2] = qdot * qdot;
+          for (int c = 0; c < 4; ++c) {
+            g[G_LQ + c] = rnd<BF16>(lq[c]);  // bf16: the products' operand, rounded once
+            g[G_INV + c] = f[F_INV + c];
+            g[G_QJ + c] = f[F_QJ + c];
+          }
+          for (int c = 0; c < 3; ++c) g[G_DX + c] = dx[c];
+          g[G_MASK] = in.mask[(size_t)row * NP + j0 + jj];
+        } else {
+          for (int c = 0; c < GEO; ++c) g[c] = 0.f;
+        }
+      }
+      phase_sync(1);
 
-      // B: value-path adjoints (warp 0, lane = neighbour)
-      if (warp == 0) {
-        const float* g = geo_s + lane * GEO;
-        const float* ov = out_s + lane * OUT_LD;
+      const LoopW lw = loop_w(in.w);
+      float* dw2 = sm + S::DW2 + (jb / 16) * NOUT * T;  // this task's dW2 sums over the block's rows
+      // -- S1: act into DP and the lin2 rows ------------------------------------
+      if constexpr (BF16) {
+        if (hd == 0) s1_bf16<0>(sm, lw, jb, lane);
+        else if (hd == 1) s1_bf16<1>(sm, lw, jb, lane);
+        else if (hd == 2) s1_bf16<2>(sm, lw, jb, lane);
+        else s1_bf16<3>(sm, lw, jb, lane);
+      } else {
+        if (hd == 0) s1_fp32<0>(sm, lw, jb, lane);
+        else if (hd == 1) s1_fp32<1>(sm, lw, jb, lane);
+        else if (hd == 2) s1_fp32<2>(sm, lw, jb, lane);
+        else s1_fp32<3>(sm, lw, jb, lane);
+      }
+      phase_sync(2);
+
+      // -- S2 = B: value-path adjoints (warps 8-9, lane = neighbour) ----------
+      // The lane's lin2 output row then holds its d(q_j)[4], d(q_j^-1)[4],
+      // d(t_j)[3] for phase F; d(t_i) goes to its RQL slot.
+      const int jl = 32 * (warp - 8) + lane;
+      const bool nbr = (warp == 8 || warp == 9) && jl < nj;
+      if (nbr) {
+        const float* ct = sm + S::CT;
+        const float* g = sm + S::GEOS + jl * GEO_LD;
+        float* ov = sm + S::OUTS + jl * DV_LD;
+        float* rq = sm + S::RQL + jl * 8;
         const float* inv = g + G_INV;
         const float* q_j = g + G_QJ;
         const float* dx = g + G_DX;
         const float logit = ov[0] - (1.f - g[G_MASK]) * 1e9f;
-        const float e = lane < nj ? expf(logit - ct_s[CT_M]) : 0.f;
-        float ld[4], u[4], gdl[4], c1[4], c2[4];
+        const float e = expf(logit - ct[CT_M]);
+        float ld[4], u[4], gdl[4], c1[4], c2[4], nb[11];
         for (int c = 0; c < 4; ++c) ld[c] = 1.f / (1.f + expf(-ov[1 + c]));
         qmul(ld, inv, u);
         qmul(q_j, u, gdl);
         const float mtr = ov[12];
-        float ge = ct_s[CT_D];
-        for (int c = 0; c < 4; ++c) ge += ct_s[CT_GD + c] * gdl[c];
-        for (int k = 0; k < NTOR; ++k) ge += ct_s[CT_TA + k] * ov[5 + k];
-        for (int c = 0; c < 3; ++c) ge += ct_s[CT_TR + c] * mtr * dx[c];
-        float* dv = dout_s + lane * OUT_LD;
+        float ge = ct[CT_D];
+        for (int c = 0; c < 4; ++c) ge += ct[CT_GD + c] * gdl[c];
+        for (int k = 0; k < NTOR; ++k) ge += ct[CT_TA + k] * ov[5 + k];
+        for (int c = 0; c < 3; ++c) ge += ct[CT_TR + c] * mtr * dx[c];
+        float* dv = sm + S::DOUT + jl * DV_LD;
         dv[0] = e * ge;
         float dgd[4], dmtr = 0.f;
-        for (int c = 0; c < 4; ++c) dgd[c] = e * ct_s[CT_GD + c];
-        for (int k = 0; k < NTOR; ++k) dv[5 + k] = e * ct_s[CT_TA + k];
-        float* nb = nb_s + lane * NB_LD;
+        for (int c = 0; c < 4; ++c) dgd[c] = e * ct[CT_GD + c];
+        for (int k = 0; k < NTOR; ++k) dv[5 + k] = e * ct[CT_TA + k];
         for (int c = 0; c < 3; ++c) {
-          const float dmr = e * ct_s[CT_TR + c];
+          const float dmr = e * ct[CT_TR + c];
           dmtr += dmr * dx[c];
-          dti_l[c] += dmr * mtr;
+          rq[4 + c] += dmr * mtr;
           nb[8 + c] = -dmr * mtr;
         }
         dv[12] = dmtr;
@@ -305,202 +1162,223 @@ __global__ void __launch_bounds__(HEADS, 1)
         for (int c = 0; c < 4; ++c) dv[1 + c] = c2[c] * ld[c] * (1.f - ld[c]);
         qconj(ld, c1);
         qmul(c1, du, nb + 4);                // d(q_j^-1), first term
+        for (int c = 0; c < 11; ++c) ov[c] = nb[c];
       }
-      __syncthreads();
+      phase_sync(3);
 
-      // C: lin2 backward through unit tid, its weight gradients
-      if (tid < NOUT) {
-        for (int jj = 0; jj < CH; ++jj) db2 += dout_s[jj * OUT_LD + tid];
+      // -- S3: lin2 backward -> d(pre_heads), dW2, phase E ----------------------
+      if constexpr (BF16) {
+        if (hd == 0) s3_bf16<0>(sm, lw, jb, nj, lane, dw2);
+        else if (hd == 1) s3_bf16<1>(sm, lw, jb, nj, lane, dw2);
+        else if (hd == 2) s3_bf16<2>(sm, lw, jb, nj, lane, dw2);
+        else s3_bf16<3>(sm, lw, jb, nj, lane, dw2);
+      } else {
+        if (hd == 0) s3_fp32<0>(sm, lw, jb, nj, lane, dw2);
+        else if (hd == 1) s3_fp32<1>(sm, lw, jb, nj, lane, dw2);
+        else if (hd == 2) s3_fp32<2>(sm, lw, jb, nj, lane, dw2);
+        else s3_fp32<3>(sm, lw, jb, nj, lane, dw2);
       }
-      for (int jj = 0; jj < CH; ++jj) {
-        const float* dv = dout_s + jj * OUT_LD;
-        const float a = act_s[jj * ACT_LD + tid];
-        float s = 0.f;
-#pragma unroll
-        for (int q = 0; q < 7; ++q) {
-          if (q < no) {
-            const float d = rnd<BF16>(dv[o0 + q]);
-            dw2a[q] = fmaf(d, a, dw2a[q]);
-            s = fmaf(w2u[q], d, s);
-          }
-        }
-        const float dph = a > 0.f ? s : 0.f;
-        act_s[jj * ACT_LD + tid] = dph;
-        rowb += dph;
-        const float* g = geo_s + jj * GEO;
-        if (head == 0) {
-          accx[0] = fmaf(dph, g[G_ND2], accx[0]);
-          accx[1] = fmaf(dph, g[G_QD2], accx[1]);
-        } else if (head == 1) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) accx[c] = fmaf(rnd<BF16>(dph), rnd<BF16>(g[G_LQ + c]), accx[c]);
-        }
-        const float dr = rnd<BF16>(dph);
-        const float4* h4 = reinterpret_cast<const float4*>(hid_s + jj * T);
-#pragma unroll
-        for (int k = 0; k < T / 4; ++k) {
-          const float4 x = h4[k];
-          dwhm[4 * k + 0] = fmaf(dr, x.x, dwhm[4 * k + 0]);
-          dwhm[4 * k + 1] = fmaf(dr, x.y, dwhm[4 * k + 1]);
-          dwhm[4 * k + 2] = fmaf(dr, x.z, dwhm[4 * k + 2]);
-          dwhm[4 * k + 3] = fmaf(dr, x.w, dwhm[4 * k + 3]);
-        }
-      }
-      __syncthreads();
+      phase_sync(4);
 
-      // D: d(hid) = whm^T d(pre_heads) + d(HID), gated by relu'(pre)
+      float dai[4] = {0.f, 0.f, 0.f, 0.f};  // d(a_i) of the lane's d(hid) columns, this tile
+      // -- P: warps 0-7 dwhm, (fp32) d(hid) of neighbours 32-47, the units'
+      // -- sums; warps 8-9 phase F; warps 8-11 d(hid) of neighbours 0-31
+      // -- (fp32) or 0-47 (bf16) ------------------------------------------------
       {
-        float acc0[4] = {0.f, 0.f, 0.f, 0.f}, acc1[4] = {0.f, 0.f, 0.f, 0.f};
-        const float* d0 = act_s + (2 * jp) * ACT_LD;
-        const float* d1 = d0 + ACT_LD;
-#pragma unroll 4
-        for (int u = 0; u < HEADS; ++u) {
-          const float4 wv = *reinterpret_cast<const float4*>(whm_s + u * T + 4 * kq);
-          const float x0 = rnd<BF16>(d0[u]), x1 = rnd<BF16>(d1[u]);
-          acc0[0] = fmaf(wv.x, x0, acc0[0]);
-          acc0[1] = fmaf(wv.y, x0, acc0[1]);
-          acc0[2] = fmaf(wv.z, x0, acc0[2]);
-          acc0[3] = fmaf(wv.w, x0, acc0[3]);
-          acc1[0] = fmaf(wv.x, x1, acc1[0]);
-          acc1[1] = fmaf(wv.y, x1, acc1[1]);
-          acc1[2] = fmaf(wv.z, x1, acc1[2]);
-          acc1[3] = fmaf(wv.w, x1, acc1[3]);
-        }
+        const size_t aj0 = ((size_t)b * NP + j0) * T, ed0 = ((size_t)i * NP + j0) * T;
+        if (warp < 8) {
+          if constexpr (BF16) {
+            p3_bf16(sm, warp, lane);
+          } else {
+            p3_fp32(sm, warp, lane);
+            p2b_fp32(sm, io, aj0, ed0, nj, warp, lane, dai);
+          }
+          // thread = head unit tid: its sums over the tile's neighbours (rows
+          // past nj carry zeros)
+          const int head = tid / T;  // warp-uniform
+#pragma unroll 8
+          for (int jj = 0; jj < BT; ++jj) {
+            const float d = sm[S::DP + jj * DP_LD + tid];
+            const float* g = sm + S::GEOS + jj * GEO_LD;
+            rowb += d;
+            if (head == 0) {
+              accx[0] = fmaf(d, g[G_ND2], accx[0]);
+              accx[1] = fmaf(d, g[G_QD2], accx[1]);
+            } else if (head == 1) {  // the record's local quat is rounded in bf16 mode
+              const float dr = rnd<BF16>(d);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int jj = 2 * jp + r;
-          if (jj < nj) {
-            const int j = j0 + jj;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int k = 4 * kq + c;
-              const float dh = (r == 0 ? acc0[c] : acc1[c]) + ghid_s[k];
-              const float dpre = hid_s[jj * T + k] > 0.f ? dh : 0.f;
-              dai_acc[c] += dpre;
-              atomicAdd(io.daj + ((size_t)b * NP + j) * T + k, dpre);
-              atomicAdd(io.dedge + ((size_t)i * NP + j) * T + k, dpre);
+              for (int c = 0; c < 4; ++c) accx[c] = fmaf(dr, g[G_LQ + c], accx[c]);
             }
           }
+          if (tid < NOUT) {
+            for (int jj = 0; jj < nj; ++jj) db2 += sm[S::DOUT + jj * DV_LD + tid];
+          }
+        } else {
+          // F: quaternion and distance adjoints (warps 8-9, lane = neighbour)
+          if (nbr) {
+            const int j = j0 + jl;
+            const float* g = sm + S::GEOS + jl * GEO_LD;
+            const float* q_i = sm + S::NODE;
+            const float* q_j = g + G_QJ;
+            const float* inv = g + G_INV;
+            const float* dx = g + G_DX;
+            const float* dl = sm + S::REDS + jl * RED_LD;
+            const float* nb = sm + S::OUTS + jl * DV_LD;
+            float* rq = sm + S::RQL + jl * 8;
+            float dqj[4], dinv[4], dtj[3], v[4], c1[4], t4[4];
+            for (int c = 0; c < 4; ++c) {
+              dqj[c] = nb[c];
+              dinv[c] = nb[4 + c];
+            }
+            for (int c = 0; c < 3; ++c) dtj[c] = nb[8 + c];
+            // local = inv (x) v, v = q_i (x) q_j
+            qmul(q_i, q_j, v);
+            qconj(v, c1);
+            qmul(dl, c1, t4);
+            for (int c = 0; c < 4; ++c) dinv[c] += t4[c];
+            qconj(inv, c1);
+            float dv4[4];
+            qmul(c1, dl, dv4);
+            qconj(q_j, c1);
+            qmul(dv4, c1, t4);
+            for (int c = 0; c < 4; ++c) rq[c] += t4[c];
+            qconj(q_i, c1);
+            qmul(c1, dv4, t4);
+            for (int c = 0; c < 4; ++c) dqj[c] += t4[c];
+            // inv = conj(q_j) / sq; divide by sq twice (the 1e-30 guard squared underflows)
+            const float sq = fmaxf(q_j[0] * q_j[0] + q_j[1] * q_j[1] + q_j[2] * q_j[2] + q_j[3] * q_j[3],
+                                   1e-30f);
+            qconj(q_j, c1);
+            float ds = 0.f;
+            for (int c = 0; c < 4; ++c) ds += dinv[c] * c1[c] / sq;
+            ds = -ds / sq;
+            dqj[0] += dinv[0] / sq;
+            for (int c = 1; c < 4; ++c) dqj[c] -= dinv[c] / sq;
+            for (int c = 0; c < 4; ++c) dqj[c] += 2.f * q_j[c] * ds;
+            // attention extras: -d2 and qdot^2
+            const float dd2 = -dl[4];
+            const float qdot = q_i[0] * q_j[0] + q_i[1] * q_j[1] + q_i[2] * q_j[2] + q_i[3] * q_j[3];
+            const float dqdot = 2.f * qdot * dl[5];
+            for (int c = 0; c < 3; ++c) {
+              rq[4 + c] += 2.f * dd2 * dx[c];
+              dtj[c] -= 2.f * dd2 * dx[c];
+            }
+            for (int c = 0; c < 4; ++c) {
+              rq[c] += dqdot * q_j[c];
+              dqj[c] += dqdot * q_i[c];
+            }
+            for (int c = 0; c < 4; ++c) atomicAdd(io.dqj + ((size_t)b * NP + j) * 4 + c, dqj[c]);
+            for (int c = 0; c < 3; ++c) atomicAdd(io.dtj + ((size_t)b * NP + j) * 3 + c, dtj[c]);
+          }
+          if constexpr (BF16) {
+            p2_bf16<3, 2>(sm, io, aj0, ed0, nj, 0, 2 * (warp - 8), lane, dai);
+          } else {
+            p2a_fp32(sm, io, aj0, ed0, nj, warp, lane, dai);
+          }
         }
       }
-
-      // E: per neighbour, sums over the head units (warp w: neighbours w, w + 8, ...)
-      for (int jj = warp; jj < CH; jj += HEADS / 32) {
-        const float* d = act_s + jj * ACT_LD;
-        const float da0 = d[lane], da1 = d[lane + 32];            // attention units
-        const float dr0 = rnd<BF16>(d[T + lane]), dr1 = rnd<BF16>(d[T + lane + 32]);  // rotation
-        float v[6];
-        v[4] = lw.wad[lane] * da0 + lw.wad[lane + 32] * da1;
-        v[5] = lw.waq[lane] * da0 + lw.waq[lane + 32] * da1;
-        for (int c = 0; c < 4; ++c)
-          v[c] = rnd<BF16>(lw.wrq[lane * 4 + c]) * dr0 + rnd<BF16>(lw.wrq[(lane + 32) * 4 + c]) * dr1;
-        for (int c = 0; c < 6; ++c) v[c] = warp_sum(v[c]);
-        if (lane == 0) {
-          for (int c = 0; c < 6; ++c) red_s[jj * RED_LD + c] = v[c];
-        }
-      }
-      __syncthreads();
-
-      // F: quaternion and distance adjoints (warp 0, lane = neighbour)
-      if (warp == 0 && lane < nj) {
-        const int j = j0 + lane;
-        const float* g = geo_s + lane * GEO;
-        const float* q_i = node_s;
-        const float* q_j = g + G_QJ;
-        const float* inv = g + G_INV;
-        const float* dx = g + G_DX;
-        const float* dl = red_s + lane * RED_LD;
-        float* nb = nb_s + lane * NB_LD;
-        float dqj[4], dinv[4], dtj[3], v[4], c1[4], t4[4];
-        for (int c = 0; c < 4; ++c) {
-          dqj[c] = nb[c];
-          dinv[c] = nb[4 + c];
-        }
-        for (int c = 0; c < 3; ++c) dtj[c] = nb[8 + c];
-        // local = inv (x) v, v = q_i (x) q_j
-        qmul(q_i, q_j, v);
-        qconj(v, c1);
-        qmul(dl, c1, t4);
-        for (int c = 0; c < 4; ++c) dinv[c] += t4[c];
-        qconj(inv, c1);
-        float dv4[4];
-        qmul(c1, dl, dv4);
-        qconj(q_j, c1);
-        qmul(dv4, c1, t4);
-        for (int c = 0; c < 4; ++c) dqi_l[c] += t4[c];
-        qconj(q_i, c1);
-        qmul(c1, dv4, t4);
-        for (int c = 0; c < 4; ++c) dqj[c] += t4[c];
-        // inv = conj(q_j) / sq; divide by sq twice (the 1e-30 guard squared underflows)
-        const float sq = fmaxf(q_j[0] * q_j[0] + q_j[1] * q_j[1] + q_j[2] * q_j[2] + q_j[3] * q_j[3],
-                               1e-30f);
-        qconj(q_j, c1);
-        float ds = 0.f;
-        for (int c = 0; c < 4; ++c) ds += dinv[c] * c1[c] / sq;
-        ds = -ds / sq;
-        dqj[0] += dinv[0] / sq;
-        for (int c = 1; c < 4; ++c) dqj[c] -= dinv[c] / sq;
-        for (int c = 0; c < 4; ++c) dqj[c] += 2.f * q_j[c] * ds;
-        // attention extras: -d2 and qdot^2
-        const float dd2 = -dl[4];
-        const float qdot = q_i[0] * q_j[0] + q_i[1] * q_j[1] + q_i[2] * q_j[2] + q_i[3] * q_j[3];
-        const float dqdot = 2.f * qdot * dl[5];
-        for (int c = 0; c < 3; ++c) {
-          dti_l[c] += 2.f * dd2 * dx[c];
-          dtj[c] -= 2.f * dd2 * dx[c];
-        }
-        for (int c = 0; c < 4; ++c) {
-          dqi_l[c] += dqdot * q_j[c];
-          dqj[c] += dqdot * q_i[c];
-        }
-        for (int c = 0; c < 4; ++c) atomicAdd(io.dqj + ((size_t)b * NP + j) * 4 + c, dqj[c]);
-        for (int c = 0; c < 3; ++c) atomicAdd(io.dtj + ((size_t)b * NP + j) * 3 + c, dtj[c]);
-      }
-      __syncthreads();
-    }
-
-    // row end: d(a_i), d(tor_node), d(q_i), d(t_i)
+      // d(a_i): the lanes' sums over this tile's neighbours, reduced over the
+      // lanes that share columns, added to slots of disjoint columns
+      if constexpr (BF16) {
+        if (warp >= 8) {  // over the 8 g lanes; lanes 0-3: columns 16 (w - 8) + 8nn + 2c + r
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dai_s[jp * T + 4 * kq + c] = dai_acc[c];
-    if (head == 2) io.dtor[(size_t)row * T + uu] = rowb;
-    accb += rowb;
-    if (warp == 0) {
-      for (int c = 0; c < 4; ++c) dqi_l[c] = warp_sum(dqi_l[c]);
-      for (int c = 0; c < 3; ++c) dti_l[c] = warp_sum(dti_l[c]);
-      if (lane == 0) {
-        for (int c = 0; c < 4; ++c) io.dqi[(size_t)row * 4 + c] = dqi_l[c];
-        for (int c = 0; c < 3; ++c) io.dti[(size_t)row * 3 + c] = dti_l[c];
+          for (int k = 0; k < 4; ++k) {
+            dai[k] += __shfl_xor_sync(0xffffffffu, dai[k], 4);
+            dai[k] += __shfl_xor_sync(0xffffffffu, dai[k], 8);
+            dai[k] += __shfl_xor_sync(0xffffffffu, dai[k], 16);
+          }
+          if (lane < 4) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) sm[S::DAI + 16 * (warp - 8) + 8 * (k >> 1) + 2 * lane + (k & 1)] += dai[k];
+          }
+        }
+      } else if (warp >= 8) {  // over the 2 nq lanes; slot w - 8, columns 4cg + k
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dai[k] += __shfl_xor_sync(0xffffffffu, dai[k], 16);
+        if (lane < 16) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) sm[S::DAI + (warp - 8) * T + 4 * lane + k] += dai[k];
+        }
+      } else {  // over the 16 neighbour lanes; slot 4, columns 8w + 4h + k
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          dai[k] += __shfl_xor_sync(0xffffffffu, dai[k], 2);
+          dai[k] += __shfl_xor_sync(0xffffffffu, dai[k], 4);
+          dai[k] += __shfl_xor_sync(0xffffffffu, dai[k], 8);
+          dai[k] += __shfl_xor_sync(0xffffffffu, dai[k], 16);
+        }
+        if (lane < 2) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) sm[S::DAI + 4 * T + 8 * warp + 4 * lane + k] += dai[k];
+        }
       }
+      phase_sync(5);
     }
-    __syncthreads();
+
+    // -- row end: d(a_i), d(tor_node), d(q_i), d(t_i) ----------------------------
+    if (warp < 8) {
+      if (tid / T == 2) io.dtor[(size_t)row * T + tid - 2 * T] = rowb;
+      accb += rowb;
+    }
+    phase_sync(6);
     if (tid < T) {
       float s = 0.f;
-      for (int p = 0; p < 16; ++p) s += dai_s[p * T + tid];
+      for (int p = 0; p < S::DAI_SLOTS; ++p) {
+        s += sm[S::DAI + p * T + tid];
+        sm[S::DAI + p * T + tid] = 0.f;
+      }
       io.dai[(size_t)row * T + tid] = s;
+    } else if (tid < T + 7) {
+      float s = 0.f;
+      for (int jj = 0; jj < BT; ++jj) {
+        s += sm[S::RQL + jj * 8 + tid - T];
+        sm[S::RQL + jj * 8 + tid - T] = 0.f;
+      }
+      if (tid < T + 4) io.dqi[(size_t)row * 4 + tid - T] = s;
+      else io.dti[(size_t)row * 3 + tid - T - 4] = s;
     }
   }
 
-  // this block's weight-gradient partial sums
+  // -- this block's weight-gradient partial sums --------------------------------
   float* part = io.partial + (size_t)blockIdx.x * W_SIZE;
-#pragma unroll
-  for (int k = 0; k < T; ++k) part[O_WHM + tid * T + k] = dwhm[k];
-  if (head == 0) {
-    part[O_WAD + uu] = accx[0];
-    part[O_WAQ + uu] = accx[1];
-    part[O_BA1 + uu] = accb;
-  } else if (head == 1) {
-    part[O_BR1 + uu] = accb;
-    for (int c = 0; c < 4; ++c) part[O_WRQ + uu * 4 + c] = accx[c];
-  } else if (head == 2) {
-    part[O_BT1 + uu] = accb;
-  } else {
-    part[O_BL1 + uu] = accb;
+  if (warp < 8) {
+    const float4* dw = reinterpret_cast<const float4*>(sm + S::DW) + warp * 16 * 32 + lane;
+    for (int s = 0; s < 16; ++s) {
+      const float4 v = dw[s * 32];
+      if constexpr (BF16) {  // slot mt * 8 + nt: units 32w + 16mt + g (+ 8), columns 8nt + 2c (+ 1)
+        const int u = 32 * warp + 16 * (s >> 3) + (lane >> 2), col = 8 * (s & 7) + 2 * (lane & 3);
+        part[O_WHM + u * T + col] = v.x;
+        part[O_WHM + u * T + col + 1] = v.y;
+        part[O_WHM + (u + 8) * T + col] = v.z;
+        part[O_WHM + (u + 8) * T + col + 1] = v.w;
+      } else {  // slot 2a + h: unit 32w + 4ua + a (a < 4) or 32w + 16 + 4ua + a - 4; columns 4cb (+ 32 h)
+        const int a = s >> 1, h = s & 1;
+        const int u = 32 * warp + 4 * (lane >> 3) + (a < 4 ? a : 12 + a);
+        const int col = 4 * (lane & 7) + 32 * h;
+        part[O_WHM + u * T + col] = v.x;
+        part[O_WHM + u * T + col + 1] = v.y;
+        part[O_WHM + u * T + col + 2] = v.z;
+        part[O_WHM + u * T + col + 3] = v.w;
+      }
+    }
+    const int head = tid / T, uu = tid - head * T;
+    if (head == 0) {
+      part[O_WAD + uu] = accx[0];
+      part[O_WAQ + uu] = accx[1];
+      part[O_BA1 + uu] = accb;
+    } else if (head == 1) {
+      part[O_BR1 + uu] = accb;
+      for (int c = 0; c < 4; ++c) part[O_WRQ + uu * 4 + c] = accx[c];
+    } else if (head == 2) {
+      part[O_BT1 + uu] = accb;
+    } else {
+      part[O_BL1 + uu] = accb;
+    }
+    if (tid < NOUT) part[O_B2 + tid] = db2;
   }
-#pragma unroll
-  for (int q = 0; q < 7; ++q) {
-    if (q < no) part[O_W2 + (o0 + q) * T + uu] = dw2a[q];
-  }
-  if (tid < NOUT) part[O_B2 + tid] = db2;
+  // dW2: the three neighbour blocks' slots summed in order
+  for (int e = tid; e < NOUT * T; e += BTHREADS)
+    part[O_W2 + e] = sm[S::DW2 + e] + sm[S::DW2 + NOUT * T + e] + sm[S::DW2 + 2 * NOUT * T + e];
 }
 
 // dw[k] = sum over blocks of partial[block][k], in block order
@@ -540,10 +1418,12 @@ int launch_fwd(Inputs in, FwdOut out, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+
 template <bool BF16>
 int launch_bwd(Inputs in, BwdIO io, float* dw, int blocks, cudaStream_t stream) {
+  if (in.NP > MAXNP) return (int)cudaErrorInvalidValue;
   static std::atomic<bool> done[MAX_DEVICES];
-  cudaError_t err = smem_opt_in(egnn_loop_bwd_kernel<BF16>, BWD_SMEM_BYTES, done);
+  cudaError_t err = smem_opt_in(egnn_loop_bwd_kernel<BF16>, BSmem<BF16>::BYTES, done);
   if (err != cudaSuccess) return (int)err;
   const size_t nbr = (size_t)in.B * in.NP;
   if ((err = cudaMemsetAsync(io.daj, 0, nbr * T * sizeof(float), stream)) != cudaSuccess ||
@@ -553,8 +1433,8 @@ int launch_bwd(Inputs in, BwdIO io, float* dw, int blocks, cudaStream_t stream) 
           cudaSuccess)
     return (int)err;
   void* args[] = {&in, &io};
-  err = cudaLaunchKernel(egnn_loop_bwd_kernel<BF16>, dim3(blocks), dim3(HEADS), args, BWD_SMEM_BYTES,
-                         stream);
+  err = cudaLaunchKernel(egnn_loop_bwd_kernel<BF16>, dim3(blocks), dim3(BTHREADS), args,
+                         BSmem<BF16>::BYTES, stream);
   if (err != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const float* partial = io.partial;
@@ -573,22 +1453,29 @@ extern "C" {
 // Length in floats of the flat loop-weight buffer.
 int egnn_loop_weights_size() { return pmhc::W_SIZE; }
 
-// Blocks of the backward kernel for ``rows`` query rows: as many as fit
-// on the current device at once, at most one per row; <= 0 on error.
+// Blocks of the backward kernel for ``rows`` query rows: one per SM, each a
+// contiguous run of ceil(rows / SMs) rows (the last run may be shorter);
+// <= 0 on error.
 int egnn_loop_bwd_blocks(int rows) {
-  using namespace pmhc;
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+  int dev = 0, sms = 0;
+  if (rows < 1 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
     return -1;
-  static std::atomic<bool> done[MAX_DEVICES];
-  if (smem_opt_in(egnn_loop_bwd_kernel<false>, BWD_SMEM_BYTES, done) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, egnn_loop_bwd_kernel<false>, HEADS,
-                                                    BWD_SMEM_BYTES) != cudaSuccess)
-    return -1;
-  const int cap = sms * (per_sm > 0 ? per_sm : 1);
-  return rows < cap ? rows : cap;
+  const int per = (rows + sms - 1) / sms;
+  return (rows + per - 1) / per;
 }
+
+#ifdef PMHC_LOOP_PHASES
+// Copies the backward's phase cycle counters ([BWARPS + 1][NPHASE]
+// unsigned 64-bit) to ``out`` and clears them.
+int egnn_loop_bwd_phases(unsigned long long* out) {
+  using namespace pmhc;
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  static unsigned long long zero[BWARPS + 1][NPHASE];
+  return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+}
+#endif
 
 int egnn_loop_fwd_launch(const float* w, const float* ai, const float* tor, const float* qi,
                          const float* ti, const float* aj, const float* qj, const float* tj,

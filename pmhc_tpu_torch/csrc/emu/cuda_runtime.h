@@ -67,7 +67,19 @@ inline float __shfl_xor_sync(unsigned, float v, int s) {
   return r;
 }
 inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
+// sm_90's vector atomics: each element added atomically
+inline float2 atomicAdd(float2* p, float2 v) {
+  return {atomicAdd(&p->x, v.x), atomicAdd(&p->y, v.y)};
+}
+inline float4 atomicAdd(float4* p, float4 v) {
+  return {atomicAdd(&p->x, v.x), atomicAdd(&p->y, v.y), atomicAdd(&p->z, v.z), atomicAdd(&p->w, v.w)};
+}
 inline float __ldg(const float* p) { return *p; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
 inline int min(int a, int b) { return a < b ? a : b; }
 
 struct __nv_bfloat16 { uint16_t x; };

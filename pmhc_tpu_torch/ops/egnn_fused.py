@@ -257,12 +257,10 @@ def device_ctx(dev: torch.device):
 def launch(lib, w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16: bool,
            stream: int = 0):
     """One launch of the kernel on checked inputs; returns (q, t, tors,
-    feat). ``stream`` is the CUDA stream handle (0: the default). The
-    kernel copies a_j, q_j and edge in 16-byte pieces (``cp.async``), so
-    their storage must start 16-byte aligned."""
-    for name, x in (("a_j", a_j), ("q_j", q_j), ("edge", edge)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"egnn_fused: {name} must start at a 16-byte aligned address")
+    feat). ``stream`` is the CUDA stream handle (0: the default). Inputs
+    may start at any 4-byte aligned address: the kernel copies a_j, q_j and
+    edge in 16-byte pieces where they start 16-byte aligned and in 4-byte
+    pieces where they do not (no copy into fresh storage here)."""
     B, N, NP = msg_mask.shape
     dev = h.device
     out_q = torch.empty((B, N, 4), dtype=torch.float32, device=dev)

@@ -30,6 +30,7 @@ from chip_smoke import (
     layer_case,
     loop_case,
     loop_errors,
+    loop_ragged,
     loop_run,
     pallas_case,
     pallas_ragged,
@@ -103,14 +104,33 @@ def test_service_launches_the_kernel_twice_per_step(bf16):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["fp32", "bf16"])
-@pytest.mark.parametrize("batch_size", [3, 64])
-def test_loop_kernels_match_plain(mode, batch_size):
+def test_cuda_kernel_takes_unaligned_inputs(mode):
+    """Every input but the packed weights a view that starts 4 bytes into
+    its storage: a_j, q_j and edge go by the kernel's 4-byte copies."""
+    dev = _card()
+    args = layer_case(random_model(seed=0).to(dev), "gnn1", seed=3, device=dev, batch_size=5)
+    offset = [torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x) for x in args[1:]]
+    assert all(x.data_ptr() % 16 for x in offset)
+    got = ef.egnn_fused(args[0], *offset, bf16=mode == "bf16")
+    want = ef.egnn_fused_plain(*args, bf16=mode == "bf16")
+    torch.cuda.synchronize()
+    for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=TOL[mode][name], err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("batch_size,n_neighbours", [(3, None), (64, None), (64, 90)])
+def test_loop_kernels_match_plain(mode, batch_size, n_neighbours):
     """Forward outputs and every gradient of the loop kernels against the
-    plain version and its autograd, both layer shapes."""
+    plain version and its autograd, both layer shapes; ``n_neighbours`` =
+    90 (``loop_ragged``): the backward's second tile is partly padding."""
     dev = _card()
     model = random_model(seed=0).to(dev)
     for seed, layer in enumerate(("gnn1", "gnn2")):
         args, cts = loop_case(model, layer, seed=seed + 1, device=dev, batch_size=batch_size)
+        if n_neighbours is not None:
+            args = loop_ragged(args, n_neighbours)
         got = loop_run(args, cts, mode == "bf16", kernel=True)
         want = loop_run(args, cts, mode == "bf16", kernel=False)
         torch.cuda.synchronize()

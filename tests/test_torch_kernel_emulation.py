@@ -12,9 +12,13 @@ each tensor's largest magnitude), fused kernel ``TOL``, kernel #3
 ``PALLAS_TOL``. Batch 1 (batch 2-3 for kernel #3, whose batch holds
 peptides of 9, 5 and 1 residues: fully masked rows) and one layer shape
 per case keep the emulation (one OS thread per CUDA thread) to seconds.
-The fused kernel also runs a ragged neighbour tile (NP = 90) and two
-neighbour tiles per query row (NP = 136, batch 2); kernel #3 runs blocks
-that cross a batch element (batch 2) and a ragged NP = 90.
+The fused kernel also runs a ragged neighbour tile (NP = 90), two
+neighbour tiles per query row (NP = 136, batch 2) and inputs that do not
+start 16-byte aligned; the loop kernels run a ragged NP = 90 (the
+backward's second 48-neighbour tile partly padding), batch 2 (backward
+blocks that cross a batch element) and unaligned backward inputs;
+kernel #3 runs blocks that cross a batch element (batch 2) and a ragged
+NP = 90.
 Skips without g++.
 """
 
@@ -30,6 +34,7 @@ from chip_smoke import (
     loop_case,
     loop_errors,
     loop_named,
+    loop_ragged,
     loop_run,
     pallas_case,
     pallas_ragged,
@@ -51,16 +56,49 @@ def _lib(name, bind):
     return bind(_emulate.build_emulated(name))
 
 
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
-def test_loop_kernels_emulated_match_plain(mode):
+def _offset(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose storage starts 4 bytes past an
+    allocation: not 8- or 16-byte aligned."""
+    v = torch.empty(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+    v.copy_(x)
+    return v
+
+
+def _loop_matches_plain(args, cts, mode, bwd_inputs=None):
+    """Both loop kernels against the plain version; ``bwd_inputs``: the
+    backward's (args, m, cts) if not those of the forward."""
     lib = _lib("egnn_loop", el.bind)
     bf16 = mode == "bf16"
-    args, cts = loop_case(random_model(seed=0), "gnn2", seed=4, device=CPU, batch_size=1)
     outs = el.launch_fwd(lib, *args, bf16=bf16)
-    got = loop_named(outs, el.launch_bwd(lib, *args, outs[0], cts, bf16=bf16))
+    b_args, m, b_cts = bwd_inputs(args, outs[0], cts) if bwd_inputs else (args, outs[0], cts)
+    got = loop_named(outs, el.launch_bwd(lib, *b_args, m, b_cts, bf16=bf16))
     bad = {n: r for n, r in loop_errors(got, loop_run(args, cts, bf16, kernel=False),
                                          LOOP_TOL[mode]).items() if not r[3]}
     assert not bad, bad
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("batch_size,n_neighbours", [(1, None), (1, 90), (2, None)])
+def test_loop_kernels_emulated_match_plain(mode, batch_size, n_neighbours):
+    """NP = 96: two full 48-neighbour tiles per query row. ``n_neighbours``
+    = 90 (``loop_ragged``): the backward's second tile is ragged, its padding
+    rows hold the first tile's data and must carry no gradient. Batch 2 on
+    the emulated card's 3 SMs gives the backward blocks of 11 / 11 / 10
+    rows: the second crosses a batch element, whose neighbour frames it
+    must rebuild mid-block."""
+    args, cts = loop_case(random_model(seed=0), "gnn2", seed=4, device=CPU, batch_size=batch_size)
+    if n_neighbours is not None:
+        args = loop_ragged(args, n_neighbours)
+    _loop_matches_plain(args, cts, mode)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_loop_kernels_emulated_take_unaligned_inputs(mode):
+    """Every input of the backward a view that starts 4 bytes into its
+    storage: its weight staging and hid build take their 4-byte paths."""
+    args, cts = loop_case(random_model(seed=0), "gnn1", seed=8, device=CPU, batch_size=1)
+    _loop_matches_plain(args, cts, mode, bwd_inputs=lambda a, m, c: (
+        tuple(_offset(x) for x in a), _offset(m), [_offset(x) for x in c]))
 
 
 def _fused_matches_plain(lib, args, mode):
@@ -84,6 +122,15 @@ def test_fused_kernel_emulated_ragged_tile(mode):
     zero rows and its neighbours masked out of the fold."""
     args = ragged_case(layer_case(random_model(seed=0), "gnn2", seed=5, device=CPU, batch_size=1))
     _fused_matches_plain(_lib("egnn_fused", ef.bind), args, mode)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_fused_kernel_emulated_takes_unaligned_inputs(mode):
+    """a_j, q_j and edge (and every other input) as views that start 4 bytes
+    into their storage: the kernel's 4-byte copy path."""
+    args = layer_case(random_model(seed=0), "gnn1", seed=9, device=CPU, batch_size=1)
+    w, rest = args[0], args[1:]
+    _fused_matches_plain(_lib("egnn_fused", ef.bind), (w,) + tuple(_offset(x) for x in rest), mode)
 
 
 def _two_tiles(args, extra: int = 40):
