@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Time two builds of a kernel on one card, in turns, and the current source
 with one phase removed at a time: kernel #3 (``csrc/egnn_pallas.cu``) or
-the training loop's backward (``csrc/egnn_loop.cu``, TPU kernels #6/#7).
+the training loop's forward and backward (``csrc/egnn_loop.cu``, TPU
+kernels #4-#7).
 
     python3 chip_ab.py OLD.cu [--kernel pallas|loop] [--ablate] [--phases]
 
-``OLD.cu`` is an earlier version of the source, e.g. the parent commit's:
+``OLD.cu`` is an earlier version of the source, e.g. the parent commit's,
+with the parent's headers that differ from the current ones beside it
+(headers are looked up in OLD.cu's directory before ``csrc/``):
 
-    git show HEAD~1:pmhc_tpu_torch/csrc/egnn_pallas.cu > .chip_scratch/egnn_pallas_old.cu
-    git show HEAD~1:pmhc_tpu_torch/csrc/egnn_loop.cu > .chip_scratch/egnn_loop_old.cu
+    mkdir -p .chip_scratch/old
+    git show HEAD~1:pmhc_tpu_torch/csrc/egnn_pallas.cu > .chip_scratch/old/egnn_pallas.cu
+    git show HEAD~1:pmhc_tpu_torch/csrc/egnn_loop.cu > .chip_scratch/old/egnn_loop.cu
+    git show HEAD~1:pmhc_tpu_torch/csrc/egnn_common.cuh > .chip_scratch/old/egnn_common.cuh
 
 Both are built with ``ops/_build.NVCC_FLAGS`` (one nvcc each, in parallel)
 into ``.chip_scratch/build/`` and bound with the wrapper's ``bind``. Kernel
@@ -18,16 +23,17 @@ each layer shape timed. The loop: forward and backward of both builds
 checked against the plain version and its autograd
 (``chip_smoke.loop_run(..., kernel=False)``) at ``chip_smoke.LOOP_TOL`` on
 ``chip_smoke.loop_case``'s batch-64 inputs, both layer shapes and both
-modes, then the backward timed per layer and mode. Times are
-``chip_smoke.time_ms`` (CUDA events) in the order old, new, new, old,
+modes, then the forward and the backward timed per layer and mode. Times
+are ``chip_smoke.time_ms`` (CUDA events) in the order old, new, new, old,
 ``ITERS`` launches each. ``--ablate`` also builds copies of the current
 source with one phase removed (textual edits, ``ABLATIONS``; their
 outputs are wrong, they are timed only) and times each beside the
-current source. ``--phases`` (loop) also builds the current source with
-``-DPMHC_LOOP_PHASES`` and prints the backward's clock64 cycles per phase
-(barrier to barrier) and per warp (to its arrival at the phase's closing
-barrier), summed over the blocks. One JSON line per measurement, the
-card's name and power limit first.
+current source; the loop's ``fwd_*`` ablations on the forward, the others
+on the backward. ``--phases`` (loop) also builds
+the current source with ``-DPMHC_LOOP_PHASES`` and prints the backward's
+clock64 cycles per phase (barrier to barrier) and per warp (to its arrival
+at the phase's closing barrier), summed over the blocks. One JSON line per
+measurement, the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -81,20 +87,28 @@ ABLATIONS = {"pallas": {
     "no_phases_BF": [("if (nbr) {", "if (false) {")],
     "no_E": [("constexpr int NS = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 0;", "constexpr int NS = HEAD < 0 ? 2 : 0;")],
     "no_unit_sums": [("for (int jj = 0; jj < BT; ++jj) {", "for (int jj = 0; jj < 0; ++jj) {")],
-    "no_build": [("for (int e = tid; e < (BT / 2) * (T / 2); e += BTHREADS) {",
-                  "for (int e = tid; e < 0; e += BTHREADS) {"),
-                 ("for (int e = tid; e < BT * T / 4; e += BTHREADS) {", "for (int e = tid; e < 0; e += BTHREADS) {")],
-    "no_weight_staging": [("for (int e = tid; e < 4 * 8 * 4 * 32; e += BTHREADS) {",
-                           "for (int e = tid; e < 0; e += BTHREADS) {"),
-                          ("for (int e = tid; e < 8 * 16 * 32; e += BTHREADS) {",
-                           "for (int e = tid; e < 0; e += BTHREADS) {"),
-                          ("for (int e = tid; e < HEADS * T / 4; e += BTHREADS) {\n      const int u",
-                           "for (int e = tid; e < 0; e += BTHREADS) {\n      const int u")],
+    "no_build": [("for (int e = tid; e < (BT / 2) * (T / 2); e += THREADS) {",
+                  "for (int e = tid; e < 0; e += THREADS) {"),
+                 ("for (int e = tid; e < BT * T / 4; e += THREADS) {", "for (int e = tid; e < 0; e += THREADS) {")],
+    "no_weight_staging": [("for (int e = tid; e < 4 * 8 * 4 * 32; e += THREADS) {",
+                           "for (int e = tid; e < 0; e += THREADS) {"),
+                          ("for (int e = tid; e < 8 * 16 * 32; e += THREADS) {",
+                           "for (int e = tid; e < 0; e += THREADS) {"),
+                          ("for (int e = tid; e < HEADS * T / 4; e += THREADS) {\n      const int u",
+                           "for (int e = tid; e < 0; e += THREADS) {\n      const int u")],
+    # the forward (egnn_tile.cuh's phases, called from the forward kernel)
+    "fwd_no_product": [("    tile_product<BF16>(sm, nj, warp, lane);\n", "")],
+    "fwd_no_fold": [("      fold_tile<BF16>(sm, nj, warp, lane);\n", "")],
+    "fwd_no_prefetch": [("      prefetch(it + 1, nrow / N != b || ntl != tl);\n", "")],
+    "fwd_no_build": [("    build_tile<BF16>(sm, sm + S::NR + L_AI, sm + S::NR + L_QI, sm + S::NR + L_TI, nj, tid, warp, lane);\n",
+                      "")],
+    "fwd_no_weight_staging": [("  stage_weights<BF16>(sm, loop_w(in.w), tid);\n", "")],
 }}
 
 
-def build(name: str, source: str, flags=()) -> str:
-    """nvcc ``source`` (text) into ``.chip_scratch/build/lib<name>.so``."""
+def build(name: str, source: str, flags=(), includes=()) -> str:
+    """nvcc ``source`` (text) into ``.chip_scratch/build/lib<name>.so``;
+    headers from ``includes``, then ``csrc/``."""
     from pmhc_tpu_torch.ops import _build
 
     os.makedirs(OUT, exist_ok=True)
@@ -102,8 +116,9 @@ def build(name: str, source: str, flags=()) -> str:
     with open(src, "w") as f:
         f.write(source)
     out = os.path.join(OUT, f"lib{name}.so")
+    inc = [a for d in (*includes, _build.CSRC) for a in ("-I", d)]
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v",
-                           "-I", _build.CSRC, "-o", out, src], capture_output=True, text=True)
+                           *inc, "-o", out, src], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc {name} failed:\n{proc.stdout}{proc.stderr}")
     regs = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
@@ -149,7 +164,8 @@ def pallas_ab(libs, card, dev, run_ms) -> None:
 
 def loop_ab(libs, card, dev, run_ms) -> None:
     """The loop kernels: both builds' forward and backward checked in both
-    modes, then the backward timed per layer shape and mode."""
+    modes, then the forward and the backward timed per layer shape and
+    mode."""
     from chip_smoke import LOOP_TOL, loop_case, loop_errors, loop_named, loop_run, random_model
     from pmhc_tpu_torch.ops import egnn_loop as el
 
@@ -175,9 +191,13 @@ def loop_ab(libs, card, dev, run_ms) -> None:
                 if bad:
                     raise AssertionError(f"{name} loop kernels disagree with the plain version on "
                                          f"{layer} {mode}: {bad}")
+            run_ms("egnn_loop_fwd", {"layer": layer, "mode": mode},
+                   lambda n: lambda: el.launch_fwd(libs[n], *args, bf16=bf16, stream=stream),
+                   ablations=lambda a: a.startswith("fwd_"))
             m = el.launch_fwd(libs["new"], *args, bf16=bf16, stream=stream)[0]
             run_ms("egnn_loop_bwd", {"layer": layer, "mode": mode},
-                   lambda n: lambda: el.launch_bwd(libs[n], *args, m, cts, bf16=bf16, stream=stream))
+                   lambda n: lambda: el.launch_bwd(libs[n], *args, m, cts, bf16=bf16, stream=stream),
+                   ablations=lambda a: not a.startswith("fwd_"))
             if "phases" in libs:
                 loop_phases(libs["phases"], lambda: el.launch_bwd(libs["phases"], *args, m, cts,
                                                                   bf16=bf16, stream=stream),
@@ -219,7 +239,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("old", help="an earlier version of the kernel's source")
     ap.add_argument("--kernel", choices=sorted(ABLATIONS), default="pallas",
-                    help="pallas: egnn_pallas.cu (kernel #3); loop: egnn_loop.cu (its backward, #6/#7)")
+                    help="pallas: egnn_pallas.cu (kernel #3); loop: egnn_loop.cu (#4-#7)")
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--phases", action="store_true",
                     help="loop: also build the source with -DPMHC_LOOP_PHASES and report the "
@@ -249,9 +269,10 @@ def main() -> int:
     if opts.ablate:
         for name, edits in ABLATIONS[opts.kernel].items():
             sources[name] = ablated(new_src, edits)
-    jobs = {k: (v, ()) for k, v in sources.items()}
+    jobs = {k: (v, (), ()) for k, v in sources.items()}
+    jobs["old"] = (sources["old"], (), (os.path.dirname(os.path.abspath(opts.old)),))
     if opts.phases and opts.kernel == "loop":
-        jobs["phases"] = (new_src, ("-DPMHC_LOOP_PHASES",))
+        jobs["phases"] = (new_src, ("-DPMHC_LOOP_PHASES",), ())
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(jobs)) as pool:
         paths = dict(zip(jobs, pool.map(lambda kv: build(f"{source}_{kv[0]}", *kv[1]), jobs.items())))
@@ -261,13 +282,14 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    def run_ms(metric: str, labels: dict, launcher) -> None:
-        """The old and new builds in turns, then each ablation beside new."""
+    def run_ms(metric: str, labels: dict, launcher, ablations=lambda name: True) -> None:
+        """The old and new builds in turns, then each ablation that
+        ``ablations`` selects beside new."""
         run = lambda k: time_ms(launcher(k), ITERS)
         turns = [(k, run(k)) for k in ("old", "new", "new", "old")]
         print(json.dumps({"metric": f"{metric}_ab_ms", **labels, "turns": turns, "iters": ITERS,
                           "card": card}), flush=True)
-        for name in (k for k in libs if k not in ("old", "new", "phases")):
+        for name in (k for k in libs if k not in ("old", "new", "phases") and ablations(k)):
             print(json.dumps({"metric": f"{metric}_ablation_ms", **labels, "ablation": name,
                               "ms": run(name), "new_ms": run("new"), "card": card}), flush=True)
 

@@ -11,8 +11,8 @@ Phases (any failure exits non-zero):
    registers, shared memory, spills). The fused kernel's two
    instantiations, the loop kernels' four and kernel #3 must not spill,
    and ``cuobjdump -sass`` must find HMMA (tensor-core) instructions in
-   the fused kernel's and the loop backward's bf16 instantiations and none
-   in their fp32 ones;
+   the bf16 instantiations of the fused kernel and of the loop forward and
+   backward, and none in their fp32 ones;
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (batch 64, both layer shapes, fp32 and bf16 modes), with
    the tolerances stated below: the fused sampler layer, the training
@@ -24,7 +24,9 @@ Phases (any failure exits non-zero):
    mode that skipped its rounding could not pass. The fused layer, the
    loop kernels and kernel #3 also run with their neighbours cut to NP =
    90 (a ragged last row tile; for the loop backward a partial second
-   48-neighbour tile; for #3 a partial 32-neighbour block);
+   48-neighbour tile; for #3 a partial 32-neighbour block), and the loop
+   forward with 40 neighbours more, NP = 136 (two 96-neighbour tiles per
+   query row, merged online; the backward takes NP <= 96);
 4. the main paths. Serving: ``SamplerService(batch_size=64,
    noise_step_count=1000)`` answers 3 requests, then two full batches of
    64, in fp32 and in bf16; checks the PDBs parse with finite coordinates
@@ -46,13 +48,13 @@ Phases (any failure exits non-zero):
    held against a dense ``Trainer`` from the same seed, 2 launches per step;
 5. times with CUDA events after warm-up: each kernel and its plain version
    per launch, beside the bound reckoned from this run's shapes (for the
-   fused layer also ``gemm_ms``, the yardstick of its dominant product
-   alone: one ``torch.matmul`` of [B*N*NP, 64] @ [64, 256] in the mode's
-   precision, which the port never calls); the wall seconds per batch-64
-   trajectory, per 64-request HTTP batch and per optimizer step; then
-   ``torch.profiler`` over strided 100-step batch-64 sampling runs (fused
-   fp32 and bf16, pallas) and over 10 training steps: device time by
-   kernel, idle share.
+   fused layer and the loop forward also ``gemm_ms``, the yardstick of
+   their dominant product alone: one ``torch.matmul`` of [B*N*NP, 64] @
+   [64, 256] in the mode's precision, which the port never calls); the
+   wall seconds per batch-64 trajectory, per 64-request HTTP batch and per
+   optimizer step; then ``torch.profiler`` over strided 100-step batch-64
+   sampling runs (fused fp32 and bf16, pallas) and over 10 training steps
+   in fp32 and in bf16: device time by kernel, idle share.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each ported kernel with its launches, error and times, and the
 line before that is ``nvidia-smi``'s name and power limit of the card.
@@ -318,6 +320,39 @@ def loop_ragged(args, n_neighbours: int = 90):
     return (w, a_i, tor, q_i, t_i, cut(a_j, 1), cut(q_j, 1), cut(t_j, 1), cut(edge, 1), cut(mask, 2))
 
 
+def loop_two_tiles(args, extra: int = 40):
+    """The loop kernels' inputs (batch >= 2) with ``extra`` more neighbours:
+    perturbed copies of pocket slots 20 .. 20 + extra, a random mask, and
+    query row (1, 3) fully masked. NP = 96 + extra: the forward folds two
+    96-neighbour tiles per query row, the second ragged over rows the first
+    wrote (the backward takes NP <= 96)."""
+    import numpy as np
+    import torch
+
+    w, a_i, tor, q_i, t_i, a_j, q_j, t_j, edge, mask = args
+    rng = np.random.default_rng(6)
+    noise = lambda s: torch.from_numpy(0.1 * rng.standard_normal(s).astype(np.float32)).to(mask.device)
+    more = lambda x, axis: torch.cat((x, x.narrow(axis, 20, extra) + noise(x.narrow(axis, 20, extra).shape)),
+                                     axis).contiguous()
+    m = torch.from_numpy((rng.random(mask.shape[:2] + (extra,)) > 0.3).astype(np.float32)).to(mask.device)
+    mask = torch.cat((mask, m), 2).contiguous()
+    mask[1, 3] = 0.0
+    return w, a_i, tor, q_i, t_i, more(a_j, 1), more(q_j, 1), more(t_j, 1), more(edge, 1), mask
+
+
+def loop_forward_errors(args, bf16: bool, tol: dict):
+    """``loop_errors`` of the loop forward (``egnn_loop``, the kernel on a
+    card) against ``egnn_loop_plain`` on ``args``, outputs only."""
+    import torch
+
+    from pmhc_tpu_torch.ops import egnn_loop as el
+
+    with torch.no_grad():
+        got = dict(zip((f"out {n}" for n in el.OUT_NAMES), el.egnn_loop(*args, bf16=bf16)))
+        want = dict(zip((f"out {n}" for n in el.OUT_NAMES), el.egnn_loop_plain(*args, bf16=bf16)))
+    return loop_errors(got, want, tol)
+
+
 def loop_run(args, cts, bf16: bool, kernel: bool):
     """The loop's seven outputs and the gradients of <outputs, cts> with
     respect to its nine differentiable inputs (the loop weights as their
@@ -389,8 +424,9 @@ def work_of_loop(args, m, cts, kind: str, bf16: bool):
 def check_loop_kernels(model, dev):
     """Phase 3, training loop: both kernels against their plain versions
     at batch 64 with each layer's weights and on layer 2's inputs cut to
-    NP = 90, fp32 and bf16, forward outputs and every gradient. Returns the
-    two layers' cases and the max abs error per mode and kernel."""
+    NP = 90, fp32 and bf16, forward outputs and every gradient; the forward
+    also on layer 2's inputs grown to NP = 136 (``loop_two_tiles``). Returns
+    the two layers' cases and the max abs error per mode and kernel."""
     cases = {layer: loop_case(model, layer, seed=10 + k, device=dev)
              for k, layer in enumerate(("gnn1", "gnn2"))}
     # and a ragged last backward tile: layer 2's neighbours cut to NP = 90
@@ -422,6 +458,13 @@ def check_loop_kernels(model, dev):
                     f"the bf16 tolerances: {', '.join(over[:8])}")
                 if not over:
                     raise AssertionError(f"bf16 loop tolerances cannot tell fp32 from bf16 on {layer}")
+        two = loop_two_tiles(cases["gnn2"][0])
+        for name, (err, rel, t, ok) in loop_forward_errors(two, bf16, LOOP_TOL[mode]).items():
+            log(f"check loop {mode} gnn2 NP={two[-1].shape[-1]} {name}: max_abs_err {err:.3e} = "
+                f"{rel:.2e} of max (tol {t:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"loop forward {mode} NP=136 {name} disagrees with plain version")
+            worst["fwd"] = max(worst["fwd"], err)
         max_err[mode] = worst
     return cases, max_err
 
@@ -592,8 +635,8 @@ def build_entries(info: dict, kind_of) -> dict:
 def check_loop_build(info: dict) -> dict:
     """Phase 2, the loop kernels' four instantiations (forward and backward,
     ``<false>`` fp32 and ``<true>`` bf16): registers and spills from ``ptxas
-    -v`` and HMMA counts from the SASS. None may spill; the bf16 backward
-    must use the tensor cores and the fp32 backward must not (no TF32
+    -v`` and HMMA counts from the SASS. None may spill; the bf16 forward and
+    backward must use the tensor cores and the fp32 ones must not (no TF32
     either). Returns {kind: {"registers", "spill_bytes", "smem_bytes",
     "hmma"}}."""
     def kind_of(name):
@@ -608,9 +651,9 @@ def check_loop_build(info: dict) -> dict:
     kinds = {"fwd_fp32", "fwd_bf16", "bwd_fp32", "bwd_bf16"}
     if set(res) != kinds or any(r["registers"] is None for r in res.values()):
         raise AssertionError(f"egnn_loop: ptxas did not report all four instantiations: {res}")
-    if not res["bwd_bf16"]["hmma"] or res["bwd_fp32"]["hmma"]:
-        raise AssertionError("egnn_loop: the bf16 backward must use the tensor cores (HMMA) and "
-                             f"the fp32 backward must not: {res}")
+    if any(not res[f"{k}_bf16"]["hmma"] or res[f"{k}_fp32"]["hmma"] for k in ("fwd", "bwd")):
+        raise AssertionError("egnn_loop: the bf16 forward and backward must use the tensor cores "
+                             f"(HMMA) and the fp32 ones must not: {res}")
     if any(r["spill_bytes"] for r in res.values()):
         raise AssertionError(f"egnn_loop spills registers: {res}")
     return res
@@ -638,8 +681,9 @@ def check_fused_build(info: dict) -> dict:
 
 def gemm_ms(args, bf16: bool) -> float:
     """ms of one ``torch.matmul`` of [B*N*NP, T] @ [T, 4T] in the mode's
-    precision (fp32 without TF32, or bf16): the fused layer's dominant
-    product alone, a yardstick the port never calls."""
+    precision (fp32 without TF32, or bf16): the dominant product of the
+    fused layer and of the loop forward alone, a yardstick the port never
+    calls. ``args``: either's inputs (a_j at 5, the mask at 9)."""
     import torch
 
     _, h, _, _, _, a_j, _, _, _, mask = args
@@ -711,45 +755,52 @@ def loop_times(cases, loop_err, train_launches, card: str) -> list:
     for kind in ("fwd", "bwd"):
         for mode in ("fp32", "bf16"):
             bf16 = mode == "bf16"
-            per = {"ms": [], "plain_ms": [], "bound_ms": []}
+            per = {"ms": [], "plain_ms": [], "bound_ms": [], "gemm_ms": []}
             bound_by = None
             for layer, (args, cts) in cases.items():
                 m = el.launch_fwd(lib, *args, bf16=bf16, stream=stream)[0]
+                gemm = None
                 if kind == "fwd":
                     ms = time_ms(lambda: el.launch_fwd(lib, *args, bf16=bf16, stream=stream), 50)
                     with torch.no_grad():
                         plain = time_ms(lambda: el.egnn_loop_plain(*args, bf16=bf16), 5)
+                    gemm = gemm_ms(args, bf16)
+                    per["gemm_ms"].append(gemm)
                 else:
                     ms = time_ms(lambda: el.launch_bwd(lib, *args, m, cts, bf16=bf16, stream=stream), 20)
                     plain = time_ms(lambda: loop_run(args, cts, bf16, kernel=False), 3)
                 flops, nbytes, bound_ms, bound_by = work_of_loop(args, m, cts, kind, bf16)
                 log(json.dumps({"metric": f"egnn_loop_{kind}_ms", "mode": mode, "layer": layer,
-                                "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                                "ms": ms, "plain_ms": plain, "gemm_ms": gemm, "bound_ms": bound_ms,
                                 "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                                 "tflops": flops / ms / 1e9, "card": card}))
                 per["ms"].append(ms)
                 per["plain_ms"].append(plain)
                 per["bound_ms"].append(bound_ms)
             name = f"{kind}_{mode}"
-            rows.append({
+            row = {
                 "name": f"egnn_loop_{name}", "route": "cuda",
                 "source": "pmhc_tpu_torch/csrc/egnn_loop.cu", "replaces": LOOP_REPLACES[name],
                 "launches": train_launches[mode][name], "max_abs_err": loop_err[mode][kind],
                 "ms": float(np.mean(per["ms"])), "plain_ms": float(np.mean(per["plain_ms"])),
                 "bound_ms": float(np.mean(per["bound_ms"])), "bound_by": bound_by,
                 "library_ms": None,  # no single PyTorch call computes the loop
-            })
+            }
+            if per["gemm_ms"]:  # the forward's dominant product alone, a yardstick
+                row["gemm_ms"] = float(np.mean(per["gemm_ms"]))
+            rows.append(row)
     return rows
 
 
-def train_breakdown(dev) -> dict:
-    """Device time by kernel and idle share over 10 batch-64 fp32 training
-    steps (after 3 warm-up steps)."""
+def train_breakdown(dev, bf16: bool) -> dict:
+    """Device time by kernel and idle share over 10 batch-64 training steps
+    in the mode (after 3 warm-up steps)."""
     from pmhc_tpu_torch.data.synthetic import synthetic_batch
     from pmhc_tpu_torch.models import ScoreNetworkConfig
     from pmhc_tpu_torch.train import TrainConfig, Trainer
 
-    tr = Trainer(ScoreNetworkConfig(backend="auto"), train_config=TrainConfig(seed=9, nan_check_every=0))
+    tr = Trainer(ScoreNetworkConfig(backend="auto"), train_config=TrainConfig(seed=9, nan_check_every=0),
+                 bf16=bf16)
     batches = [synthetic_batch(batch_size=B, seed=700 + k) for k in range(10)]
     for b in batches[:3]:
         tr.train_batch(b)
@@ -1275,8 +1326,9 @@ def main() -> int:
         w = sorted(train_walls[mode][1:])  # the first step loads the kernels
         log(json.dumps({"metric": "train_step_s_median", "mode": mode, "batch": B,
                         "median_s": w[len(w) // 2], "card": card}))
-    log(json.dumps({"metric": "device_breakdown", "path": "train", "mode": "fp32", "batch": B,
-                    "steps": 10, **train_breakdown(dev), "card": card}))
+    for mode in ("fp32", "bf16"):
+        log(json.dumps({"metric": "device_breakdown", "path": "train", "mode": mode, "batch": B,
+                        "steps": 10, **train_breakdown(dev, mode == "bf16"), "card": card}))
 
     print(card)
     print(json.dumps({"kernels": kernels}))

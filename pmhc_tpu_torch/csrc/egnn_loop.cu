@@ -10,12 +10,13 @@
 // (forward) and autograd through it (backward).
 //
 // Forward. Per query row (b, i), over its NP neighbours, the recompute of
-// egnn_common.cuh (a_i and the torsion node term come in pre-projected)
+// egnn_tile.cuh (a_i and the torsion node term come in pre-projected)
 // folded into the online-softmax accumulators m, D, GD[4], TA[7], TR[3],
 // CNT and the plain sum HID[T] of relu(pre) over all NP slots. It is
-// egnn_fused.cu's neighbour loop without the per-node finalize, which
-// stays in torch so autograd carries it. One block of 256 threads per
-// row, two blocks per SM.
+// egnn_fused.cu's neighbour loop (the tile loop of egnn_tile.cuh) without
+// the node MLPs and the per-node finalize, which stay in torch so autograd
+// carries them; the design is described above the kernel
+// (egnn_loop_fwd_kernel).
 //
 // Backward. Takes the cotangents of D, GD, TA, TR, HID (m and CNT carry
 // none) and the forward's final m, recomputes each neighbour tile
@@ -30,8 +31,11 @@
 // bits vary from run to run.
 //
 // Bound. Per (b, i, j) pair the forward is ~35 kFLOP (see
-// egnn_fused.cu); the backward recomputes it and adds the whm outer
-// product and whm^T d(pre_heads) (2 x 256 x 64 MACs) and the lin2 terms:
+// egnn_fused.cu): 3.45 GFLOP per launch at B=64, N=16, NP=96 against ~3.5
+// MB, bound by operations (>= ~52 us fp32, >= ~3.5 us bf16; there the
+// CUDA-core work around the tensor-core products sets the time). The
+// backward recomputes it and adds the whm outer product and whm^T
+// d(pre_heads) (2 x 256 x 64 MACs) and the lin2 terms:
 // ~100 kFLOP, ~10 GFLOP per launch at B=64, N=16, NP=96 against a few MB:
 // bound by operations (>= ~0.15 ms at the H100 SXM's published 67 TFLOP/s
 // fp32 peak, >= ~0.01 ms at 989 TFLOP/s bf16; 700 W). fp32: its three
@@ -39,7 +43,7 @@
 // and the CUDA-core work around them (recompute epilogues, adjoints, the
 // per-unit sums, atomics) sets the time.
 //
-// bf16 mode: the rounding points of egnn_common.cuh in the recompute;
+// bf16 mode: the rounding points of egnn_tile.cuh in the recompute;
 // in the backward, the operands of the dW2 and dwhm/dwrq outer products,
 // of w2^T d(out), of whm^T d(pre_heads) and of wrq^T d(rot) are rounded
 // to bf16 (as the g8 TPU backward rounds its matmul operands). Unlike
@@ -55,8 +59,7 @@
 // Interface: plain C, loaded with ctypes. Launchers allocate nothing,
 // launch on the caller's stream and return the CUDA error code.
 
-#include "egnn_common.cuh"
-#include "mma_bf16.cuh"
+#include "egnn_tile.cuh"
 
 #include <stddef.h>
 #include <stdint.h>
@@ -65,8 +68,6 @@
 
 namespace pmhc {
 namespace {
-
-constexpr int MAX_DEVICES = 64;
 
 // the flat loop-weight buffer; the order must match
 // pmhc_tpu_torch/ops/egnn_loop.py::LOOP_W
@@ -103,71 +104,150 @@ struct BwdIO {
   float* partial;                                // [gridDim.x][W_SIZE]
 };
 
-constexpr size_t FWD_SMEM_FLOATS = CH * T + CH * ACT_LD + CH * GEO + CH * OUT_LD  // chunk tiles
-                                   + T + 4 * T + 8 + FOLD;  // a_i, HID partials, node, fold
-constexpr size_t FWD_SMEM_BYTES = FWD_SMEM_FLOATS * sizeof(float);
+// ---------------------------------------------------------------------------
+// Forward. Replaces the TPU kernels _make_loop_fwd (#4, fp32) and
+// _make_loop_fwd_g8 (#5, bf16). It is egnn_fused.cu's neighbour loop
+// (egnn_tile.cuh) without the node MLPs and the finalize: one persistent
+// block of 12 warps per SM over a contiguous run of query rows (8 at
+// B=64, N=16: 128 blocks, one wave), the weights staged once per block,
+// neighbours in tiles of 96 with the next (row, tile)'s edge, mask, a_i,
+// tor_node, q_i and t_i in flight (cp.async) while a tile computes, and
+// a_j, q_j, t_j copied only when the batch element or the tile changes.
+// Per tile: build (hid, HID partials, geometry), the 12 product tasks
+// (bf16: mma.sync; fp32: FFMA register tiles, no TF32), the fold on warps
+// 0-2 and HID on warps 3-4, the merge on warp 0; after a row's last tile
+// the block writes its m, D, GD, TA, TR, CNT and HID. m is the exact
+// maximum of the masked logits from -1e30 (a maximum does not depend on
+// the order), as the backward's recompute of exp(logit - m) needs.
+// Measured (NVIDIA H100 80GB HBM3, 700 W, chip_ab.py): fp32 ~0.125 ms,
+// bf16 ~0.044 ms per launch at batch 64; the fp32 head product is ~78 %
+// of it, bf16 the per-row sequence around a ~15 us product (PERF.md,
+// section 6).
+
+// the row's node inputs (cp.async): a_i [T], tor_node [T], q_i [4], t_i [3]
+constexpr int L_AI = 0, L_TN = T, L_QI = 2 * T, L_TI = 2 * T + 4, L_NODE = 2 * T + 8;
+
+// Shared memory of the forward, in floats: the tile loop's, then the row's.
+template <bool BF16>
+struct FSmem : TileSmem<BF16> {
+  static constexpr int NR = TileSmem<BF16>::END;  // the row's node inputs [L_NODE]
+  static constexpr int BT1 = NR + L_NODE;         // bt1 [T]
+  static constexpr int HS = BT1 + T;              // the row's HID over its earlier tiles [T]
+  static constexpr int TOTAL = HS + T;
+  static constexpr size_t BYTES = TOTAL * sizeof(float);
+  static_assert(BYTES <= 232448, "forward shared memory exceeds the H100's 227 KB");
+};
 
 template <bool BF16>
-__global__ void __launch_bounds__(HEADS, 2) egnn_loop_fwd_kernel(const Inputs in, const FwdOut out) {
+__global__ void __launch_bounds__(THREADS, 1)
+    egnn_loop_fwd_kernel(const Inputs in, const FwdOut out, int per_block) {
+  using S = FSmem<BF16>;
   extern __shared__ __align__(16) float smem[];
-  float* hid_s = smem;                    // [CH][T]
-  float* act_s = hid_s + CH * T;          // [CH][ACT_LD]
-  float* geo_s = act_s + CH * ACT_LD;     // [CH][GEO]
-  float* out_s = geo_s + CH * GEO;        // [CH][OUT_LD]
-  float* ai_s = out_s + CH * OUT_LD;      // [T]
-  float* hsum_s = ai_s + T;               // [4][T]
-  float* node_s = hsum_s + 4 * T;         // q_i[4], t_i[3]
-  float* fold_s = node_s + 8;             // [FOLD]
-
-  const int row = blockIdx.x;             // b * N + i
-  const int b = row / in.N;
-  const int i = row - b * in.N;
+  float* sm = smem;
+  const int rows = in.B * in.N;
+  const int row_lo = blockIdx.x * per_block;
+  const int row_hi = min(rows, row_lo + per_block);
+  if (row_lo >= row_hi) return;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const LoopW lw = loop_w(in.w);
+  const int N = in.N;
+  const int tiles = (in.NP + TILE - 1) / TILE;
+  const int items = (row_hi - row_lo) * tiles;
 
-  if (tid < T) ai_s[tid] = in.ai[(size_t)row * T + tid];
-  if (tid < 4) node_s[tid] = in.qi[(size_t)row * 4 + tid];
-  if (tid >= 4 && tid < 7) node_s[tid] = in.ti[(size_t)row * 3 + tid - 4];
-  if (tid < FOLD) fold_s[tid] = (tid == F_M) ? -1e30f : 0.f;
+  // -- prefetch of one work item (row, tile), and of the node inputs of
+  // -- the row it opens ----------------------------------------------------
+  const TileSrc src = tile_src(in.aj, in.qj, in.tj, in.edge, in.mask, in.NP);
+  const bool al_ai = (reinterpret_cast<uintptr_t>(in.ai) & 15) == 0;
+  const bool al_tn = (reinterpret_cast<uintptr_t>(in.tor) & 15) == 0;
+  const bool al_qi = (reinterpret_cast<uintptr_t>(in.qi) & 15) == 0;
+  auto prefetch = [&](int it, bool with_bj) {
+    const int row = row_lo + it / tiles, tl = it % tiles;
+    const int b = row / N;
+    prefetch_tile<BF16>(sm, src, b, row - b * N, row, tl, with_bj, tid);
+    if (tl == 0) {
+      if (tid < T / 4) {
+        copy16(sm + S::NR + L_AI + 4 * tid, in.ai + (size_t)row * T + 4 * tid, al_ai);
+      } else if (tid < T / 2) {
+        copy16(sm + S::NR + L_TN + 4 * (tid - T / 4), in.tor + (size_t)row * T + 4 * (tid - T / 4), al_tn);
+      } else if (tid == T / 2) {
+        copy16(sm + S::NR + L_QI, in.qi + (size_t)row * 4, al_qi);
+      } else if (tid < T / 2 + 4) {
+        cp_async4(sm + S::NR + L_TI + tid - T / 2 - 1, in.ti + (size_t)row * 3 + tid - T / 2 - 1);
+      }
+    }
+    cp_async_commit();
+  };
+  prefetch(0, true);
 
-  HeadUnit<BF16> hu;
-  hu.load_row(lw, tid);
-  hu.load_coef(lw, tid, tid / T == 2 ? in.tor[(size_t)row * T + tid - 2 * T] : 0.f);
-  float hid_acc = 0.f;
-  __syncthreads();
+  // -- the block's resident weights (while the first tile lands) -------------
+  stage_weights<BF16>(sm, loop_w(in.w), tid);
+  if (tid < T) sm[S::BT1 + tid] = in.w[O_BT1 + tid];
 
-  for (int j0 = 0; j0 < in.NP; j0 += CH) {
-    const int nj = min(CH, in.NP - j0);
-    hid_acc += build_chunk<BF16>(in.aj, in.qj, in.tj, in.edge, in.mask, ai_s, node_s, hid_s, geo_s,
-                                 b, i, row, in.NP, j0, nj, tid);
+  for (int it = 0; it < items; ++it) {
+    const int row = row_lo + it / tiles, tl = it % tiles;
+    const int b = row / N;
+    const int nj = min(TILE, in.NP - tl * TILE);
+    cp_async_wait_all();
+    __syncthreads();  // this item's inputs have landed; the last item's merge is done
+
+    // -- build: hid tile, HID partials, geometry records; a new row's state --
+    build_tile<BF16>(sm, sm + S::NR + L_AI, sm + S::NR + L_QI, sm + S::NR + L_TI, nj, tid, warp, lane);
+    if (tl == 0 && tid >= 128 && tid < 128 + T) {  // the torsion head's extra term: tor_node + bt1
+      const int k = tid - 128;
+      sm[S::COEF + 4 * HEADS + 2 * T + k] = sm[S::NR + L_TN + k] + sm[S::BT1 + k];
+    } else if (tl == 0 && tid >= 192 && tid < 192 + FOLD) {  // the running fold
+      sm[S::FR + tid - 192] = (tid - 192 == F_M) ? -1e30f : 0.f;
+    }
+    __syncthreads();  // hid, geometry ready; the raw buffers are free
+
+    if (it + 1 < items) {
+      const int nrow = row_lo + (it + 1) / tiles, ntl = (it + 1) % tiles;
+      prefetch(it + 1, nrow / N != b || ntl != tl);
+    }
+
+    tile_product<BF16>(sm, nj, warp, lane);
+    __syncthreads();  // lin2 outputs ready
+
+    // -- fold: warps 0-2 fold 32 neighbours each; warps 3-4 sum HID --------
+    const bool last = tl + 1 == tiles;
+    if (warp < 3) {
+      fold_tile<BF16>(sm, nj, warp, lane);
+    } else if (warp < 5) {
+      const int k = tid - 96;
+      if (k < T) {
+        const float s = hid_sum<BF16>(sm, tl == 0 ? 0.f : sm[S::HS + k], k);
+        if (last) {
+          out.HID[(size_t)row * T + k] = s;
+        } else {
+          sm[S::HS + k] = s;
+        }
+      }
+    }
     __syncthreads();
-    head_chunk<BF16>(hu, hid_s, geo_s, act_s, tid);
-    __syncthreads();
-    lin2_chunk<BF16>(lw, act_s, out_s, warp, lane);
-    __syncthreads();
-    if (warp == 0) fold_chunk(geo_s, out_s, fold_s, lane, nj);
-  }
 
-  hsum_s[tid] = hid_acc;
-  __syncthreads();  // also publishes warp 0's last fold
-  if (tid < T) {
-    out.HID[(size_t)row * T + tid] =
-        hsum_s[tid] + hsum_s[T + tid] + hsum_s[2 * T + tid] + hsum_s[3 * T + tid];
-  }
-  if (tid == 0) {
-    out.m[row] = fold_s[F_M];
-    out.D[row] = fold_s[F_D];
-    out.CNT[row] = fold_s[F_CNT];
-  } else if (tid < 5) {
-    out.GD[(size_t)row * 4 + tid - 1] = fold_s[F_GD + tid - 1];
-  } else if (tid < 5 + NTOR) {
-    out.TA[(size_t)row * NTOR + tid - 5] = fold_s[F_TA + tid - 5];
-  } else if (tid < 5 + NTOR + 3) {
-    out.TR[(size_t)row * 3 + tid - 5 - NTOR] = fold_s[F_TR + tid - 5 - NTOR];
+    // -- warp 0: merge the partials; after the row's last tile, its outputs --
+    if (warp == 0) {
+      const float v = merge_tile<BF16>(sm, lane);
+      if (last) {
+        if (lane == F_M) {
+          out.m[row] = v;
+        } else if (lane == F_D) {
+          out.D[row] = v;
+        } else if (lane < F_TA) {
+          out.GD[(size_t)row * 4 + lane - F_GD] = v;
+        } else if (lane < F_TR) {
+          out.TA[(size_t)row * NTOR + lane - F_TA] = v;
+        } else if (lane < F_CNT) {
+          out.TR[(size_t)row * 3 + lane - F_TR] = v;
+        } else if (lane == F_CNT) {
+          out.CNT[row] = v;
+        }
+      }
+    }
   }
 }
+
 // ---------------------------------------------------------------------------
 // Backward. Replaces the TPU kernels _make_loop_bwd (#6, fp32) and
 // _make_loop_bwd_g8 (#7, bf16). One persistent block of 12 warps per SM
@@ -208,15 +288,11 @@ __global__ void __launch_bounds__(HEADS, 2) egnn_loop_fwd_kernel(const Inputs in
 // ~0.23 ms per launch at batch 64; the products and the per-unit sums are
 // the largest parts (PERF.md, section 6).
 
-constexpr int BWARPS = 12;
-constexpr int BTHREADS = 32 * BWARPS;
 constexpr int BT = 48;                 // neighbours per tile: three 16-row blocks
 constexpr int MAXNP = 96;              // neighbours per row the per-element cache holds
-constexpr int HF_LD = T + 4;           // fp32 whm and hid row stride (floats)
 constexpr int DP_LD = HEADS + 4;       // act, then d(pre_heads): row stride (floats)
 constexpr int HA_LD = T / 2 + 4;       // bf16 hid [j][k] row stride (words)
 constexpr int HT_LD = BT / 2 + 4;      // bf16 hid^T [k][j] row stride (words)
-constexpr int GEO_LD = GEO + 1;
 constexpr int DV_LD = 14;              // lin2 outputs (then phase B's records) and their cotangents
 constexpr int RED_LD = 8;              // d(local quat)[4], wad . d(att), waq . d(att)
 constexpr int FR_LD = 12;              // cached per neighbour: q_j[4], q_j^-1[4], t_j[3]
@@ -254,13 +330,6 @@ struct BSmem {
   static_assert(BYTES <= 232448, "backward shared memory exceeds the H100's 227 KB");
 };
 
-__host__ __device__ constexpr int row0_of(int head) { return head == 0 ? 0 : head == 1 ? 1 : head == 2 ? 5 : 12; }
-__host__ __device__ constexpr int rows_of(int head) { return head == 1 ? 4 : head == 2 ? 7 : 1; }
-
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float comp(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
 __device__ __forceinline__ float bf_lo(uint32_t r) { return __uint_as_float(r << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t r) { return __uint_as_float(r & 0xffff0000u); }
 
@@ -295,31 +364,6 @@ __device__ __forceinline__ void unit_coef(const LoopW& w, const float* tn, int u
   }
 }
 
-// The neighbour's operands of the extra term: att -d2, qdot^2; rot the
-// local quat (the geometry record holds it rounded in bf16 mode).
-template <bool BF16, int HEAD>
-__device__ __forceinline__ void pair_ops(const float* geo, int j, float* e) {
-  const float* g = geo + j * GEO_LD;
-  if constexpr (HEAD == 0) {
-    e[0] = g[G_ND2];
-    e[1] = g[G_QD2];
-  } else if constexpr (HEAD == 1) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) e[c] = g[G_LQ + c];  // rounded in bf16 mode
-  }
-}
-
-template <int HEAD>
-__device__ __forceinline__ float extra_of(const float* e, const float* c) {
-  if constexpr (HEAD == 0) {
-    return c[0] * e[0] + c[1] * e[1] + c[4];
-  } else if constexpr (HEAD == 1) {
-    return c[0] * e[0] + c[1] * e[1] + c[2] * e[2] + c[3] * e[3] + c[4];
-  } else {
-    return c[4];
-  }
-}
-
 // S1, fp32: lane (pg, ug) = (lane / 8, lane % 8) holds neighbours jb + pg + 4q
 // (q < 4) x units HEAD * T + ug + 8v (v < 8), in two halves of 4 units (one
 // 32-float tile would push the kernel past 168 registers into spills). act =
@@ -334,7 +378,7 @@ __device__ __forceinline__ void s1_fp32(float* sm, const LoopW& w, int jb, int l
   const float* hrow = sm + S::HID + (jb + pg) * HF_LD;
   float e[4][NE];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) pair_ops<false, HEAD>(sm + S::GEOS, jb + pg + 4 * q, e[q]);
+  for (int q = 0; q < 4; ++q) pair_operands<HEAD>(sm + S::GEOS, jb + pg + 4 * q, e[q]);
   float part[4 * R];
 #pragma unroll
   for (int k = 0; k < 4 * R; ++k) part[k] = 0.f;
@@ -366,7 +410,7 @@ __device__ __forceinline__ void s1_fp32(float* sm, const LoopW& w, int jb, int l
       unit_coef<false, HEAD>(w, sm + S::TN, uu, c);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        act[q][vv] = fmaxf(act[q][vv] + extra_of<HEAD>(e[q], c), 0.f);
+        act[q][vv] = fmaxf(act[q][vv] + extra_term<HEAD>(e[q], c), 0.f);
         sm[S::DP + (jb + pg + 4 * q) * DP_LD + HEAD * T + uu] = act[q][vv];
       }
 #pragma unroll
@@ -496,8 +540,8 @@ __device__ __forceinline__ void s1_bf16(float* sm, const LoopW& w, int jb, int l
     a[ks][3] = hid[(j + 8) * HA_LD + ks * 8 + 4 + c];
   }
   float e[2][NE];
-  pair_ops<true, HEAD>(sm + S::GEOS, j, e[0]);
-  pair_ops<true, HEAD>(sm + S::GEOS, j + 8, e[1]);
+  pair_operands<HEAD>(sm + S::GEOS, j, e[0]);
+  pair_operands<HEAD>(sm + S::GEOS, j + 8, e[1]);
   float lacc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 1
   for (int t = 0; t < 4; ++t) {
@@ -520,8 +564,8 @@ __device__ __forceinline__ void s1_bf16(float* sm, const LoopW& w, int jb, int l
       unit_coef<true, HEAD>(w, sm + S::TN, uu + 1, c1);
 #pragma unroll
       for (int h8 = 0; h8 < 2; ++h8) {
-        const float x0 = fmaxf(cc[nn][2 * h8] + extra_of<HEAD>(e[h8], c0), 0.f);
-        const float x1 = fmaxf(cc[nn][2 * h8 + 1] + extra_of<HEAD>(e[h8], c1), 0.f);
+        const float x0 = fmaxf(cc[nn][2 * h8] + extra_term<HEAD>(e[h8], c0), 0.f);
+        const float x1 = fmaxf(cc[nn][2 * h8 + 1] + extra_term<HEAD>(e[h8], c1), 0.f);
         const uint32_t pk = pack_bf16x2(x0, x1);
         la[2 * nn + h8] = pk;
         *reinterpret_cast<float2*>(sm + S::DP + (j + 8 * h8) * DP_LD + HEAD * T + uu) =
@@ -872,13 +916,13 @@ __device__ __forceinline__ void p2_bf16(const float* sm, const BwdIO& io, size_t
 // Built with -DPMHC_LOOP_PHASES (chip_ab.py --phases) the backward adds up,
 // per warp and phase, the cycles from the phase's start to the warp's
 // arrival at the phase's closing barrier (row [warp]), and on thread 0 the
-// cycles from barrier to barrier (row [BWARPS]); egnn_loop_bwd_phases
+// cycles from barrier to barrier (row [WARPS]); egnn_loop_bwd_phases
 // copies them out and clears them. Phases: 0 row set-up, 1 S0 build, 2 S1,
 // 3 S2 (B), 4 S3, 5 P, 6 row end. Without the flag phase_sync(k) is a
 // barrier.
 #ifdef PMHC_LOOP_PHASES
 constexpr int NPHASE = 7;
-__device__ unsigned long long g_phase_cycles[BWARPS + 1][NPHASE];
+__device__ unsigned long long g_phase_cycles[WARPS + 1][NPHASE];
 __device__ __forceinline__ long long clock_now() {
   long long t;
   asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
@@ -890,7 +934,7 @@ __device__ __forceinline__ long long clock_now() {
     if (lane == 0) atomicAdd(&g_phase_cycles[warp][k], (unsigned long long)(t_arrive - t_phase)); \
     asm volatile("bar.sync 0;" ::: "memory");                                           \
     const long long t_now = clock_now();                                                \
-    if (tid == 0) atomicAdd(&g_phase_cycles[BWARPS][k], (unsigned long long)(t_now - t_phase)); \
+    if (tid == 0) atomicAdd(&g_phase_cycles[WARPS][k], (unsigned long long)(t_now - t_phase)); \
     t_phase = t_now;                                                                    \
   } while (0)
 #else
@@ -898,7 +942,7 @@ __device__ __forceinline__ long long clock_now() {
 #endif
 
 template <bool BF16>
-__global__ void __launch_bounds__(BTHREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
     egnn_loop_bwd_kernel(const Inputs in, const BwdIO io) {
   using S = BSmem<BF16>;
   extern __shared__ __align__(16) float smem[];
@@ -918,26 +962,26 @@ __global__ void __launch_bounds__(BTHREADS, 1)
   if constexpr (BF16) {
     const LoopW lw = loop_w(in.w);
     uint2* whf = reinterpret_cast<uint2*>(sm + S::WHM);  // B[k = column][n = unit] = whm[unit][column]
-    for (int e = tid; e < 4 * 8 * 4 * 32; e += BTHREADS) {
+    for (int e = tid; e < 4 * 8 * 4 * 32; e += THREADS) {
       const int l = e & 31, ks = (e >> 5) & 3, nt = e >> 7;
       const float* wr = lw.whm + (nt * 8 + (l >> 2)) * T + 16 * ks + 2 * (l & 3);
       whf[e] = make_uint2(pack_bf16x2(wr[0], wr[1]), pack_bf16x2(wr[8], wr[9]));
     }
     uint2* wht = reinterpret_cast<uint2*>(sm + S::WHT);  // B[k = unit][n = column] = whm[unit][column]
-    for (int e = tid; e < 8 * 16 * 32; e += BTHREADS) {
+    for (int e = tid; e < 8 * 16 * 32; e += THREADS) {
       const int l = e & 31, ks = (e >> 5) & 15, nt = e >> 9;
       const float* wc = lw.whm + (16 * ks + 2 * (l & 3)) * T + 8 * nt + (l >> 2);
       wht[e] = make_uint2(pack_bf16x2(wc[0], wc[T]), pack_bf16x2(wc[8 * T], wc[9 * T]));
     }
     uint2* w2f = reinterpret_cast<uint2*>(sm + S::W2F);  // B[k = unit][n = lin2 row], rows padded to 8
-    for (int e = tid; e < 4 * 4 * 32; e += BTHREADS) {
+    for (int e = tid; e < 4 * 4 * 32; e += THREADS) {
       const int l = e & 31, t = (e >> 5) & 3, hd = e >> 7, n = l >> 2;
       const float* wr = lw.w2 + (row0_of(hd) + n) * T + 16 * t + 2 * (l & 3);
       w2f[e] = n < rows_of(hd) ? make_uint2(pack_bf16x2(wr[0], wr[1]), pack_bf16x2(wr[8], wr[9]))
                                : make_uint2(0u, 0u);
     }
     uint32_t* w2t = reinterpret_cast<uint32_t*>(sm + S::W2T);  // B[k = lin2 row][n = unit], k >= 8 zero
-    for (int e = tid; e < 4 * 8 * 32; e += BTHREADS) {
+    for (int e = tid; e < 4 * 8 * 32; e += THREADS) {
       const int l = e & 31, nt = (e >> 5) & 7, hd = e >> 8;
       const int o = 2 * (l & 3), uu = 8 * nt + (l >> 2), R = rows_of(hd), R0 = row0_of(hd);
       w2t[e] = pack_bf16x2(o < R ? lw.w2[(R0 + o) * T + uu] : 0.f, o + 1 < R ? lw.w2[(R0 + o + 1) * T + uu] : 0.f);
@@ -946,7 +990,7 @@ __global__ void __launch_bounds__(BTHREADS, 1)
     const LoopW lw = loop_w(in.w);
     // whm rows: 16-byte copies where the buffer is aligned, else 4-byte
     const bool al = (reinterpret_cast<uintptr_t>(lw.whm) & 15) == 0;
-    for (int e = tid; e < HEADS * T / 4; e += BTHREADS) {
+    for (int e = tid; e < HEADS * T / 4; e += THREADS) {
       const int u = e / (T / 4), k4 = e % (T / 4);
       float* dst = sm + S::WHM + u * HF_LD + 4 * k4;
       const float* src = lw.whm + u * T + 4 * k4;
@@ -957,13 +1001,13 @@ __global__ void __launch_bounds__(BTHREADS, 1)
       }
     }
     cp_async_commit();
-    for (int e = tid; e < NOUT * T; e += BTHREADS) sm[S::W2S + e] = lw.w2[e];
+    for (int e = tid; e < NOUT * T; e += THREADS) sm[S::W2S + e] = lw.w2[e];
   }
-  for (int e = tid; e < HEADS * T / 4; e += BTHREADS)
+  for (int e = tid; e < HEADS * T / 4; e += THREADS)
     reinterpret_cast<float4*>(sm + S::DW)[e] = float4{0.f, 0.f, 0.f, 0.f};
-  for (int e = tid; e < 3 * NOUT * T; e += BTHREADS) sm[S::DW2 + e] = 0.f;
-  for (int e = tid; e < BT * 8; e += BTHREADS) sm[S::RQL + e] = 0.f;  // re-zeroed as each row reads it
-  for (int e = tid; e < S::DAI_SLOTS * T; e += BTHREADS) sm[S::DAI + e] = 0.f;  // the same
+  for (int e = tid; e < 3 * NOUT * T; e += THREADS) sm[S::DW2 + e] = 0.f;
+  for (int e = tid; e < BT * 8; e += THREADS) sm[S::RQL + e] = 0.f;  // re-zeroed as each row reads it
+  for (int e = tid; e < S::DAI_SLOTS * T; e += THREADS) sm[S::DAI + e] = 0.f;  // the same
   cp_async_wait_all();
   __syncthreads();
 #ifdef PMHC_LOOP_PHASES
@@ -1004,7 +1048,7 @@ __global__ void __launch_bounds__(BTHREADS, 1)
       sm[S::CT + CT_TR + tid - 109] = io.gTR[(size_t)row * 3 + tid - 109];
     }
     if (b != cur_b) {  // a new batch element: its neighbours' q_j, q_j^-1, t_j
-      for (int j = tid; j < NP; j += BTHREADS) {
+      for (int j = tid; j < NP; j += THREADS) {
         float* f = sm + S::FRM + j * FR_LD;
         float q_j[4];
         for (int c = 0; c < 4; ++c) q_j[c] = in.qj[((size_t)b * NP + j) * 4 + c];
@@ -1028,7 +1072,7 @@ __global__ void __launch_bounds__(BTHREADS, 1)
       if constexpr (BF16) {
         uint32_t* ha = reinterpret_cast<uint32_t*>(sm + S::HID);
         uint32_t* ht = reinterpret_cast<uint32_t*>(sm + S::HIDT);
-        for (int e = tid; e < (BT / 2) * (T / 2); e += BTHREADS) {
+        for (int e = tid; e < (BT / 2) * (T / 2); e += THREADS) {
           const int p = e / (T / 2), q = e % (T / 2);  // neighbours 2p, 2p + 1; columns 2q, 2q + 1
           float v[2][2];
 #pragma unroll
@@ -1056,7 +1100,7 @@ __global__ void __launch_bounds__(BTHREADS, 1)
           ht[(2 * q + 1) * HT_LD + p] = pack_bf16x2(v[0][1], v[1][1]);
         }
       } else {
-        for (int e = tid; e < BT * T / 4; e += BTHREADS) {
+        for (int e = tid; e < BT * T / 4; e += THREADS) {
           const int j = e / (T / 4), k4 = e % (T / 4);
           float4 h = float4{0.f, 0.f, 0.f, 0.f};
           if (j < nj) {
@@ -1377,7 +1421,7 @@ __global__ void __launch_bounds__(BTHREADS, 1)
     if (tid < NOUT) part[O_B2 + tid] = db2;
   }
   // dW2: the three neighbour blocks' slots summed in order
-  for (int e = tid; e < NOUT * T; e += BTHREADS)
+  for (int e = tid; e < NOUT * T; e += THREADS)
     part[O_W2 + e] = sm[S::DW2 + e] + sm[S::DW2 + NOUT * T + e] + sm[S::DW2 + 2 * NOUT * T + e];
 }
 
@@ -1391,40 +1435,29 @@ __global__ void egnn_loop_reduce_kernel(const float* __restrict__ partial, float
   dw[k] = s;
 }
 
-// The dynamic shared-memory opt-in, once per device and kernel.
-template <typename K>
-cudaError_t smem_opt_in(K kernel, size_t bytes, std::atomic<bool>* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!done[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    done[dev].store(true, std::memory_order_release);
-  }
-  return cudaSuccess;
-}
-
 template <bool BF16>
 int launch_fwd(Inputs in, FwdOut out, cudaStream_t stream) {
-  static std::atomic<bool> done[MAX_DEVICES];
-  cudaError_t err = smem_opt_in(egnn_loop_fwd_kernel<BF16>, FWD_SMEM_BYTES, done);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&in, &out};
-  err = cudaLaunchKernel(egnn_loop_fwd_kernel<BF16>, dim3(in.B * in.N), dim3(HEADS), args,
-                         FWD_SMEM_BYTES, stream);
+  static std::atomic<int> sms_of[MAX_DEVICES];
+  const int sms = persistent_sms(egnn_loop_fwd_kernel<BF16>, FSmem<BF16>::BYTES, sms_of);
+  if (sms < 0) return -sms;
+  // one block per SM, each a contiguous run of query rows
+  const int rows = in.B * in.N;
+  int per_block = (rows + sms - 1) / sms;
+  const int grid = (rows + per_block - 1) / per_block;
+  void* args[] = {&in, &out, &per_block};
+  const cudaError_t err = cudaLaunchKernel(egnn_loop_fwd_kernel<BF16>, dim3(grid), dim3(THREADS), args,
+                                           FSmem<BF16>::BYTES, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-
 template <bool BF16>
 int launch_bwd(Inputs in, BwdIO io, float* dw, int blocks, cudaStream_t stream) {
   if (in.NP > MAXNP) return (int)cudaErrorInvalidValue;
-  static std::atomic<bool> done[MAX_DEVICES];
-  cudaError_t err = smem_opt_in(egnn_loop_bwd_kernel<BF16>, BSmem<BF16>::BYTES, done);
-  if (err != cudaSuccess) return (int)err;
+  static std::atomic<int> sms_of[MAX_DEVICES];
+  const int sms = persistent_sms(egnn_loop_bwd_kernel<BF16>, BSmem<BF16>::BYTES, sms_of);
+  if (sms < 0) return -sms;
+  cudaError_t err;
   const size_t nbr = (size_t)in.B * in.NP;
   if ((err = cudaMemsetAsync(io.daj, 0, nbr * T * sizeof(float), stream)) != cudaSuccess ||
       (err = cudaMemsetAsync(io.dqj, 0, nbr * 4 * sizeof(float), stream)) != cudaSuccess ||
@@ -1433,7 +1466,7 @@ int launch_bwd(Inputs in, BwdIO io, float* dw, int blocks, cudaStream_t stream) 
           cudaSuccess)
     return (int)err;
   void* args[] = {&in, &io};
-  err = cudaLaunchKernel(egnn_loop_bwd_kernel<BF16>, dim3(blocks), dim3(BTHREADS), args,
+  err = cudaLaunchKernel(egnn_loop_bwd_kernel<BF16>, dim3(blocks), dim3(THREADS), args,
                          BSmem<BF16>::BYTES, stream);
   if (err != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -1466,13 +1499,13 @@ int egnn_loop_bwd_blocks(int rows) {
 }
 
 #ifdef PMHC_LOOP_PHASES
-// Copies the backward's phase cycle counters ([BWARPS + 1][NPHASE]
+// Copies the backward's phase cycle counters ([WARPS + 1][NPHASE]
 // unsigned 64-bit) to ``out`` and clears them.
 int egnn_loop_bwd_phases(unsigned long long* out) {
   using namespace pmhc;
   cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
   if (err != cudaSuccess) return (int)err;
-  static unsigned long long zero[BWARPS + 1][NPHASE];
+  static unsigned long long zero[WARPS + 1][NPHASE];
   return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
 }
 #endif

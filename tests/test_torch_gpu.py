@@ -30,8 +30,11 @@ from chip_smoke import (
     layer_case,
     loop_case,
     loop_errors,
+    loop_forward_errors,
+    loop_named,
     loop_ragged,
     loop_run,
+    loop_two_tiles,
     pallas_case,
     pallas_ragged,
     ragged_case,
@@ -136,6 +139,41 @@ def test_loop_kernels_match_plain(mode, batch_size, n_neighbours):
         torch.cuda.synchronize()
         bad = {n: r for n, r in loop_errors(got, want, LOOP_TOL[mode]).items() if not r[3]}
         assert not bad, f"{layer}: {bad}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_loop_forward_two_tiles_matches_plain(mode):
+    """The loop forward at NP = 136 (``loop_two_tiles``: two 96-neighbour
+    tiles per query row, the second ragged, merged online), batch 64,
+    against the plain version. Forward only: the backward takes NP <= 96."""
+    dev = _card()
+    args, _ = loop_case(random_model(seed=0).to(dev), "gnn2", seed=2, device=dev)
+    args = loop_two_tiles(args)
+    bad = {n: r for n, r in loop_forward_errors(args, mode == "bf16", LOOP_TOL[mode]).items()
+           if not r[3]}
+    assert not bad, bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_loop_kernels_take_unaligned_inputs(mode):
+    """Every input of both loop kernels a view that starts 4 bytes into its
+    storage (a misaligned 16-byte ``cp.async`` faults): the kernels' 4-byte
+    paths, against the plain version on the aligned inputs."""
+    dev = _card()
+    args, cts = loop_case(random_model(seed=0).to(dev), "gnn1", seed=3, device=dev, batch_size=5)
+    off = lambda x: torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
+    o_args = tuple(off(x) for x in args)
+    assert all(x.data_ptr() % 16 for x in o_args)
+    bf16 = mode == "bf16"
+    lib = el._lib()
+    outs = el.launch_fwd(lib, *o_args, bf16=bf16)
+    got = loop_named(outs, el.launch_bwd(lib, *o_args, off(outs[0]), [off(c) for c in cts], bf16=bf16))
+    want = loop_run(args, cts, bf16, kernel=False)
+    torch.cuda.synchronize()
+    bad = {n: r for n, r in loop_errors(got, want, LOOP_TOL[mode]).items() if not r[3]}
+    assert not bad, bad
 
 
 @pytest.mark.gpu

@@ -15,8 +15,9 @@ per case keep the emulation (one OS thread per CUDA thread) to seconds.
 The fused kernel also runs a ragged neighbour tile (NP = 90), two
 neighbour tiles per query row (NP = 136, batch 2) and inputs that do not
 start 16-byte aligned; the loop kernels run a ragged NP = 90 (the
-backward's second 48-neighbour tile partly padding), batch 2 (backward
-blocks that cross a batch element) and unaligned backward inputs;
+backward's second 48-neighbour tile partly padding), batch 2 (blocks that
+cross a batch element), unaligned inputs, and the forward two neighbour
+tiles per query row (NP = 136, batch 2);
 kernel #3 runs blocks that cross a batch element (batch 2) and a ragged
 NP = 90.
 Skips without g++.
@@ -36,6 +37,7 @@ from chip_smoke import (
     loop_named,
     loop_ragged,
     loop_run,
+    loop_two_tiles,
     pallas_case,
     pallas_ragged,
     random_model,
@@ -64,12 +66,13 @@ def _offset(x: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def _loop_matches_plain(args, cts, mode, bwd_inputs=None):
-    """Both loop kernels against the plain version; ``bwd_inputs``: the
-    backward's (args, m, cts) if not those of the forward."""
+def _loop_matches_plain(args, cts, mode, bwd_inputs=None, fwd_inputs=None):
+    """Both loop kernels against the plain version; ``fwd_inputs``: the
+    forward's args if not ``args``; ``bwd_inputs``: the backward's (args,
+    m, cts) if not those of the forward."""
     lib = _lib("egnn_loop", el.bind)
     bf16 = mode == "bf16"
-    outs = el.launch_fwd(lib, *args, bf16=bf16)
+    outs = el.launch_fwd(lib, *(fwd_inputs or args), bf16=bf16)
     b_args, m, b_cts = bwd_inputs(args, outs[0], cts) if bwd_inputs else (args, outs[0], cts)
     got = loop_named(outs, el.launch_bwd(lib, *b_args, m, b_cts, bf16=bf16))
     bad = {n: r for n, r in loop_errors(got, loop_run(args, cts, bf16, kernel=False),
@@ -94,11 +97,30 @@ def test_loop_kernels_emulated_match_plain(mode, batch_size, n_neighbours):
 
 @pytest.mark.parametrize("mode", ["fp32", "bf16"])
 def test_loop_kernels_emulated_take_unaligned_inputs(mode):
-    """Every input of the backward a view that starts 4 bytes into its
-    storage: its weight staging and hid build take their 4-byte paths."""
+    """Every input of both kernels a view that starts 4 bytes into its
+    storage: the forward's copies and the backward's weight staging and hid
+    build take their 4-byte paths."""
     args, cts = loop_case(random_model(seed=0), "gnn1", seed=8, device=CPU, batch_size=1)
-    _loop_matches_plain(args, cts, mode, bwd_inputs=lambda a, m, c: (
-        tuple(_offset(x) for x in a), _offset(m), [_offset(x) for x in c]))
+    off = tuple(_offset(x) for x in args)
+    _loop_matches_plain(args, cts, mode, fwd_inputs=off, bwd_inputs=lambda a, m, c: (
+        off, _offset(m), [_offset(x) for x in c]))
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+def test_loop_forward_emulated_two_tiles(mode):
+    """NP = 136 at batch 2: the forward merges two neighbour tiles per query
+    row (the second ragged, over rows the first wrote), HID sums over both,
+    and the blocks' rows cross a batch element. Forward only: the backward
+    takes NP <= 96."""
+    lib = _lib("egnn_loop", el.bind)
+    args, _ = loop_case(random_model(seed=0), "gnn2", seed=12, device=CPU, batch_size=2)
+    args = loop_two_tiles(args)
+    assert args[-1].shape[-1] == 136
+    bf16 = mode == "bf16"
+    got = {f"out {n}": o for n, o in zip(el.OUT_NAMES, el.launch_fwd(lib, *args, bf16=bf16))}
+    want = {f"out {n}": o for n, o in zip(el.OUT_NAMES, el.egnn_loop_plain(*args, bf16=bf16))}
+    bad = {n: r for n, r in loop_errors(got, want, LOOP_TOL[mode]).items() if not r[3]}
+    assert not bad, bad
 
 
 def _fused_matches_plain(lib, args, mode):
