@@ -46,6 +46,23 @@ Phases (any failure exits non-zero):
    launched exactly 2 x 1000 times per dispatched batch and the fused
    kernel never; ``Trainer(backend="pallas")`` takes 5 batch-64 steps
    held against a dense ``Trainer`` from the same seed, 2 launches per step;
+4b. the offline CLIs, in-process through ``main([...])`` with ``--device
+   cuda`` at batch 64, T=1000 and the published width, on packed ``.npz``
+   files of realistic entries built here (no HDF5): train 1,024, val 64,
+   test 67 (a full batch and a short batch of 3). ``train_cli`` takes 2
+   fp32 epochs with ``--val-hdf5 --ema-decay 0.999 --orbax-dir``: its
+   ``.pth``, ``.ema.pth`` and three CSVs (2 rows each, finite), exactly
+   2 x 32 backward and 2 x 32 + 2 x 2 x 1 x 2 forward loop launches (the
+   steps, then one validation batch per epoch with raw and EMA weights),
+   none of bf16; the same command for 1 more epoch must resume (3 CSV
+   rows, checkpoint step 32 -> 48); then 1 bf16 epoch with
+   ``--device-data --steps-per-dispatch 4`` (2 x 16 launches each way, no
+   fp32). ``sample_cli`` writes 67 PDBs in fp32 and in bf16 (2 x 1000 x
+   2 fused launches each, none of the other mode), then 134 with
+   ``--bf16 --num-samples 2 --sample-steps 100`` (2 x 100 x 2 x 2); every
+   PDB passes ``check_pdb``. Logged: seconds and examples/s per epoch, the
+   seconds the step loop waited on the loader, the sample CLI's whole-call
+   wall and PDBs/s, and per batch its sampling and PDB-writing seconds;
 5. times with CUDA events after warm-up: each kernel and its plain version
    per launch, beside the bound reckoned from this run's shapes (for the
    fused layer and the loop forward also ``gemm_ms``, the yardstick of
@@ -118,6 +135,10 @@ TRAIN_STEPS = 20
 # O(lr) per step; the bound is the 5 steps' budget
 TRAIN_LR = 1e-3
 TRAIN_TOL = {"loss_rtol": 5e-4, "param_atol": 5 * TRAIN_LR}
+# phase 4b's packed files (entries, seed): 16 training batches of 64, one
+# validation batch, a test set of a full batch and a short batch of 3
+OFFLINE_SETS = {"train": (1024, 0), "val": (64, 1), "test": (67, 2)}
+OFFLINE_SAMPLE_STEPS = 100  # the strided sampling run's jumps
 
 
 def log(msg: str) -> None:
@@ -1072,6 +1093,176 @@ def trainer_pallas_check(dev, card: str, steps: int = 5):
     return count
 
 
+def pack_realistic(path: str, n_entries: int, seed: int) -> int:
+    """Write ``n_entries`` realistic entries from ``seed`` as a packed
+    ``.npz`` (no HDF5 on the card's machine); returns its size in bytes."""
+    from pmhc_tpu_torch.data.realistic import realistic_packed
+
+    realistic_packed(n_entries, seed).save(path)
+    return os.path.getsize(path)
+
+
+def csv_rows(path: str) -> list:
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def offline_train(args: list, want: dict, card: str, mode: str) -> dict:
+    """One ``train_cli.main`` run with the loop kernels' counters reset just
+    before; their counts must equal ``want``. Returns the CLI's epoch stats."""
+    import torch
+
+    from pmhc_tpu_torch.cli import train_cli
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import egnn_loop as el
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+
+    torch.cuda.synchronize()
+    el.reset_launches()
+    ef.reset_launches()
+    ep.reset_launches()
+    t0 = time.monotonic()
+    stats = train_cli.main(args + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = dict(el.LAUNCHES)
+    log(f"offline train {mode}: {len(stats['epochs'])} epochs in {wall:.1f} s, loop launches "
+        f"{counts} (expected {want})")
+    if counts != want or any(ef.LAUNCHES.values()) or any(ep.LAUNCHES.values()):
+        raise AssertionError(f"offline train {mode}: launches {counts}, expected {want}")
+    for e in stats["epochs"]:
+        log(json.dumps({"metric": "train_cli_epoch", "mode": mode, "batch": B, **e, "card": card}))
+    return stats
+
+
+def offline_sample(args: list, ds, out: str, mode: str, n_files: int, want: int, card: str):
+    """One ``sample_cli.main`` run with the fused kernel's counters reset just
+    before: exactly ``want`` launches in ``mode``, none in the other, and
+    ``n_files`` PDBs that pass ``check_pdb``."""
+    import torch
+
+    from pmhc_tpu_torch.cli import sample_cli
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+
+    torch.cuda.synchronize()
+    ef.reset_launches()
+    t0 = time.monotonic()
+    stats = sample_cli.main(args + ["--output-dir", out, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    other = "bf16" if mode == "fp32" else "fp32"
+    files = sorted(os.listdir(out))
+    log(f"offline sample {mode} {' '.join(args[2:])}: {len(files)} PDBs in {wall:.1f} s, fused "
+        f"launches {ef.LAUNCHES[mode]} (expected {want}), {other} {ef.LAUNCHES[other]}")
+    if ef.LAUNCHES[mode] != want or ef.LAUNCHES[other] != 0:
+        raise AssertionError(f"offline sample {mode}: launches {dict(ef.LAUNCHES)}, expected {want}")
+    if len(files) != n_files:
+        raise AssertionError(f"offline sample {mode}: {len(files)} PDB files, expected {n_files}")
+    index = {n: i for i, n in enumerate(ds.entry_names)}
+    for f in files:
+        name = f.split(".")[0]
+        entry = {"mask": ds[index[name]]["mask"], **ds.get_protein_positions([name])}
+        entry = {k: v[0] if k.startswith("protein_") else v for k, v in entry.items()}
+        with open(os.path.join(out, f), "rb") as fh:
+            check_pdb(fh.read(), entry)
+    # end to end: the whole call's wall and PDBs/s; per batch: its breakdown
+    log(json.dumps({"metric": "sample_cli", "mode": mode, "args": " ".join(args[2:]),
+                    "batch_size": B, "wall_s": stats["wall_s"], "pdbs": stats["pdbs"],
+                    "pdbs_per_s": stats["pdbs_per_s"], "card": card}))
+    for b in stats["batches"]:
+        log(json.dumps({"metric": "sample_cli_batch", "mode": mode, "batch_size": B, **b,
+                        "card": card}))
+    return stats
+
+
+def offline_main_path(card: str) -> None:
+    """Phase 4b: the offline entry points through ``main([...])`` of each CLI
+    on the card, at batch 64, T = 1000 and the published width, on packed
+    files of realistic entries built here (no HDF5)."""
+    import math
+    import shutil
+
+    from pmhc_tpu_torch.data import PackedDataset
+    from pmhc_tpu_torch.train import CheckpointManager
+
+    t_phase = time.monotonic()
+    work = os.path.join(REPO, ".chip_scratch", "offline")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        paths = {}
+        t0 = time.monotonic()
+        for name, (n, seed) in OFFLINE_SETS.items():
+            paths[name] = os.path.join(work, f"{name}.npz")
+            size = pack_realistic(paths[name], n, seed)
+            log(f"offline data {name}.npz: {n} realistic entries (seed {seed}), {size} bytes "
+                f"({size / n / 1e3:.1f} KB an entry)")
+        log(f"offline data built in {time.monotonic() - t0:.1f} s")
+        steps = OFFLINE_SETS["train"][0] // B  # per epoch
+        val_batches = -(-OFFLINE_SETS["val"][0] // B)
+
+        # -- fp32: 2 epochs with validation (raw and EMA weights), then a resume
+        model = os.path.join(work, "model.pth")
+        ckdir = os.path.join(work, "ck")
+        cmd = [paths["train"], "2", model, "--batch-size", str(B), "--val-hdf5", paths["val"],
+               "--ema-decay", "0.999", "--orbax-dir", ckdir]
+        fwd = 2 * steps * 2 + 2 * 2 * val_batches * 2  # layers x steps + layers x epochs x batches x weights
+        stats = {"fp32": offline_train(cmd, {"fwd_fp32": fwd, "bwd_fp32": 2 * 2 * steps,
+                                             "fwd_bf16": 0, "bwd_bf16": 0}, card, "fp32")}
+        for suffix, rows in ((".pth", None), (".ema.pth", None), (".csv", 2), (".val.csv", 2),
+                             (".val.ema.csv", 2)):
+            path = model.replace(".pth", suffix)
+            if not os.path.isfile(path):
+                raise AssertionError(f"offline train: {path} missing")
+            if rows is not None:
+                got = csv_rows(path)
+                bad = [r for r in got for k, v in r.items() if k != "epoch" and not math.isfinite(float(v))]
+                log(f"offline train {os.path.basename(path)}: {len(got)} rows, last {got[-1]}")
+                if len(got) != rows or bad:
+                    raise AssertionError(f"{path}: {len(got)} rows (expected {rows}), non-finite {bad}")
+        offline_train(cmd[:1] + ["1"] + cmd[2:], {"fwd_fp32": 2 * steps + 2 * val_batches * 2,
+                                                  "bwd_fp32": 2 * steps, "fwd_bf16": 0,
+                                                  "bwd_bf16": 0}, card, "fp32 resume")
+        latest = CheckpointManager(ckdir).latest_step()
+        rows = len(csv_rows(model.replace(".pth", ".csv")))
+        log(f"offline train resume: CSV {rows} rows, latest checkpoint step {latest} "
+            f"(restored at {2 * steps}, then {steps} steps)")
+        if rows != 3 or latest != 3 * steps:
+            raise AssertionError(f"offline resume: CSV {rows} rows, checkpoint step {latest}")
+
+        # -- bf16, the dataset resident on the card, 4 steps per call
+        stats["bf16"] = offline_train(
+            [paths["train"], "1", os.path.join(work, "model_bf16.pth"), "--batch-size", str(B),
+             "--bf16", "--device-data", "--steps-per-dispatch", "4"],
+            {"fwd_fp32": 0, "bwd_fp32": 0, "fwd_bf16": 2 * steps, "bwd_bf16": 2 * steps},
+            card, "bf16")
+        for mode in ("fp32", "bf16"):
+            log(json.dumps({"metric": "train_cli", "mode": mode, "batch": B,
+                            "epoch_s": [e["seconds"] for e in stats[mode]["epochs"]],
+                            "examples_per_s": [e["examples_per_s"] for e in stats[mode]["epochs"]],
+                            "loader_wait_s": [e["loader_wait_s"] for e in stats[mode]["epochs"]],
+                            "card": card}))
+
+        # -- sampling: 67 entries = a full batch and a short batch of 3
+        test = PackedDataset.load(paths["test"])
+        n_test = len(test)
+        n_batches = -(-n_test // B)
+        for mode, extra in (("fp32", []), ("bf16", ["--bf16"])):
+            offline_sample([model, paths["test"], "-b", str(B)] + extra, test,
+                           os.path.join(work, f"sampled_{mode}"), mode, n_test,
+                           n_batches * STEPS * 2, card)
+        k = OFFLINE_SAMPLE_STEPS
+        offline_sample([model, paths["test"], "-b", str(B), "--bf16", "--num-samples", "2",
+                        "--sample-steps", str(k)], test, os.path.join(work, f"sampled_k{k}"),
+                       "bf16", 2 * n_test, n_batches * k * 2 * 2, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({"metric": "offline_phase_s", "seconds": time.monotonic() - t_phase,
+                    "card": card}))
+
+
 def pallas_times(cases, launches: int, err: float, card: str) -> dict:
     """Phase 5, kernel #3: ms per launch (CUDA events) beside its plain
     version and its bound, averaged over the two layer shapes; returns its
@@ -1265,6 +1456,9 @@ def main() -> int:
     trajectory_check(model, dev, "pallas")
     pallas_launches, _ = http_main_path(model, card)
     trainer_pallas_check(dev, card)
+
+    # -- 4b. the offline CLIs -------------------------------------------------------
+    offline_main_path(card)
 
     # -- 5. times -------------------------------------------------------------------
     kernels = []

@@ -35,7 +35,6 @@ from __future__ import annotations
 import io
 import json
 import logging
-import os
 import sys
 from argparse import ArgumentParser
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -92,28 +91,14 @@ def build_parser() -> ArgumentParser:
     return p
 
 
-def _load_params(model_path: str):
-    """A ``state_dict``: from a reference-format ``.pth``, or the latest of
-    a directory of the port's checkpoints."""
-    from pmhc_tpu_torch.models.import_params import load_checkpoint
-    from pmhc_tpu_torch.train.checkpoints import CheckpointManager
-
-    if os.path.isdir(model_path):
-        manager = CheckpointManager(model_path)
-        step = manager.latest_step()
-        state = manager.restore(step)
-        _log.info("restored checkpoint at step %s", step)
-        return state["model"]
-    return load_checkpoint(model_path).state_dict()
-
-
 def create_server(args) -> ThreadingHTTPServer:
     """Build the warm service and the HTTP server (separate from ``main``
     so tests can drive the server's lifecycle in-process)."""
+    from pmhc_tpu_torch.models.import_params import load_params
     from pmhc_tpu_torch.serve import BatchingSampler, Overloaded, SamplerService, frame_models
 
     service = SamplerService(
-        _load_params(args.model),
+        load_params(args.model),
         batch_size=args.batch_size,
         noise_step_count=args.T,
         num_steps=args.sample_steps,

@@ -1,16 +1,22 @@
-"""Synthetic pMHC batches (numpy only) and the model-batch conversion.
+"""Synthetic pMHC data and the model-batch conversion.
 
-Counterpart of ``pmhc_tpu/data/synthetic.py::synthetic_batch`` (same
-seeded draws, same arrays) and ``pmhc_tpu/train/trainer.py::prepare_batch``.
+Counterpart of ``pmhc_tpu/data/synthetic.py`` (``write_synthetic_hdf5``
+and ``synthetic_batch``: the same seeded draws, so the same seed gives the
+same file and the same arrays) and ``pmhc_tpu/train/trainer.py::prepare_batch``.
+The schema is SwiftMHC's: per-complex groups with ``peptide``
+(backbone_rigid_tensor, aatype, sequence_onehot, torsion_angles_sin_cos,
+torsion_angles_mask) and ``protein`` (those plus atom14_gt_positions,
+atom14_gt_exists, cross_residues_mask).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
 
+from pmhc_tpu_torch import constants as rc
 from pmhc_tpu_torch.geometry import RigidArray
 
 PEPTIDE_MAXLEN = 16
@@ -71,6 +77,48 @@ def _random_frames_4x4(rng, n: int) -> np.ndarray:
     return out
 
 
+def write_synthetic_hdf5(path: str, n_entries: int = 4, peptide_lengths: Sequence[int] = (9,),
+                         protein_len: int = 120, pocket_len: int = 60, seed: int = 0) -> None:
+    """Write a random SwiftMHC-format HDF5 file (needs h5py)."""
+    import h5py
+
+    rng = np.random.default_rng(seed)
+    with h5py.File(path, "w") as f5:
+        for i in range(n_entries):
+            L = int(peptide_lengths[i % len(peptide_lengths)])
+            g = f5.create_group(f"SYN{i:04d}")
+
+            pep = g.create_group("peptide")
+            pep["backbone_rigid_tensor"] = _random_frames_4x4(rng, L)
+            aatype = rng.integers(0, 20, size=L)
+            pep["aatype"] = aatype
+            onehot = np.zeros((L, ONEHOT_WIDTH), dtype=np.float32)
+            onehot[np.arange(L), aatype] = 1.0
+            pep["sequence_onehot"] = onehot
+            angles = rng.uniform(-np.pi, np.pi, size=(L, 7))
+            pep["torsion_angles_sin_cos"] = np.stack(
+                (np.sin(angles), np.cos(angles)), axis=-1).astype(np.float32)
+            pep["torsion_angles_mask"] = (rng.uniform(size=(L, 7)) > 0.2).astype(np.float32)
+
+            prot = g.create_group("protein")
+            prot["backbone_rigid_tensor"] = _random_frames_4x4(rng, protein_len)
+            p_aatype = rng.integers(0, 20, size=protein_len)
+            prot["aatype"] = p_aatype
+            p_onehot = np.zeros((protein_len, ONEHOT_WIDTH), dtype=np.float32)
+            p_onehot[np.arange(protein_len), p_aatype] = 1.0
+            prot["sequence_onehot"] = p_onehot
+            prot["atom14_gt_positions"] = rng.normal(
+                size=(protein_len, 14, 3)).astype(np.float32) * 3.0
+            # masks are stored as bool (the reference reader indexes with
+            # cross_residues_mask directly); exists is a subset of each
+            # residue type's real atom14 slots, as in real data
+            slot_ok = rc.restype_atom14_mask[p_aatype] > 0.5
+            prot["atom14_gt_exists"] = (rng.uniform(size=(protein_len, 14)) > 0.3) & slot_ok
+            cross = np.zeros(protein_len, dtype=bool)
+            cross[rng.permutation(protein_len)[:pocket_len]] = True
+            prot["cross_residues_mask"] = cross
+
+
 def synthetic_batch(batch_size: int = 64, peptide_len: int = 9, pocket_len: int = 60,
                     seed: int = 0) -> Dict[str, np.ndarray]:
     """An in-memory numpy batch with the model's input contract (tensor-7
@@ -119,13 +167,20 @@ def synthetic_batch(batch_size: int = 64, peptide_len: int = 9, pocket_len: int 
     }
 
 
+def _to_device(x, device, float32: bool = False) -> torch.Tensor:
+    """A tensor passes to ``device`` with ``.to`` (untouched when it is
+    there already); anything else goes through numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32 if float32 else None)
+    return torch.as_tensor(np.asarray(x, np.float32 if float32 else None), device=device)
+
+
 def prepare_batch(batch: Dict[str, Any], device) -> Dict[str, Any]:
-    """Numpy batch (tensor-7 frames) -> model input on ``device``
-    (RigidArray frames, no quat normalization, like ``Rigid.from_tensor_7``)."""
-    out = {k: torch.as_tensor(np.asarray(batch[k]), device=device)
-           for k in MODEL_BATCH_KEYS if k in batch}
+    """Loader batch (numpy or tensors, tensor-7 frames) -> model input on
+    ``device`` (RigidArray frames, no quat normalization, like
+    ``Rigid.from_tensor_7``)."""
+    out = {k: _to_device(batch[k], device) for k in MODEL_BATCH_KEYS if k in batch}
     for k in ("frames", "pocket_frames"):
-        out[k] = RigidArray.from_tensor_7(
-            torch.as_tensor(np.asarray(batch[k], np.float32), device=device))
+        out[k] = RigidArray.from_tensor_7(_to_device(batch[k], device, float32=True))
     return out
 

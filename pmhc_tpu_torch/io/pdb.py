@@ -91,12 +91,26 @@ def fetch_pdb_arrays(conv: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return pc
 
 
+def precompute_pdb_arrays(batch: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The batch-level conversion, once, fetched to host numpy: pass it as
+    ``precomputed`` when writing many entries of one batch."""
+    return fetch_pdb_arrays(convert_batch_for_pdb(batch))
+
+
+def save_pdb(batch: Dict[str, Any] | None, batch_index: int, path: str,
+             precomputed: Dict[str, np.ndarray] | None = None) -> None:
+    """Write one complex as a PDB file: the bytes of ``pdb_bytes``."""
+    data = pdb_bytes(batch, batch_index, precomputed)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
 def pdb_bytes(batch: Dict[str, Any] | None, batch_index: int,
               precomputed: Dict[str, np.ndarray] | None = None) -> bytes:
     """The PDB file contents of one complex (peptide chain P + protein
-    chain M). Pass ``precomputed=fetch_pdb_arrays(convert_batch_for_pdb(batch))``
-    when writing many entries of one batch."""
-    pc = precomputed if precomputed is not None else fetch_pdb_arrays(convert_batch_for_pdb(batch))
+    chain M). Pass ``precomputed=precompute_pdb_arrays(batch)`` when
+    writing many entries of one batch."""
+    pc = precomputed if precomputed is not None else precompute_pdb_arrays(batch)
 
     b = batch_index
     aatype = pc["aatype"][b]

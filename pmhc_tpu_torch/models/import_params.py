@@ -8,12 +8,16 @@ reference checkpoint names ``gnn{1,2}.<name>_mlp.{0,2}.{weight,bias}``.
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from pmhc_tpu_torch.models.score import ScoreNetwork, ScoreNetworkConfig
+
+_log = logging.getLogger(__name__)
 
 _MLP_NAMES = {
     "feature_mlp": "feature",
@@ -59,3 +63,18 @@ def load_checkpoint(path: str, config: ScoreNetworkConfig = ScoreNetworkConfig()
     state = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def load_params(model_path: str) -> Dict[str, torch.Tensor]:
+    """A ``state_dict``: from a reference-format ``.pth`` (strict), or the
+    ``"model"`` of the latest step of a directory of the port's checkpoints
+    (``train/checkpoints.py``)."""
+    from pmhc_tpu_torch.train.checkpoints import CheckpointManager
+
+    if os.path.isdir(model_path):
+        manager = CheckpointManager(model_path)
+        step = manager.latest_step()
+        state = manager.restore(step)
+        _log.info("restored checkpoint at step %s", step)
+        return state["model"]
+    return load_checkpoint(model_path).state_dict()

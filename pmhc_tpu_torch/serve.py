@@ -41,6 +41,7 @@ from typing import Dict, List, Mapping, Sequence
 import numpy as np
 import torch
 
+from pmhc_tpu_torch.data.dataset import stack_proteins
 from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
 from pmhc_tpu_torch.diffusion import DiffusionConfig, ScheduleTables, gen_noise, sample
 from pmhc_tpu_torch.io.pdb import convert_batch_for_pdb, fetch_pdb_arrays, pdb_bytes
@@ -113,16 +114,7 @@ def _stack_pad(entries: Sequence[Dict[str, np.ndarray]], batch_size: int):
     rows = list(entries) + [entries[0]] * (batch_size - len(entries))
     batch = {k: np.stack([r[k] for r in rows])
              for k in ENTRY_SPECS if not k.startswith("protein_")}
-    max_l = max(r["protein_aatype"].shape[0] for r in rows)
-
-    def pad(a):
-        if a.shape[0] == max_l:
-            return a
-        return np.concatenate((a, np.zeros((max_l - a.shape[0],) + a.shape[1:], dtype=a.dtype)))
-
-    protein = {k: np.stack([pad(r[k]) for r in rows])
-               for k in ENTRY_SPECS if k.startswith("protein_")}
-    return batch, protein
+    return batch, stack_proteins(rows)
 
 
 def resolve_device(device) -> torch.device:

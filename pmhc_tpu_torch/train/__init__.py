@@ -1,6 +1,14 @@
 from pmhc_tpu_torch.train.checkpoints import CheckpointManager
 from pmhc_tpu_torch.train.metrics import MetricsRecord
-from pmhc_tpu_torch.train.trainer import Adam, TrainConfig, Trainer, make_learning_rate, train_step
+from pmhc_tpu_torch.train.trainer import (
+    Adam,
+    TrainConfig,
+    Trainer,
+    eval_step,
+    make_learning_rate,
+    save_state_dict,
+    train_step,
+)
 
 __all__ = [
     "Adam",
@@ -8,6 +16,8 @@ __all__ = [
     "MetricsRecord",
     "TrainConfig",
     "Trainer",
+    "eval_step",
     "make_learning_rate",
+    "save_state_dict",
     "train_step",
 ]

@@ -18,6 +18,9 @@ generator on the trainer's device. The NaN-loss abort is checked every
 clipping and gradient accumulation (``optax.MultiSteps``, a running mean
 over ``grad_accum`` micro-batches; the learning-rate schedule counts
 optimizer updates), with the EMA of the parameters after each update.
+``eval_step`` / ``Trainer.eval_batch`` compute the same loss sums with no
+gradient (the loop kernels run forward only); ``train_batches`` takes K
+steps, one per batch.
 """
 
 from __future__ import annotations
@@ -167,6 +170,17 @@ class Adam:
                 torch._foreach_copy_(mine, [t.to(m.device) for m, t in zip(mine, theirs)])
 
 
+def _losses(model, batch, t, epsilon, model_config, diffusion_config, tables, bf16):
+    """add_noise -> score network -> the per-sample loss components."""
+    if tables is None:
+        tables = ScheduleTables(diffusion_config)
+    dc = diffusion_config
+    zt = add_noise(batch, epsilon, t, tables)
+    pred = score_network_forward(model, zt, t, model_config, bf16=bf16)
+    return diffusion_loss(epsilon, pred, batch["mask"], batch["torsions_mask"],
+                          dc.position_loss_weight, dc.rotation_loss_weight, dc.torsion_loss_weight)
+
+
 def train_step(model: ScoreNetwork, optimizer: Adam, batch: Dict[str, Any], t, epsilon,
                *, model_config: ScoreNetworkConfig = ScoreNetworkConfig(backend="auto"),
                diffusion_config: DiffusionConfig = DiffusionConfig(),
@@ -175,18 +189,31 @@ def train_step(model: ScoreNetwork, optimizer: Adam, batch: Dict[str, Any], t, e
     tensor) and the noise ``epsilon`` given. ``batch``: the model batch
     (RigidArray frames, masks, features) on the model's device. Returns the
     per-batch sums of the five loss components (device scalars)."""
-    if tables is None:
-        tables = ScheduleTables(diffusion_config)
-    dc = diffusion_config
-    zt = add_noise(batch, epsilon, t, tables)
-    pred = score_network_forward(model, zt, t, model_config, bf16=bf16)
-    losses = diffusion_loss(epsilon, pred, batch["mask"], batch["torsions_mask"],
-                            dc.position_loss_weight, dc.rotation_loss_weight, dc.torsion_loss_weight)
+    losses = _losses(model, batch, t, epsilon, model_config, diffusion_config, tables, bf16)
     total = torch.sum(losses["total loss"]) / batch["mask"].shape[0]
     # layer 2's node features feed nothing: their parameters get zero gradients
     grads = torch.autograd.grad(total, optimizer.params, allow_unused=True, materialize_grads=True)
     optimizer.step(grads)
     return {k: torch.sum(v.detach()) for k, v in losses.items()}
+
+
+@torch.no_grad()
+def eval_step(model: ScoreNetwork, batch: Dict[str, Any], t, epsilon,
+              *, model_config: ScoreNetworkConfig = ScoreNetworkConfig(backend="auto"),
+              diffusion_config: DiffusionConfig = DiffusionConfig(),
+              tables: ScheduleTables | None = None, bf16: bool = False) -> Dict[str, torch.Tensor]:
+    """The train step's loss sums with no gradient and no update (the loop
+    kernels run forward only)."""
+    losses = _losses(model, batch, t, epsilon, model_config, diffusion_config, tables, bf16)
+    return {k: torch.sum(v) for k, v in losses.items()}
+
+
+def save_state_dict(state: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write a reference-format ``.pth`` state dict, replacing the file."""
+    state = {k: v.detach().cpu().contiguous() for k, v in state.items()}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
 
 
 class Trainer:
@@ -217,14 +244,27 @@ class Trainer:
             if params is not None:
                 model.load_state_dict(params, strict=True)
         self.model = model.to(self.device).train()
-        self.optimizer = Adam(list(self.model.parameters()), make_learning_rate(train_config),
-                              train_config.grad_clip_norm, train_config.grad_accum,
-                              train_config.ema_decay)
+        self.reset_optimizer()
         self.tables = ScheduleTables(diffusion_config)
-        self.t_generator = torch.Generator().manual_seed(seed)
-        self.noise_generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.t_generator = torch.Generator()
+        self.noise_generator = torch.Generator(device=self.device)
+        self.reseed(seed)
         self.global_step = 0
         self._nan = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._eval_model: Optional[ScoreNetwork] = None
+
+    def reset_optimizer(self) -> None:
+        """A fresh optimizer: Adam moments, counters, accumulator and EMA
+        (the EMA restarts from the current weights)."""
+        tc = self.train_config
+        self.optimizer = Adam(list(self.model.parameters()), make_learning_rate(tc),
+                              tc.grad_clip_norm, tc.grad_accum, tc.ema_decay)
+
+    def reseed(self, seed: int) -> None:
+        """Seed the timestep generator with ``seed`` and the noise generator
+        with ``seed + 1``."""
+        self.t_generator.manual_seed(seed)
+        self.noise_generator.manual_seed(seed + 1)
 
     @property
     def ema_params(self) -> Optional[Dict[str, torch.Tensor]]:
@@ -261,13 +301,39 @@ class Trainer:
             raise RuntimeError("NaN loss")
         return sums
 
+    def train_batches(self, batches, metrics=None) -> List[Dict[str, torch.Tensor]]:
+        """K optimizer steps, one per batch in order: the same math as K
+        ``train_batch`` calls."""
+        return [self.train_batch(b, metrics) for b in batches]
+
+    def eval_batch(self, batch: Dict[str, Any], generator: torch.Generator, metrics=None,
+                   params: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """Held-out loss sums on a loader batch: no gradient, no update.
+        ``t`` is drawn per sample and the noise comes from ``generator`` (on
+        the trainer's device), so the same generator seed per batch index
+        gives an epoch-comparable curve. ``params`` (a ``state_dict``, e.g.
+        ``ema_params``) replaces the trained weights."""
+        model_batch = prepare_batch(batch, self.device)
+        B, N = model_batch["mask"].shape
+        t = torch.randint(0, self.diffusion_config.noise_step_count, (B,), generator=generator,
+                          device=generator.device).to(self.device)
+        epsilon = gen_noise(generator, (B, N), self.diffusion_config)
+        model = self.model
+        if params is not None:
+            if self._eval_model is None:
+                self._eval_model = ScoreNetwork(self.model_config).to(self.device)
+            self._eval_model.load_state_dict(params, strict=True)
+            model = self._eval_model
+        sums = eval_step(model, model_batch, t, epsilon, model_config=self.model_config,
+                         diffusion_config=self.diffusion_config, tables=self.tables, bf16=self.bf16)
+        if metrics is not None:
+            metrics.add_batch(sums, B)
+        return sums
+
     def save(self, path: str) -> None:
         """Write the weights as a reference-format ``.pth`` state dict,
         replacing the file."""
-        state = {k: v.detach().cpu().contiguous() for k, v in self.model.state_dict().items()}
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path)
+        save_state_dict(self.model.state_dict(), path)
 
     def checkpoint_state(self) -> Dict[str, Any]:
         """Everything a resume needs: weights, optimizer state (moments,

@@ -41,6 +41,7 @@ from chip_smoke import (
     random_model,
     trajectory_check,
 )
+from pmhc_tpu_torch.data.realistic import realistic_packed
 from pmhc_tpu_torch.data.synthetic import synthetic_batch
 from pmhc_tpu_torch.ops import egnn_fused as ef
 from pmhc_tpu_torch.ops import egnn_loop as el
@@ -228,3 +229,54 @@ def test_pallas_sampler_matches_dense_sampler():
     """A 4-step trajectory through kernel #3 (2 launches per step) against
     the dense oracle with the same injected noise (``TRAJ_TOL``)."""
     trajectory_check(random_model(seed=1).to(_card()), torch.device("cuda"), "pallas")
+
+
+def _assert_batches_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g["name"] == w["name"]
+        for k, v in w.items():
+            if k != "name":
+                assert g[k].device.type == "cuda"
+                np.testing.assert_array_equal(g[k].cpu().numpy(), np.asarray(v), err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("on_device", [False, True])
+def test_train_cli_loader_on_card_matches_cpu_loader(on_device):
+    """The loader as the train CLI builds it (shuffled, seeded, two epochs)
+    on the card, over the packed arrays (pinned copies) or the arrays
+    resident there (``--device-data``), gives the CPU loader's batches."""
+    from pmhc_tpu_torch.data import DeviceDataset, PrefetchLoader
+
+    dev = _card()
+    packed = realistic_packed(37)
+    data = DeviceDataset(packed, dev) if on_device else packed
+    kw = dict(batch_size=8, shuffle=True, seed=3)
+    on_card, on_cpu = PrefetchLoader(data, device=dev, **kw), PrefetchLoader(packed, **kw)
+    for _ in range(2):
+        got = list(on_card)
+        torch.cuda.synchronize()
+        _assert_batches_equal(got, list(on_cpu))
+
+
+@pytest.mark.gpu
+def test_pinned_non_blocking_loader_matches_synchronous_copies():
+    """20 batches copied from fresh pinned buffers with ``non_blocking``
+    while the card is kept busy, held to synchronous copies of the same
+    batches: no buffer is reused before its copy has landed."""
+    from pmhc_tpu_torch.data import PrefetchLoader
+
+    dev = _card()
+    packed = realistic_packed(80, seed=1)
+    kw = dict(batch_size=4, shuffle=True, seed=9, prefetch=4)
+    busy = torch.randn(2048, 2048, device=dev)
+    got = []
+    for batch in PrefetchLoader(packed, device=dev, **kw):
+        for _ in range(4):
+            busy = torch.tanh(busy @ busy)  # the copies queue behind this work
+        got.append({k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    want = list(PrefetchLoader(packed, **kw))
+    assert len(got) == 20
+    _assert_batches_equal(got, want)

@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``pmhc_tpu_torch/`` (nor
 ``chip_smoke.py``) imports JAX or the JAX package, importing the port
-leaves JAX unloaded, its entry points (``SamplerService``, ``Trainer``,
-the HTTP server's ``create_server``) refuse to fall back to the CPU by
-themselves, and nothing in it turns on TF32."""
+(its data package and offline CLIs included) leaves JAX, the JAX package
+and h5py unloaded, its entry points (``SamplerService``, ``Trainer``, the
+HTTP server's ``create_server``, the train and sample CLIs) refuse to fall
+back to the CPU by themselves, and nothing in it turns on TF32."""
 
 import ast
 import os
@@ -50,8 +51,10 @@ def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys; import pmhc_tpu_torch, pmhc_tpu_torch.serve, "
             "pmhc_tpu_torch.ops.egnn_fused, pmhc_tpu_torch.models.import_params, "
             "pmhc_tpu_torch.ops.egnn_loop, pmhc_tpu_torch.train, pmhc_tpu_torch.ops.egnn_pallas, "
-            "pmhc_tpu_torch.cli.serve_cli; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pmhc_tpu')]; "
+            "pmhc_tpu_torch.cli.serve_cli, pmhc_tpu_torch.data, pmhc_tpu_torch.data.validate, "
+            "pmhc_tpu_torch.cli.train_cli, pmhc_tpu_torch.cli.sample_cli, pmhc_tpu_torch.io, "
+            "pmhc_tpu_torch.utils.profiling; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pmhc_tpu', 'h5py')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -103,6 +106,28 @@ def test_trainer_without_device_needs_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(device="cuda")
         assert Trainer(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("cli", ["train", "sample"])
+def test_offline_clis_without_device_need_the_card(tmp_path, cli):
+    from pmhc_tpu_torch.cli import sample_cli, train_cli
+    from pmhc_tpu_torch.data import PackedDataset, write_synthetic_hdf5
+    from pmhc_tpu_torch.models import ScoreNetwork
+
+    data, model = str(tmp_path / "d.npz"), str(tmp_path / "model.pth")
+    write_synthetic_hdf5(str(tmp_path / "d.hdf5"), n_entries=2, seed=0)
+    PackedDataset(str(tmp_path / "d.hdf5"), num_workers=1).save(data)
+    torch.save(ScoreNetwork().state_dict(), model)
+    main, args = ((train_cli.main, [data, "1", model]) if cli == "train"
+                  else (sample_cli.main, [model, data]))
+    args += ["-T", "2", "-b", "2"]
+    parser = train_cli.build_parser() if cli == "train" else sample_cli.build_parser()
+    assert parser.parse_args(args).device == "cuda"
+    if torch.cuda.is_available():
+        main(args)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(args)
 
 
 def test_no_tf32_switched_on():
