@@ -24,8 +24,9 @@ checked against the plain version and its autograd
 (``chip_smoke.loop_run(..., kernel=False)``) at ``chip_smoke.LOOP_TOL`` on
 ``chip_smoke.loop_case``'s batch-64 inputs, both layer shapes and both
 modes, then the forward and the backward timed per layer and mode. Times
-are ``chip_smoke.time_ms`` (CUDA events) in the order old, new, new, old,
-``ITERS`` launches each. ``--ablate`` also builds copies of the current
+are ``chip_smoke.time_ms`` (``ITERS`` launches captured in a CUDA graph,
+its replay timed between CUDA events: the card's time, not the host's
+launch work) in the order old, new, new, old. ``--ablate`` also builds copies of the current
 source with one phase removed (textual edits, ``ABLATIONS``; their
 outputs are wrong, they are timed only) and times each beside the
 current source; the loop's ``fwd_*`` ablations on the forward, the others
@@ -145,13 +146,14 @@ def pallas_ab(libs, card, dev, run_ms) -> None:
     import torch
 
     model = random_model(seed=0).to(dev).eval()
-    stream = torch.cuda.current_stream().cuda_stream
+    # the current stream at each launch: a capture launches on its own
+    cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     for i, layer in enumerate(("gnn1", "gnn2")):
         ctx, step = pallas_case(model, layer, seed=20 + i, device=dev)
         args = ctx.inputs(*step)
         want = ep.egnn_pallas_plain(*args)
         for k in ("old", "new"):
-            got = ep.launch(libs[k], *args, stream=stream)
+            got = ep.launch(libs[k], *args, stream=cur())
             torch.cuda.synchronize()
             errs = {n: float((g - w).abs().max()) for n, g, w in zip(("q", "t", "tors", "feat"), got, want)}
             ok = all(errs[n] <= PALLAS_TOL[n] for n in errs)
@@ -159,7 +161,7 @@ def pallas_ab(libs, card, dev, run_ms) -> None:
             if not ok:
                 raise AssertionError(f"{k} kernel disagrees with the plain version on {layer}")
         run_ms("egnn_pallas", {"layer": layer},
-               lambda k: lambda: ep.launch(libs[k], *args, stream=stream))
+               lambda k: lambda: ep.launch(libs[k], *args, stream=cur()))
 
 
 def loop_ab(libs, card, dev, run_ms) -> None:
@@ -172,16 +174,17 @@ def loop_ab(libs, card, dev, run_ms) -> None:
     import torch
 
     model = random_model(seed=0).to(dev).eval()
-    stream = torch.cuda.current_stream().cuda_stream
+    # the current stream at each launch: a capture launches on its own
+    cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     for k, layer in enumerate(("gnn1", "gnn2")):
         args, cts = loop_case(model, layer, seed=10 + k, device=dev)
         for mode in ("fp32", "bf16"):
             bf16 = mode == "bf16"
             want = loop_run(args, cts, bf16, kernel=False)
             for name in ("old", "new"):
-                outs = el.launch_fwd(libs[name], *args, bf16=bf16, stream=stream)
+                outs = el.launch_fwd(libs[name], *args, bf16=bf16, stream=cur())
                 got = loop_named(outs, el.launch_bwd(libs[name], *args, outs[0], cts, bf16=bf16,
-                                                     stream=stream))
+                                                     stream=cur()))
                 torch.cuda.synchronize()
                 res = loop_errors(got, want, LOOP_TOL[mode])
                 bad = {n: r for n, r in res.items() if not r[3]}
@@ -192,15 +195,15 @@ def loop_ab(libs, card, dev, run_ms) -> None:
                     raise AssertionError(f"{name} loop kernels disagree with the plain version on "
                                          f"{layer} {mode}: {bad}")
             run_ms("egnn_loop_fwd", {"layer": layer, "mode": mode},
-                   lambda n: lambda: el.launch_fwd(libs[n], *args, bf16=bf16, stream=stream),
+                   lambda n: lambda: el.launch_fwd(libs[n], *args, bf16=bf16, stream=cur()),
                    ablations=lambda a: a.startswith("fwd_"))
-            m = el.launch_fwd(libs["new"], *args, bf16=bf16, stream=stream)[0]
+            m = el.launch_fwd(libs["new"], *args, bf16=bf16, stream=cur())[0]
             run_ms("egnn_loop_bwd", {"layer": layer, "mode": mode},
-                   lambda n: lambda: el.launch_bwd(libs[n], *args, m, cts, bf16=bf16, stream=stream),
+                   lambda n: lambda: el.launch_bwd(libs[n], *args, m, cts, bf16=bf16, stream=cur()),
                    ablations=lambda a: not a.startswith("fwd_"))
             if "phases" in libs:
                 loop_phases(libs["phases"], lambda: el.launch_bwd(libs["phases"], *args, m, cts,
-                                                                  bf16=bf16, stream=stream),
+                                                                  bf16=bf16, stream=cur()),
                             {"layer": layer, "mode": mode}, card)
 
 

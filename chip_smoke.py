@@ -27,17 +27,25 @@ Phases (any failure exits non-zero):
    48-neighbour tile; for #3 a partial 32-neighbour block), and the loop
    forward with 40 neighbours more, NP = 136 (two 96-neighbour tiles per
    query row, merged online; the backward takes NP <= 96);
-4. the main paths. Serving: ``SamplerService(batch_size=64,
+4. the main paths, which run from CUDA graphs (``utils/graphs.py``: a
+   step captured once per shape and mode, then replayed; each replay adds
+   the captured launches to the counters, so the counts below are
+   launches on the card). Serving: ``SamplerService(batch_size=64,
    noise_step_count=1000)`` answers 3 requests, then two full batches of
    64, in fp32 and in bf16; checks the PDBs parse with finite coordinates
    and the right chains, the quats are unit, and the kernel ran exactly
-   2 x 1000 times per batch. Before it, a 4-step trajectory through the
+   2 x 1000 times per batch. Then a batch-64 strided 100-step trajectory
+   from graphs is held against the eager one from the same batch
+   generator (fused fp32 and bf16, pallas; ``TRAJ_TOL``, and logged
+   whether bit-identical). Before it, a 4-step trajectory through the
    kernel is held against the dense oracle layer with the same injected
    noise. Training: ``Trainer`` at batch 64 takes 20 steps in fp32 and 20
    in bf16 on synthetic batches; losses must be finite and the loop
    kernels must run exactly 2 forward and 2 backward launches per step.
    Before it, a 5-step trajectory through the kernels, with injected t
-   and noise, is held against the dense autograd path. The ``pallas``
+   and noise, is held against the dense autograd path; after it, 5
+   graphed steps against 5 eager ones from one seed, per mode
+   (``GRAPH_TRAIN_TOL``, and logged whether bit-identical). The ``pallas``
    backend: a 4-step trajectory against the dense oracle; the HTTP server
    (``pmhc_tpu_torch.cli.serve_cli.create_server``, ``--backend pallas
    --batch-size 64 -T 1000``, weights from a ``.pth`` written here)
@@ -55,23 +63,32 @@ Phases (any failure exits non-zero):
    2 x 32 backward and 2 x 32 + 2 x 2 x 1 x 2 forward loop launches (the
    steps, then one validation batch per epoch with raw and EMA weights),
    none of bf16; the same command for 1 more epoch must resume (3 CSV
-   rows, checkpoint step 32 -> 48); then 1 bf16 epoch with
-   ``--device-data --steps-per-dispatch 4`` (2 x 16 launches each way, no
-   fp32). ``sample_cli`` writes 67 PDBs in fp32 and in bf16 (2 x 1000 x
-   2 fused launches each, none of the other mode), then 134 with
+   rows, checkpoint step 32 -> 48); then 2 bf16 epochs with
+   ``--device-data --steps-per-dispatch 4`` (four ``train_indices`` calls
+   of 4 graph replays an epoch; 2 x 32 launches each way, no fp32), and
+   the same with ``--eager``. ``sample_cli`` (batch i's PDBs written
+   while batch i+1 samples) writes 67 PDBs in fp32, in bf16 and in fp32 with
+   ``--eager`` (2 x 1000 x 2 fused launches each, none of the other
+   mode), then 134 with
    ``--bf16 --num-samples 2 --sample-steps 100`` (2 x 100 x 2 x 2); every
    PDB passes ``check_pdb``. Logged: seconds and examples/s per epoch, the
    seconds the step loop waited on the loader, the sample CLI's whole-call
    wall and PDBs/s, and per batch its sampling and PDB-writing seconds;
-5. times with CUDA events after warm-up: each kernel and its plain version
-   per launch, beside the bound reckoned from this run's shapes (for the
+5. times: each kernel and its plain version per launch (``time_ms``:
+   N launches captured in a CUDA graph, its replay timed between CUDA
+   events, so no wrapper's host work is in it), beside the bound reckoned
+   from this run's shapes (for the
    fused layer and the loop forward also ``gemm_ms``, the yardstick of
    their dominant product alone: one ``torch.matmul`` of [B*N*NP, 64] @
    [64, 256] in the mode's precision, which the port never calls); the
    wall seconds per batch-64 trajectory, per 64-request HTTP batch and per
-   optimizer step; then ``torch.profiler`` over strided 100-step batch-64
-   sampling runs (fused fp32 and bf16, pallas) and over 10 training steps
-   in fp32 and in bf16: device time by kernel, idle share.
+   optimizer step; then, from graphs and eager, the wall of strided
+   100-step batch-64 sampling runs (fused fp32 and bf16, pallas) and of
+   20 training steps per mode, and ``torch.profiler`` over them (10 of
+   the training steps): device time by kernel, idle share; and the
+   sample CLI's overlap loop over 3 T=1000 batches from graphs.
+   (``chip_studies.py`` measures the choices behind the defaults: steps
+   per sampler graph, and ``train_indices`` against one-step dispatch.)
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each ported kernel with its launches, error and times, and the
 line before that is ``nvidia-smi``'s name and power limit of the card.
@@ -135,6 +152,19 @@ TRAIN_STEPS = 20
 # O(lr) per step; the bound is the 5 steps' budget
 TRAIN_LR = 1e-3
 TRAIN_TOL = {"loss_rtol": 5e-4, "param_atol": 5 * TRAIN_LR}
+# graphed against eager training (the same kernels, replayed; the loop
+# backward's atomics still sum in an order that varies): losses relative,
+# and the parameters' (and the EMA's) change from their start, held as
+# ||change_graphed - change_eager|| / ||change_eager|| over all of them
+# and for the median tensor, where an update dropped or made with a stale
+# learning rate or bias correction reads 0.2-1 (one step of 5 dropped:
+# ~0.2); both must have moved. Measured (H100): at batch 64, 5 steps,
+# losses equal, the change 2.8e-3 / 3.3e-3 fp32 over all tensors and
+# 4.6e-6 the median one (the atomics' noise in the few tensors whose
+# gradients cancel), 6.5e-8 to 1.2e-5 bf16, hence 2e-2; at batch 8 in
+# bf16 (``test_torch_gpu.py``) the losses up to 1.5e-5 apart (a flipped
+# bf16 rounding moves an element by 2^-8), hence 1e-4
+GRAPH_TRAIN_TOL = {"loss_rtol": 1e-4, "change_rtol": 2e-2}
 # phase 4b's packed files (entries, seed): 16 training batches of 64, one
 # validation batch, a test set of a full batch and a short batch of 3
 OFFLINE_SETS = {"train": (1024, 0), "val": (64, 1), "test": (67, 2)}
@@ -579,6 +609,118 @@ def train_main_path(dev, card: str):
     return launches, walls
 
 
+def sampling_graphs_vs_eager(model, entries, card: str) -> None:
+    """Phase 4: a batch-64 strided trajectory (``OFFLINE_SAMPLE_STEPS``
+    steps) from CUDA graphs, the service's default, against the eager chain
+    from the same batch generator, fused fp32 and bf16 and ``pallas``: the
+    kernel launched twice a step either way, the PDB arrays within
+    ``TRAJ_TOL``. Logs the largest differences and whether the two are
+    bit-identical."""
+    import torch
+
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+    from pmhc_tpu_torch.serve import SamplerService
+
+    k = OFFLINE_SAMPLE_STEPS
+    tol = {"quats": TRAJ_TOL["q"], "trans": TRAJ_TOL["t"], "atom14": TRAJ_TOL["t"]}
+    for backend, mode in (("auto", "fp32"), ("auto", "bf16"), ("pallas", "fp32")):
+        counter = ep.LAUNCHES if backend == "pallas" else ef.LAUNCHES
+        out = {}
+        for graphs in (True, False):
+            svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=k,
+                                 backend=backend, bf16=mode == "bf16", seed=7, graphs=graphs)
+            torch.cuda.synchronize()
+            ef.reset_launches()
+            ep.reset_launches()
+            handle = svc.dispatch(entries, svc.batch_generator(5))
+            handle.wait()
+            if counter[mode] != 2 * k or sum(ef.LAUNCHES.values()) + sum(ep.LAUNCHES.values()) != 2 * k:
+                raise AssertionError(f"sampling {backend} {mode} graphs={graphs}: launches "
+                                     f"{dict(ef.LAUNCHES)} {dict(ep.LAUNCHES)}, expected {2 * k}")
+            out[graphs] = handle.conv
+        diffs = {n: float((out[True][n] - out[False][n]).abs().max()) for n in tol}
+        same = all(torch.equal(out[True][n], out[False][n]) for n in tol)
+        log(json.dumps({"metric": "graphs_vs_eager_sampling", "backend": backend, "mode": mode,
+                        "batch": B, "steps": k, "max_abs_diff": diffs, "bit_identical": same,
+                        "tol": tol, "card": card}))
+        if any(diffs[n] > tol[n] for n in tol):
+            raise AssertionError(f"graphed {backend} {mode} sampling disagrees with eager: {diffs}")
+
+
+def trainer_state(trainer) -> list:
+    """Copies of a ``Trainer``'s parameters and EMA (if kept)."""
+    ema = trainer.optimizer.ema or []
+    return [p.detach().clone() for p in [*trainer.model.parameters(), *ema]]
+
+
+def change_errors(start: list, got: list, want: list) -> dict:
+    """How far ``got``'s change from ``start`` lies from ``want``'s (lists
+    of tensors, as ``trainer_state`` gives): ``rel`` over all tensors,
+    ``median_rel`` and ``worst_rel`` per tensor (a tensor ``want`` left
+    where it was counts 0 if ``got`` did too, else inf), and the norms of
+    both changes (``got_moved``, ``want_moved``)."""
+    import torch
+
+    diffs, norms, per = [], [], []
+    for s0, g, w in zip(start, got, want):
+        dw = (w - s0).double()
+        d = float(((g - s0).double() - dw).norm())
+        n = float(dw.norm())
+        diffs.append(d)
+        norms.append(n)
+        per.append(d / n if n > 0 else (0.0 if d == 0 else float("inf")))
+    total = float(torch.tensor(norms, dtype=torch.float64).norm())
+    per.sort()
+    return {"rel": float(torch.tensor(diffs, dtype=torch.float64).norm()) / max(total, 1e-300),
+            "median_rel": per[len(per) // 2], "worst_rel": per[-1],
+            "got_moved": float(torch.stack([(g - s0).double().norm() for s0, g in zip(start, got)])
+                               .norm()),
+            "want_moved": total}
+
+
+def change_close(err: dict) -> bool:
+    """``change_errors`` within ``GRAPH_TRAIN_TOL``, both having moved."""
+    tol = GRAPH_TRAIN_TOL["change_rtol"]
+    return (err["rel"] <= tol and err["median_rel"] <= tol and err["got_moved"] > 0
+            and err["want_moved"] > 0)
+
+
+def training_graphs_vs_eager(card: str, steps: int = 5) -> None:
+    """Phase 4: ``steps`` batch-64 optimizer steps from CUDA graphs, the
+    trainer's default, against the same steps eager, from one seed, per
+    mode: losses and the parameters' change from their start within
+    ``GRAPH_TRAIN_TOL``. Logs the differences and whether the two are
+    bit-identical."""
+    import torch
+
+    from pmhc_tpu_torch.data.synthetic import synthetic_batch
+    from pmhc_tpu_torch.models import ScoreNetworkConfig
+    from pmhc_tpu_torch.train import TrainConfig, Trainer
+
+    batches = [synthetic_batch(batch_size=B, seed=800 + k) for k in range(steps)]
+    for mode in ("fp32", "bf16"):
+        trainers = {g: Trainer(ScoreNetworkConfig(backend="auto"), train_config=TrainConfig(
+            seed=12, learning_rate=TRAIN_LR, nan_check_every=0), bf16=mode == "bf16", graphs=g)
+            for g in (True, False)}
+        start = trainer_state(trainers[False])
+        losses = {g: [float(tr.train_batch(b)["total loss"]) for b in batches]
+                  for g, tr in trainers.items()}
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False]))
+        got, want = trainer_state(trainers[True]), trainer_state(trainers[False])
+        change = change_errors(start, got, want)
+        worst = max(float((p - q).abs().max()) for p, q in zip(got, want))
+        same = losses[True] == losses[False] and all(torch.equal(p, q) for p, q in zip(got, want))
+        log(json.dumps({"metric": "graphs_vs_eager_training", "mode": mode, "batch": B,
+                        "steps": steps, "losses": losses[True], "eager_losses": losses[False],
+                        "loss_max_rel_diff": rel, "param_change": change,
+                        "param_max_abs_diff": worst, "bit_identical": same,
+                        "tol": GRAPH_TRAIN_TOL, "card": card}))
+        if not (rel <= GRAPH_TRAIN_TOL["loss_rtol"] and change_close(change)):
+            raise AssertionError(f"graphed {mode} training disagrees with eager: rel {rel:.2e}, "
+                                 f"parameters' change {change}")
+
+
 def cuobjdump_path() -> str:
     """``cuobjdump`` beside ``nvcc``, else the copy in Triton's package."""
     from pmhc_tpu_torch.ops import _build
@@ -717,15 +859,24 @@ def gemm_ms(args, bf16: bool) -> float:
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """ms per call of ``fn`` on the card: ``iters`` calls captured in one
+    CUDA graph (after ``warmup`` eager calls on a side stream), the graph's
+    replay timed between CUDA events. A replay launches the captured
+    kernels only, so a wrapper's host work (checks, allocations, the
+    ctypes call) is not in the time. ``fn`` launches on the current
+    stream at call time; the launch counters do not move."""
     import torch
 
+    from pmhc_tpu_torch.utils.graphs import capture, warm_up
+
     for _ in range(warmup):
-        fn()
+        warm_up(fn)
+    graph = capture(lambda: [fn() for _ in range(iters)]).graph
+    graph.replay()  # the first replay uploads the graph
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -771,7 +922,7 @@ def loop_times(cases, loop_err, train_launches, card: str) -> list:
     from pmhc_tpu_torch.ops import egnn_loop as el
 
     lib = el._lib()
-    stream = torch.cuda.current_stream().cuda_stream
+    cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731 (a capture's own)
     rows = []
     for kind in ("fwd", "bwd"):
         for mode in ("fp32", "bf16"):
@@ -779,16 +930,16 @@ def loop_times(cases, loop_err, train_launches, card: str) -> list:
             per = {"ms": [], "plain_ms": [], "bound_ms": [], "gemm_ms": []}
             bound_by = None
             for layer, (args, cts) in cases.items():
-                m = el.launch_fwd(lib, *args, bf16=bf16, stream=stream)[0]
+                m = el.launch_fwd(lib, *args, bf16=bf16, stream=cur())[0]
                 gemm = None
                 if kind == "fwd":
-                    ms = time_ms(lambda: el.launch_fwd(lib, *args, bf16=bf16, stream=stream), 50)
+                    ms = time_ms(lambda: el.launch_fwd(lib, *args, bf16=bf16, stream=cur()), 50)
                     with torch.no_grad():
                         plain = time_ms(lambda: el.egnn_loop_plain(*args, bf16=bf16), 5)
                     gemm = gemm_ms(args, bf16)
                     per["gemm_ms"].append(gemm)
                 else:
-                    ms = time_ms(lambda: el.launch_bwd(lib, *args, m, cts, bf16=bf16, stream=stream), 20)
+                    ms = time_ms(lambda: el.launch_bwd(lib, *args, m, cts, bf16=bf16, stream=cur()), 20)
                     plain = time_ms(lambda: loop_run(args, cts, bf16, kernel=False), 3)
                 flops, nbytes, bound_ms, bound_by = work_of_loop(args, m, cts, kind, bf16)
                 log(json.dumps({"metric": f"egnn_loop_{kind}_ms", "mode": mode, "layer": layer,
@@ -813,24 +964,66 @@ def loop_times(cases, loop_err, train_launches, card: str) -> list:
     return rows
 
 
-def train_breakdown(dev, bf16: bool) -> dict:
+def train_breakdown(bf16: bool, graphs: bool) -> dict:
     """Device time by kernel and idle share over 10 batch-64 training steps
-    in the mode (after 3 warm-up steps)."""
+    in the mode, from CUDA graphs or eager (after 3 warm-up steps), and the
+    median host-clock wall of TRAIN_STEPS steps, each ended by a
+    synchronize."""
+    import torch
+
     from pmhc_tpu_torch.data.synthetic import synthetic_batch
     from pmhc_tpu_torch.models import ScoreNetworkConfig
     from pmhc_tpu_torch.train import TrainConfig, Trainer
 
     tr = Trainer(ScoreNetworkConfig(backend="auto"), train_config=TrainConfig(seed=9, nan_check_every=0),
-                 bf16=bf16)
-    batches = [synthetic_batch(batch_size=B, seed=700 + k) for k in range(10)]
+                 bf16=bf16, graphs=graphs)
+    batches = [synthetic_batch(batch_size=B, seed=700 + k) for k in range(TRAIN_STEPS)]
     for b in batches[:3]:
         tr.train_batch(b)
+    walls = []
+    for b in batches:
+        t0 = time.monotonic()
+        tr.train_batch(b)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
 
     def run():
-        for b in batches:
+        for b in batches[:10]:
             tr.train_batch(b)
 
-    return device_breakdown(run)
+    return {**device_breakdown(run), "median_step_s": sorted(walls)[len(walls) // 2],
+            "step_s": walls}
+
+
+def overlap_walls(model, entries, card: str, batches: int = 3) -> None:
+    """Phase 5: the sample CLI's loop (batch i's PDBs serialized while batch
+    i+1 samples) over ``batches`` batch-64 T=1000 fp32 trajectories from
+    graphs (``sampler.STEPS_PER_GRAPH`` steps each): the whole wall, and per
+    batch the seconds until ``dispatch`` handed back to the host, then
+    waited for the batch's arrays, then in PDB text."""
+    from pmhc_tpu_torch.diffusion import sampler
+    from pmhc_tpu_torch.serve import SamplerService
+
+    svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, seed=7)
+    svc.warmup()  # the capture
+    stats, pending = [], None
+    t_start = time.monotonic()
+    for i in range(batches + 1):
+        t0 = time.monotonic()
+        handle = svc.dispatch(entries, svc.batch_generator(i)) if i < batches else None
+        dispatch_s = time.monotonic() - t0
+        if pending is not None:
+            t1 = time.monotonic()
+            pending.wait()
+            t2 = time.monotonic()
+            svc.finalize(pending)
+            stats[-1].update(wait_s=t2 - t1, pdb_s=time.monotonic() - t2)
+        if handle is not None:
+            stats.append({"dispatch_s": dispatch_s})
+        pending = handle
+    log(json.dumps({"metric": "overlap_walls", "steps_per_graph": sampler.STEPS_PER_GRAPH,
+                    "batch": B, "steps": STEPS, "batches": batches,
+                    "wall_s": time.monotonic() - t_start, "per_batch": stats, "card": card}))
 
 
 def trajectory_check(model, dev, backend: str) -> None:
@@ -1233,12 +1426,16 @@ def offline_main_path(card: str) -> None:
             raise AssertionError(f"offline resume: CSV {rows} rows, checkpoint step {latest}")
 
         # -- bf16, the dataset resident on the card, 4 steps per call
-        stats["bf16"] = offline_train(
-            [paths["train"], "1", os.path.join(work, "model_bf16.pth"), "--batch-size", str(B),
-             "--bf16", "--device-data", "--steps-per-dispatch", "4"],
-            {"fwd_fp32": 0, "bwd_fp32": 0, "fwd_bf16": 2 * steps, "bwd_bf16": 2 * steps},
-            card, "bf16")
-        for mode in ("fp32", "bf16"):
+        # 2 epochs: the first captures the step's graph, the second only replays
+        bf16_cmd = [paths["train"], "2", os.path.join(work, "model_bf16.pth"), "--batch-size",
+                    str(B), "--bf16", "--device-data", "--steps-per-dispatch", "4"]
+        bf16_want = {"fwd_fp32": 0, "bwd_fp32": 0, "fwd_bf16": 2 * 2 * steps,
+                     "bwd_bf16": 2 * 2 * steps}
+        stats["bf16"] = offline_train(bf16_cmd, bf16_want, card, "bf16")
+        # the same epoch eager (a fresh model: the output file is removed)
+        os.remove(bf16_cmd[2])
+        stats["bf16 eager"] = offline_train(bf16_cmd + ["--eager"], bf16_want, card, "bf16 eager")
+        for mode in ("fp32", "bf16", "bf16 eager"):
             log(json.dumps({"metric": "train_cli", "mode": mode, "batch": B,
                             "epoch_s": [e["seconds"] for e in stats[mode]["epochs"]],
                             "examples_per_s": [e["examples_per_s"] for e in stats[mode]["epochs"]],
@@ -1249,9 +1446,9 @@ def offline_main_path(card: str) -> None:
         test = PackedDataset.load(paths["test"])
         n_test = len(test)
         n_batches = -(-n_test // B)
-        for mode, extra in (("fp32", []), ("bf16", ["--bf16"])):
+        for mode, extra in (("fp32", []), ("bf16", ["--bf16"]), ("fp32", ["--eager"])):
             offline_sample([model, paths["test"], "-b", str(B)] + extra, test,
-                           os.path.join(work, f"sampled_{mode}"), mode, n_test,
+                           os.path.join(work, f"sampled_{mode}{''.join(extra)}"), mode, n_test,
                            n_batches * STEPS * 2, card)
         k = OFFLINE_SAMPLE_STEPS
         offline_sample([model, paths["test"], "-b", str(B), "--bf16", "--num-samples", "2",
@@ -1273,12 +1470,12 @@ def pallas_times(cases, launches: int, err: float, card: str) -> dict:
     from pmhc_tpu_torch.ops import egnn_pallas as ep
 
     lib = ep._lib()
-    stream = torch.cuda.current_stream().cuda_stream
+    cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731 (a capture's own)
     per = {"ms": [], "plain_ms": [], "bound_ms": []}
     bound_by = None
     for layer, (ctx, step) in cases.items():
         args = ctx.inputs(*step)
-        ms = time_ms(lambda: ep.launch(lib, *args, stream=stream), 50)
+        ms = time_ms(lambda: ep.launch(lib, *args, stream=cur()), 50)
         plain = time_ms(lambda: ep.egnn_pallas_plain(*args), 5)
         flops, nbytes, bound_ms, bound_by = work_of_pallas(args)
         log(json.dumps({"metric": "egnn_pallas_ms", "layer": layer, "ms": ms, "plain_ms": plain,
@@ -1415,24 +1612,26 @@ def main() -> int:
     for mode in ("fp32", "bf16"):
         svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, bf16=mode == "bf16", seed=7)
         gen = torch.Generator(device=dev).manual_seed(1234)
-        walls = []  # (dispatch s, finalize s) of each batch of 64
+        walls = []  # (dispatch s, finalize s, dispatch's return s) of each batch of 64
         for label, entries in (("3 requests", entries3), ("batch of 64", entries64),
                                ("batch of 64", entries64)):
             torch.cuda.synchronize()
             ef.reset_launches()
             t0 = time.monotonic()
-            conv, n = svc.dispatch(entries, gen)
+            handle = svc.dispatch(entries, gen)
+            t_ret = time.monotonic()
             torch.cuda.synchronize()
             t1 = time.monotonic()
-            pdbs = svc.finalize((conv, n))
+            pdbs = svc.finalize(handle)
             t2 = time.monotonic()
+            conv, n = handle.conv, handle.n
             count = ef.LAUNCHES[mode]
             other = ef.LAUNCHES["bf16" if mode == "fp32" else "fp32"]
             log(f"main path {mode} {label}: {len(pdbs)} PDBs in {t2 - t0:.2f} s "
                 f"(sampling {t1 - t0:.2f} s, PDB text {t2 - t1:.2f} s), "
                 f"kernel launches {count} (expected {2 * STEPS})")
             if len(entries) == B:
-                walls.append((t1 - t0, t2 - t1))
+                walls.append((t1 - t0, t2 - t1, t_ret - t0))
             if count != 2 * STEPS or other != 0:
                 raise AssertionError(f"{mode}: {count} kernel launches, expected {2 * STEPS}")
             if len(pdbs) != len(entries):
@@ -1444,13 +1643,18 @@ def main() -> int:
                 raise AssertionError(f"{mode}: sampled quats not unit (max |norm-1| "
                                      f"{float((qn - 1).abs().max()):.3e})")
             launches[mode] = count
+        # dispatch_return_s: when dispatch handed back to the host (the card
+        # still sampling) of the sampling_s it took to the card's end
         log(json.dumps({"metric": "trajectory_s", "mode": mode, "batch": B, "steps": STEPS,
-                        "seconds": [d + f for d, f in walls],
-                        "sampling_s": [d for d, _ in walls], "pdb_s": [f for _, f in walls],
-                        "card": card}))
+                        "seconds": [d + f for d, f, _ in walls],
+                        "sampling_s": [d for d, _, _ in walls], "pdb_s": [f for _, f, _ in walls],
+                        "dispatch_return_s": [r for _, _, r in walls], "card": card}))
+
+    sampling_graphs_vs_eager(model, entries64, card)
 
     train_trajectory_check(dev)
     train_launches, train_walls = train_main_path(dev, card)
+    training_graphs_vs_eager(card)
 
     # the pallas path: its trajectory, the HTTP server, the trainer
     trajectory_check(model, dev, "pallas")
@@ -1463,16 +1667,15 @@ def main() -> int:
     # -- 5. times -------------------------------------------------------------------
     kernels = []
     # launched as the loop and pallas kernels are timed: through the library
-    # alone, since the checked wrapper's host work per call can exceed the
-    # bf16 kernel's time on a busy host and starve the card
+    # alone, the launches captured in a graph and replayed (time_ms)
     fused_lib = ef._lib()
-    stream = torch.cuda.current_stream().cuda_stream
+    cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731 (a capture's own)
     for mode in ("fp32", "bf16"):
         bf16 = mode == "bf16"
         per = {"ms": [], "plain_ms": [], "bound_ms": [], "gemm_ms": []}
         bound_by = None
         for layer, args in cases.items():
-            ms = time_ms(lambda: ef.launch(fused_lib, *args, bf16=bf16, stream=stream), iters=100)
+            ms = time_ms(lambda: ef.launch(fused_lib, *args, bf16=bf16, stream=cur()), iters=100)
             plain = time_ms(lambda: ef.egnn_fused_plain(*args, bf16=bf16), iters=10)
             gemm = gemm_ms(args, bf16)
             flops, nbytes, bound_ms, bound_by = work_of(args, bf16)
@@ -1501,28 +1704,29 @@ def main() -> int:
 
     # device busy and idle share over a strided K=100 batch-64 run (same
     # per-step work as T=1000, a trace 10x shorter)
+    # with CUDA graphs (the default) and eager: the wall of a strided batch-64
+    # dispatch and its device busy time and idle share
     steps_k = 100
     gen = torch.Generator(device=dev).manual_seed(99)
+    for backend, mode in (("auto", "fp32"), ("auto", "bf16"), ("pallas", "fp32")):
+        for graphs in (True, False):
+            svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=steps_k,
+                                 backend=backend, bf16=mode == "bf16", seed=7, graphs=graphs)
+            svc.sample_entries(entries64[:1])  # warm-up: the kernels' first load, the capture
+            bd = device_breakdown(lambda: svc.dispatch(entries64, gen))
+            log(json.dumps({"metric": "device_breakdown", "path": "sample", "backend": backend,
+                            "mode": mode, "graphs": graphs, "batch": B, "steps": steps_k, **bd,
+                            "card": card}))
+    overlap_walls(model, entries64, card)
     for mode in ("fp32", "bf16"):
-        svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=steps_k,
-                             bf16=mode == "bf16", seed=7)
-        svc.sample_entries(entries64[:1])  # warm-up
-        bd = device_breakdown(lambda: svc.dispatch(entries64, gen))
-        log(json.dumps({"metric": "device_breakdown", "mode": mode, "batch": B, "steps": steps_k,
-                        **bd, "card": card}))
-    svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=steps_k,
-                         backend="pallas", seed=7)
-    svc.sample_entries(entries64[:1])  # warm-up
-    bd = device_breakdown(lambda: svc.dispatch(entries64, gen))
-    log(json.dumps({"metric": "device_breakdown", "backend": "pallas", "batch": B,
-                    "steps": steps_k, **bd, "card": card}))
-    for mode in ("fp32", "bf16"):
-        w = sorted(train_walls[mode][1:])  # the first step loads the kernels
-        log(json.dumps({"metric": "train_step_s_median", "mode": mode, "batch": B,
+        w = sorted(train_walls[mode][1:])  # the first step loads the kernels and captures
+        log(json.dumps({"metric": "train_step_s_median", "mode": mode, "graphs": True, "batch": B,
                         "median_s": w[len(w) // 2], "card": card}))
     for mode in ("fp32", "bf16"):
-        log(json.dumps({"metric": "device_breakdown", "path": "train", "mode": mode, "batch": B,
-                        "steps": 10, **train_breakdown(dev, mode == "bf16"), "card": card}))
+        for graphs in (True, False):
+            log(json.dumps({"metric": "device_breakdown", "path": "train", "mode": mode,
+                            "graphs": graphs, "batch": B, "steps": 10,
+                            **train_breakdown(mode == "bf16", graphs), "card": card}))
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -13,15 +13,16 @@ The model is a reference-format ``.pth`` or a directory of the port's
 checkpoints (its latest step's ``"model"``). The data is a SwiftMHC HDF5
 file or a packed ``.npz``. Each batch goes through
 ``SamplerService.dispatch`` / ``finalize`` (a short last batch is padded by
-repeating row 0; only the real rows are written), one batch after the
-other: the sampler's launches are queued from the host as fast as the card
-runs them, so writing batch i's PDBs while batch i+1 samples would hide no
-time. ``--device`` defaults to ``cuda``.
+repeating row 0; only the real rows are written). As the JAX CLI does,
+batch i's PDBs are written while batch i+1 samples: on the card the chain
+runs from CUDA graphs (``--eager`` runs it eagerly), so ``dispatch``
+returns while the card still samples, and ``finalize`` waits only for
+its own batch's arrays. ``--device`` defaults to ``cuda``.
 
 ``main`` returns the whole call's wall seconds (weights and data loaded,
 every PDB written) and PDBs per second, and per batch the host seconds
-queueing the sampler, the seconds then waited for the card, and the
-seconds of the fetch, PDB text and file writes.
+queueing the sampler, the seconds then waited for its arrays (after the
+next batch was queued), and the seconds of the PDB text and file writes.
 """
 
 from __future__ import annotations
@@ -71,6 +72,8 @@ def build_parser() -> ArgumentParser:
                    help="write a torch.profiler Chrome trace of the whole run to DIR")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: the card; cpu runs the kernels' plain versions)")
+    p.add_argument("--eager", action="store_true",
+                   help="run the sampler eagerly instead of from CUDA graphs (debugging)")
     return p
 
 
@@ -89,8 +92,6 @@ def main(argv=None):
 
 
 def _run(args):
-    import torch
-
     from pmhc_tpu_torch.data import PrefetchLoader
     from pmhc_tpu_torch.data.packed import open_dataset
     from pmhc_tpu_torch.data.validate import validate_or_exit
@@ -105,7 +106,8 @@ def _run(args):
     service = SamplerService(load_params(args.model), batch_size=args.batch_size,
                              noise_step_count=args.T, num_steps=args.sample_steps,
                              backend=args.backend, bf16=args.bf16, fast_f32=args.fast_f32,
-                             seed=args.seed, device=args.device)
+                             seed=args.seed, device=args.device,
+                             graphs=False if args.eager else None)
     _log.info("backend %r -> %s, %s, on %s", args.backend, service.backend, service.precision,
               service.device)
     if args.fast_f32:
@@ -118,7 +120,20 @@ def _run(args):
     os.makedirs(output_path, exist_ok=True)
 
     stats = []
+
+    def write(pending) -> None:
+        """Wait for a dispatched batch's arrays; write its PDBs."""
+        handle, out_names, stat = pending
+        t0 = time.monotonic()
+        handle.wait()
+        t1 = time.monotonic()
+        for name, pdb in zip(out_names, SamplerService.finalize(handle)):
+            with open(os.path.join(output_path, f"{name}.pdb"), "wb") as f:
+                f.write(pdb)
+        stats.append({**stat, "wait_s": t1 - t0, "pdb_s": time.monotonic() - t1})
+
     counter = 0
+    pending = None  # the batch dispatched last, its PDBs not yet written
     for batch in loader:
         names = batch.pop("name")
         protein = dataset.get_protein_positions(names)
@@ -128,17 +143,14 @@ def _run(args):
             # each sample: its own generator, so independent noise
             t0 = time.monotonic()
             handle = service.dispatch(entries, service.batch_generator(counter))
-            t1 = time.monotonic()
-            if service.device.type == "cuda":
-                torch.cuda.synchronize(service.device)
-            t2 = time.monotonic()
+            stat = {"batch": counter, "entries": handle.n, "dispatch_s": time.monotonic() - t0}
+            if pending is not None:
+                write(pending)  # while this batch samples
             out_names = names if args.num_samples == 1 else [f"{x}.{si + 1}" for x in names]
-            for name, pdb in zip(out_names, SamplerService.finalize(handle)):
-                with open(os.path.join(output_path, f"{name}.pdb"), "wb") as f:
-                    f.write(pdb)
-            stats.append({"batch": counter, "entries": handle[1], "dispatch_s": t1 - t0,
-                          "wait_s": t2 - t1, "pdb_s": time.monotonic() - t2})
+            pending = (handle, out_names, stat)
             counter += 1
+    if pending is not None:
+        write(pending)
     wall = time.monotonic() - t_start
     pdbs = sum(b["entries"] for b in stats)
     _log.info("wrote %d PDB files to %s in %.3f s (%.2f PDBs/s)", pdbs, output_path, wall,

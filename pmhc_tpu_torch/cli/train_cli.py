@@ -16,6 +16,14 @@ given ``--device cpu``. ``--orbax-dir`` keeps its name and holds the port's
 full-state checkpoints (``train/checkpoints.py``). Multi-device meshes are
 not ported (ROADMAP Queue 1, multi-GPU).
 
+On the card the steps run from CUDA graphs (``Trainer``; ``--eager``
+runs them eagerly). With ``--device-data --steps-per-dispatch K`` an
+epoch goes as the JAX CLI's fused device pipeline does: the loader's
+epoch order cut into rows of a batch's entry indices, each K full rows
+one ``Trainer.train_indices`` call (K graph replays, each gathering its
+batch from the resident dataset), the full rows left over and the
+partial last row one ``train_batch`` each.
+
 ``main`` returns per-epoch timings: wall seconds, examples, and the
 seconds the step loop waited on the loader (time spent in ``next``).
 """
@@ -92,7 +100,10 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--profile-dir", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the whole run to DIR")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="group K full batches into one train_batches call")
+                   help="group K full batches into one train_batches call (with "
+                        "--device-data: one train_indices call on the batches' index rows)")
+    p.add_argument("--eager", action="store_true",
+                   help="run the steps eagerly instead of from CUDA graphs (debugging)")
     p.add_argument("--backend", default="auto",
                    choices=("auto", "xla", "pallas", "pallas_lane", "g8",
                             "blockwise", "cp", "ring"),
@@ -165,7 +176,7 @@ def _run(args):
         _log.info("resuming from %s", args.output_model)
         params = load_checkpoint(args.output_model, model_config).state_dict()
     trainer = Trainer(model_config, diffusion_config, train_config, params=params,
-                      bf16=args.bf16, device=device)
+                      bf16=args.bf16, device=device, graphs=False if args.eager else None)
 
     ckpt_mgr = None
     if args.orbax_dir:
@@ -275,8 +286,32 @@ def _run(args):
                       "examples_per_s": examples / seconds, "loader_wait_s": wait})
         run_validation(epoch_index)
 
-    stats = []
     B = args.batch_size
+    if args.device_data and K > 1:
+        # rows of entry indices in the epoch's order: K full rows are one
+        # train_indices call, the rest one train_batch each
+        def epoch_items():
+            order = loader.next_epoch_indices()
+            return [order[i:i + B] for i in range(0, len(order), B)]
+
+        size = len
+
+        def run(rows, metrics):
+            if len(rows) == K and len(rows[-1]) == B:
+                trainer.train_indices(dataset, rows, metrics)
+            else:
+                trainer.train_batches([dataset.get_batch(list(r)) for r in rows], metrics)
+    else:
+        def epoch_items():
+            return loader
+
+        def size(batch):
+            return len(batch["name"])
+
+        def run(batches, metrics):
+            trainer.train_batches(batches, metrics)
+
+    stats = []
     for epoch_index in range(args.epoch_count):
         _log.debug("starting epoch %d", epoch_index)
         t0 = time.monotonic()
@@ -284,25 +319,25 @@ def _run(args):
         pending = []
         wait = 0.0
         examples = 0
-        batches = iter(loader)
+        items = iter(epoch_items())
         i = 0
         while True:
             tw = time.monotonic()
-            batch = next(batches, None)
+            item = next(items, None)
             wait += time.monotonic() - tw
-            if batch is None:
+            if item is None:
                 break
-            examples += len(batch["name"])
-            pending.append(batch)
-            if len(pending) == K or len(batch["name"]) < B:
+            examples += size(item)
+            pending.append(item)
+            if len(pending) == K or size(item) < B:
                 # K batches, or a partial final batch with the ones before it
-                trainer.train_batches(pending, metrics)
+                run(pending, metrics)
                 pending = []
             if i > 0 and i % 100 == 0:
                 metrics = check_nan(metrics)
                 save_model()
             i += 1
-        trainer.train_batches(pending, metrics)  # leftover batches (< K)
+        run(pending, metrics)  # leftover batches (< K)
         end_epoch(epoch_index, metrics, t0, examples, wait, stats)
     return {"epochs": stats}
 

@@ -98,9 +98,15 @@ class PrefetchLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def __iter__(self) -> Iterator[Dict[str, Any]]:
+    def next_epoch_indices(self) -> List[int]:
+        """The next epoch's entry order, as iterating would take it (the
+        epoch counts as begun)."""
         indices = self._epoch_indices()
         self._epoch += 1
+        return indices
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        indices = self.next_epoch_indices()
         batches = [indices[i:i + self.batch_size] for i in range(0, len(indices), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]

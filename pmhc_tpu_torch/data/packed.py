@@ -192,10 +192,15 @@ class DeviceDataset:
         if self.device.type == "cuda":
             # from pinned memory the copy waits for none of the queued work
             idx = idx.pin_memory()
-        idx = idx.to(self.device, non_blocking=True)
-        out = {k: v.index_select(0, idx) for k, v in self._data.items()}
+        out = self.gather(idx.to(self.device, non_blocking=True))
         out["name"] = [self.entry_names[i] for i in indices]
         return out
+
+    def gather(self, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The arrays of the entries at ``idx`` (int64 on the device), by
+        ``index_select`` there: no host work, so a CUDA graph can capture it
+        (``Trainer.train_indices``)."""
+        return {k: v.index_select(0, idx) for k, v in self._data.items()}
 
     def get_protein_positions(self, entry_names: List[str]):
         return self._packed.get_protein_positions(entry_names)

@@ -22,6 +22,9 @@ import torch
 
 from pmhc_tpu_torch.geometry import torch_normalize
 
+# the keys of ``diffusion_loss``'s result, in its order
+LOSS_NAMES = ("total loss", "positions loss", "rotations loss", "torsions loss", "rmsd")
+
 
 def diffusion_loss(noise_true: Dict[str, Any], noise_pred: Dict[str, Any],
                    residues_mask: torch.Tensor, torsions_mask: torch.Tensor,

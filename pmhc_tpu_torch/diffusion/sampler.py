@@ -19,6 +19,21 @@ package's generic sampler step, two ``ops/egnn_pallas.py`` launches per
 step, with its static context (packed weights, message mask, edge terms,
 the pocket halves of ``h_all``, ``q_j`` and ``t_j``) built once.
 
+A step reads its model time and its six schedule scalars from tables on
+the device (``schedule.step_tables``) at a step counter kept there and
+advanced by the step itself, and writes the new state in place. So the
+step is one body, run eagerly (on the CPU, with ``graphs=False``, or with
+``injected_noise``) or from a CUDA graph (``utils/graphs.py``; the default
+on the card), the counterpart of the JAX package's ``lax.scan`` over the
+chain. A graph holds ``STEPS_PER_GRAPH`` steps (a last graph the
+remainder), is captured once per backend, mode, batch shape and schedule
+(``graph_cache`` keeps it) and is replayed K / ``STEPS_PER_GRAPH``
+times; another batch of the same shape
+copies its static context and start state into the graph's. The per-step
+noise comes from a device generator registered with the graph: the
+caller's generator state goes into it before the chain and comes back
+after it, so the draws are those of the eager chain.
+
 Semantics match ``sample_lane``: t runs T..1 with the model evaluated at
 t = T first; ``injected_noise`` (a Noise dict with a leading [T] axis,
 index 0 used at t = T, or [K] when strided) bypasses the generator for
@@ -27,19 +42,14 @@ exact trajectory parity in tests.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.nn import functional as F
 
 from pmhc_tpu_torch.diffusion.noise import gen_noise, remove_noise_scalars
-from pmhc_tpu_torch.diffusion.schedule import (
-    DiffusionConfig,
-    ScheduleTables,
-    StridedTables,
-    strided_timesteps,
-)
+from pmhc_tpu_torch.diffusion.schedule import DiffusionConfig, ScheduleTables, step_tables
 from pmhc_tpu_torch.geometry import RigidArray
 from pmhc_tpu_torch.models.score import (
     ScoreNetwork,
@@ -50,13 +60,48 @@ from pmhc_tpu_torch.models.score import (
 )
 from pmhc_tpu_torch.ops.egnn_fused import layer_context
 from pmhc_tpu_torch.ops.egnn_pallas import pallas_context
+from pmhc_tpu_torch.utils.graphs import GraphCache, Step, own_batch, use_graphs
 
-Forward = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int], tuple]
+
+# Steps a graph holds. With one step a graph, a T=1000 chain's replays (and
+# the generator's two small copies before each) fill the card's launch
+# queue, and the host waits in ``dispatch`` for most of the chain; with 10,
+# ``dispatch`` returns at once and a caller's PDB text overlaps the next
+# batch's sampling, for 1-2 % more device time a step (PERF.md §5).
+STEPS_PER_GRAPH = 10
 
 
-def fused_forward(model: ScoreNetwork, batch: Dict[str, Any],
-                  model_config: ScoreNetworkConfig, bf16: bool) -> Forward:
-    """Build both layers' static context once; return forward(q, t, tors, step)."""
+def model_time(backend: str, ts: np.ndarray, T: int) -> np.ndarray:
+    """The model input of each step's timestep, as the backend's forward
+    computes it in fp32: t * (1/T) (fused, ``sample_lane``), t / T
+    (pallas, ``score_network_forward``), or t itself (dense)."""
+    if backend == "fused":
+        return ts.astype(np.float32) * np.float32(1.0 / T)
+    if backend == "pallas":
+        return ts.astype(np.float32) / np.float32(T)
+    return ts
+
+
+class Forward:
+    """One backend's score network with its static context built:
+    ``forward(q, t, tors, x)`` -> the predicted (q, t, tors). ``x`` is the
+    step's timestep, an int or, on the chain's path, the ``[1]`` device
+    tensor of its ``model_time``. ``static`` lists the device tensors the
+    call reads besides its arguments (a captured step's static inputs)."""
+
+    def __init__(self, fn: Callable, static: Sequence[torch.Tensor], backend: str, T: int):
+        self.fn, self.static, self.backend, self.T = fn, list(static), backend, T
+
+    def __call__(self, q, t, tors, x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(model_time(self.backend, np.array([x], np.int64), self.T))
+            x = x.to(q.device)
+        return self.fn(q, t, tors, x)
+
+
+def fused_forward(model: ScoreNetwork, batch: Dict[str, Any], model_config: ScoreNetworkConfig,
+                  bf16: bool) -> Forward:
+    """Build both layers' static context once; return its ``Forward``."""
     mask = batch["mask"].float()
     pocket_mask = batch["pocket_mask"].float()
     B, N = mask.shape
@@ -77,23 +122,22 @@ def fused_forward(model: ScoreNetwork, batch: Dict[str, Any],
         # time row, added in fp32 each step
         aj1_static = ctx1.project(F.pad(feats22, (0, 1)))          # [B, N, T]
         wj1_time = ctx1.wj_t[-1].contiguous()                       # [T]
-    inv_T = np.float32(1.0 / model_config.noise_step_count)
 
-    def forward(q, t, tors, step: int):
-        tf = float(np.float32(step) * inv_T)
-        h1 = torch.cat((feats22, torch.full((B, N, 1), tf, device=dev)), dim=-1)
+    def forward(q, t, tors, tf):
+        h1 = torch.cat((feats22, tf.expand(B, N, 1)), dim=-1)
         q1, t1, tors1, inner = ctx1(h1, q, t, tors, aj1_static + tf * wj1_time)
         h2 = torch.relu(inner)
         q2, t2, tors2, _ = ctx2(h2, q1, t1, tors1, ctx2.project(h2))
         return q2, t2, tors2
 
-    return forward
+    return Forward(forward, [feats22, aj1_static, wj1_time, *ctx1.tensors(), *ctx2.tensors()],
+                   "fused", model_config.noise_step_count)
 
 
 def pallas_forward(model: ScoreNetwork, batch: Dict[str, Any],
                    model_config: ScoreNetworkConfig) -> Forward:
     """``score_network_forward`` with the ``pallas`` backend, its static
-    context built once; return forward(q, t, tors, step)."""
+    context built once."""
     mask = batch["mask"].float()
     pocket_mask = batch["pocket_mask"].float()
     B, N = mask.shape
@@ -110,26 +154,88 @@ def pallas_forward(model: ScoreNetwork, batch: Dict[str, Any],
         ctx1 = pallas_context(g1, relpos_edge_pre(g1, N), mask, pocket_h, pf, pocket_mask)
         ctx2 = pallas_context(g2, relpos_edge_pre(g2, N), mask, F.pad(pocket_h, (0, H2 - H1)), pf,
                               pocket_mask)
-    T_f32 = np.float32(model_config.noise_step_count)
 
-    def forward(q, t, tors, step: int):
-        tf = float(np.float32(step) / T_f32)  # t / T in fp32, as score_network_forward
-        h1 = torch.cat((feats22, torch.full((B, N, 1), tf, device=dev)), dim=-1)
+    def forward(q, t, tors, tf):
+        h1 = torch.cat((feats22, tf.expand(B, N, 1)), dim=-1)
         q1, t1, tors1, inner = ctx1(h1, q, t, tors)
         q2, t2, tors2, _ = ctx2(torch.relu(inner), q1, t1, tors1)
         return q2, t2, tors2
 
-    return forward
+    return Forward(forward, [feats22, *ctx1.tensors(), *ctx2.tensors()], "pallas",
+                   model_config.noise_step_count)
 
 
 def dense_forward(model: ScoreNetwork, batch: Dict[str, Any],
                   model_config: ScoreNetworkConfig) -> Forward:
-    def forward(q, t, tors, step: int):
+    """``score_network_forward`` per step, reading ``batch``."""
+    def forward(q, t, tors, step):
         state = dict(batch, frames=RigidArray(q, t), torsions=tors)
         pred = score_network_forward(model, state, step, model_config)
         return pred["frames"].quats, pred["frames"].trans, pred["torsions"]
 
-    return forward
+    pf = batch["pocket_frames"]
+    return Forward(forward, [batch["features"], batch["mask"], batch["pocket_features"],
+                             batch["pocket_mask"], pf.quats, pf.trans], "dense",
+                   model_config.noise_step_count)
+
+
+class Chain:
+    """A reverse chain on the device: the state (q, t, tors) the steps
+    update in place, the step counter ``k`` and the step tables (the model
+    input ``xs`` [K] and the scalars ``sched`` [K, 6])."""
+
+    def __init__(self, batch: Dict[str, Any], xs: np.ndarray, sched: np.ndarray):
+        f = batch["frames"]
+        dev = f.quats.device
+        self.q = f.quats.float().clone(memory_format=torch.contiguous_format)
+        self.t = f.trans.float().clone(memory_format=torch.contiguous_format)
+        self.tors = batch["torsions"].float().clone(memory_format=torch.contiguous_format)
+        self.k = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.xs = torch.from_numpy(xs).to(dev)
+        self.sched = torch.from_numpy(sched).to(dev)
+
+    def restart(self, batch: Dict[str, Any]) -> None:
+        """Start again from ``batch``'s state, in place."""
+        self.q.copy_(batch["frames"].quats)
+        self.t.copy_(batch["frames"].trans)
+        self.tors.copy_(batch["torsions"])
+        self.k.zero_()
+
+    def step(self, forward: Forward, rand: Dict[str, Any]) -> None:
+        """Step k -> k + 1 with the noise ``rand``."""
+        x = self.xs.index_select(0, self.k)
+        scalars = self.sched.index_select(0, self.k)[0].unbind()
+        q_p, t_p, tors_p = forward(self.q, self.t, self.tors, x)
+        out = remove_noise_scalars(
+            {"frames": RigidArray(self.q, self.t), "torsions": self.tors},
+            {"frames": RigidArray(q_p, t_p), "torsions": tors_p}, rand, *scalars)
+        self.q.copy_(out["frames"].quats)
+        self.t.copy_(out["frames"].trans)
+        self.tors.copy_(out["torsions"])
+        self.k += 1
+
+
+class _Graphed:
+    """A chain with its own static context (``forward.static``) and noise
+    generator, and its captured steps by steps per graph."""
+
+    def __init__(self, forward: Forward, chain: Chain, shape: Tuple[int, ...],
+                 config: DiffusionConfig):
+        self.forward, self.chain = forward, chain
+        self.shape, self.config = shape, config
+        self.generator = torch.Generator(device=chain.q.device)
+        self.steps: Dict[int, Step] = {}
+
+    def run(self, n: int) -> None:
+        """``n`` steps: one replay of the n-step graph (captured at its first use)."""
+        step = self.steps.get(n)
+        if step is None:
+            def body():
+                for _ in range(n):
+                    self.chain.step(self.forward, gen_noise(self.generator, self.shape, self.config))
+
+            step = self.steps[n] = Step(body, [self.generator])
+        step()
 
 
 @torch.no_grad()
@@ -143,6 +249,8 @@ def sample(
     bf16: bool = False,
     injected_noise: Dict[str, Any] | None = None,
     num_steps: int | None = None,
+    graphs: bool | None = None,
+    graph_cache: GraphCache | None = None,
 ) -> Dict[str, Any]:
     """Full reverse diffusion from the noised state in ``batch``.
 
@@ -151,46 +259,61 @@ def sample(
     ``dense`` backends run fp32). ``num_steps`` (K) below
     T runs the strided few-step sampler. Fresh per-step noise comes from
     ``generator`` (on the batch's device) unless ``injected_noise`` is
-    given. Returns ``batch`` with ``frames`` and ``torsions`` replaced.
+    given. ``graphs`` (default: on a CUDA device, without
+    ``injected_noise``) runs the chain from CUDA graphs of
+    ``STEPS_PER_GRAPH`` steps kept in ``graph_cache`` (a new cache per call
+    when None); a failed capture raises. Returns ``batch`` with ``frames``
+    and ``torsions`` replaced.
     """
-    if tables is None:
-        tables = ScheduleTables(config)
-    T_steps = config.noise_step_count
-    if num_steps is not None and num_steps != T_steps:
-        st = StridedTables(config, strided_timesteps(T_steps, num_steps))
-        steps = [(int(st.ts[k]), st.scalars(k)) for k in range(st.num_jumps)]
-    else:
-        steps = [(t, tables.scalars(t)) for t in range(T_steps, 0, -1)]
     if injected_noise is None and generator is None:
         raise ValueError("sample needs a generator or injected_noise")
-
+    dev = batch["mask"].device
+    graphs = use_graphs(False if injected_noise is not None and graphs is None else graphs, dev)
+    if graphs and injected_noise is not None:
+        raise ValueError("injected noise runs eagerly: pass graphs=False")
+    ts, sched = step_tables(config, num_steps, tables)
     backend = resolve_backend(model_config.backend)
-    if backend == "fused":
-        forward = fused_forward(model, batch, model_config, bf16)
-    elif backend == "pallas":
-        forward = pallas_forward(model, batch, model_config)
-    else:
-        forward = dense_forward(model, batch, model_config)
+    xs = model_time(backend, ts, config.noise_step_count)
+
+    def build(b):
+        if backend == "fused":
+            return fused_forward(model, b, model_config, bf16)
+        if backend == "pallas":
+            return pallas_forward(model, b, model_config)
+        return dense_forward(model, b, model_config)
 
     shape = tuple(batch["mask"].shape)
-    q = batch["frames"].quats.float().contiguous()
-    t = batch["frames"].trans.float().contiguous()
-    tors = batch["torsions"].float().contiguous()
-    for k, (t_model, scalars) in enumerate(steps):
-        q_p, t_p, tors_p = forward(q, t, tors, t_model)
-        if injected_noise is None:
-            rand = gen_noise(generator, shape, config)
+    if not graphs:
+        forward = build(batch)
+        chain = Chain(batch, xs, sched)
+        for k in range(len(ts)):
+            if injected_noise is None:
+                rand = gen_noise(generator, shape, config)
+            else:
+                rf = injected_noise["frames"]
+                rand = {"frames": RigidArray(rf.quats[k], rf.trans[k]),
+                        "torsions": injected_noise["torsions"][k]}
+            chain.step(forward, rand)
+        q, t, tors = chain.q, chain.t, chain.tors
+    else:
+        cache = GraphCache() if graph_cache is None else graph_cache
+        key = ("sample", id(model), backend, bool(bf16) and backend == "fused", config,
+               model_config, shape, tuple(batch["pocket_mask"].shape), ts.tobytes())
+        entry = cache.get(key)
+        if entry is None:
+            own = own_batch(batch)
+            entry = _Graphed(build(own), Chain(own, xs, sched), shape, config)
+            cache.put(key, entry)
         else:
-            rf = injected_noise["frames"]
-            rand = {"frames": RigidArray(rf.quats[k], rf.trans[k]),
-                    "torsions": injected_noise["torsions"][k]}
-        out = remove_noise_scalars(
-            {"frames": RigidArray(q, t), "torsions": tors},
-            {"frames": RigidArray(q_p, t_p), "torsions": tors_p},
-            rand, *scalars)
-        q = out["frames"].quats.contiguous()
-        t = out["frames"].trans.contiguous()
-        tors = out["torsions"].contiguous()
+            for dst, src in zip(entry.forward.static, build(batch).static):
+                dst.copy_(src)
+            entry.chain.restart(batch)
+        entry.generator.set_state(generator.get_state())
+        K, S = len(ts), STEPS_PER_GRAPH
+        for n in [S] * (K // S) + ([K % S] if K % S else []):
+            entry.run(n)
+        generator.set_state(entry.generator.get_state())
+        q, t, tors = entry.chain.q.clone(), entry.chain.t.clone(), entry.chain.tors.clone()
 
     result = dict(batch)
     result["frames"] = RigidArray(q, t)

@@ -3,16 +3,19 @@
 Counterpart of ``pmhc_tpu/diffusion/schedule.py``: beta(t) = beta_min +
 (beta_max - beta_min) * t/T, alpha = sqrt(1 - beta), sigma = sqrt(beta),
 and the sampler's per-step alpha_ts / sigma_ts^2 / sigma_t2s chain, all
-computed on the host in float64 and stored as float32. The sampler reads
-them as Python floats (the float32 values), so no table lives on the
-device and no step waits for one; the trainer's per-sample draw indexes
-them with a ``[B]`` tensor (``beta_alpha_sigma``).
+computed on the host in float64 and stored as float32. ``step_tables``
+lays out a reverse chain's steps (the T-step chain or the strided grid)
+as two arrays the sampler copies to the device once, where a step indexes
+them with a step counter kept on the device; the trainer's draw indexes
+the device copy of ``beta``/``alpha``/``sigma`` with a ``[B]`` tensor
+(``beta_alpha_sigma``). So no step of either reads a host scalar, and a
+CUDA graph can replay it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,15 +64,19 @@ class ScheduleTables:
         self.beta, self.alpha, self.sigma = f32(beta), f32(alpha), f32(sigma)
         self.alpha_ts, self.sqr_sigma_ts = f32(alpha_ts), f32(sqr_sigma_ts)
         self.sigma_ts, self.sigma_t2s = f32(sigma_ts), f32(sigma_t2s)
+        self._on_device: Dict[torch.device, torch.Tensor] = {}
 
     def beta_alpha_sigma(self, t):
         """(beta, alpha, sigma) at timestep ``t``: an int gives Python floats
-        (the float32 values), a ``[B]`` integer tensor gives ``[B]`` float32
-        tensors on its device."""
+        (the float32 values), an integer tensor gives float32 tensors of its
+        shape, gathered on its device from a copy of the tables made there
+        at the first call (outside any graph capture: the copy waits)."""
         if isinstance(t, torch.Tensor):
-            idx = t.long().cpu()
-            return tuple(torch.from_numpy(x)[idx].to(t.device)
-                         for x in (self.beta, self.alpha, self.sigma))
+            table = self._on_device.get(t.device)
+            if table is None:
+                table = torch.from_numpy(np.stack((self.beta, self.alpha, self.sigma))).to(t.device)
+                self._on_device[t.device] = table
+            return tuple(table.index_select(1, t.long().reshape(-1)).reshape((3,) + t.shape))
         return float(self.beta[t]), float(self.alpha[t]), float(self.sigma[t])
 
     def scalars(self, t: int) -> Tuple[float, ...]:
@@ -120,3 +127,20 @@ class StridedTables:
         return tuple(float(x) for x in (
             self.beta_t[k], self.sigma_t[k], self.beta_s[k],
             self.alpha_ts[k], self.sqr_sigma_ts[k], self.sigma_t2s[k]))
+
+
+def step_tables(config: DiffusionConfig, num_steps: Optional[int] = None,
+                tables: Optional[ScheduleTables] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """A reverse chain's K steps, in order: the timestep each evaluates the
+    model at (``[K]`` int64: T..1, or ``StridedTables.ts`` when
+    ``num_steps`` is below T) and its six ``remove_noise_scalars`` scalars
+    (``[K, 6]`` float32, rows equal to ``ScheduleTables.scalars(t)`` or
+    ``StridedTables.scalars(k)``)."""
+    T = config.noise_step_count
+    if num_steps is not None and num_steps != T:
+        st = StridedTables(config, strided_timesteps(T, num_steps))
+        return st.ts.astype(np.int64), np.array([st.scalars(k) for k in range(st.num_jumps)],
+                                                np.float32)
+    tables = ScheduleTables(config) if tables is None else tables
+    ts = np.arange(T, 0, -1, dtype=np.int64)
+    return ts, np.array([tables.scalars(int(t)) for t in ts], np.float32)

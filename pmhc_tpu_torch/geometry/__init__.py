@@ -1,4 +1,5 @@
 from pmhc_tpu_torch.geometry.quat import (
+    identity_quat,
     partial_rot,
     quat_conjugate,
     quat_invert,
@@ -16,6 +17,7 @@ from pmhc_tpu_torch.geometry.sincos import (
 
 __all__ = [
     "RigidArray",
+    "identity_quat",
     "inverse_sin_cos",
     "multiply_sin_cos",
     "partial_rot",

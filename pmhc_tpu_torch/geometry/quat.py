@@ -21,6 +21,12 @@ def torch_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch
     return x / torch.clamp(norm, min=eps)
 
 
+def identity_quat(like: torch.Tensor) -> torch.Tensor:
+    """[1, 0, 0, 0] in ``like``'s dtype, built on its device (no copy from
+    the host, so a CUDA graph can capture it)."""
+    return torch.eye(1, 4, dtype=like.dtype, device=like.device)[0]
+
+
 def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product ``[..., 4] x [..., 4] -> [..., 4]`` (broadcasting)."""
     w1, x1, y1, z1 = q1.unbind(-1)

@@ -41,7 +41,8 @@ def torsion_angles_to_frames(
     d_rot = default_4x4[..., :3, :3]
     d_trans = default_4x4[..., :3, 3]
 
-    bb = torch.tensor([0.0, 1.0], dtype=torsions.dtype, device=torsions.device)
+    # the backbone group's (sin, cos) = (0, 1), built on the device
+    bb = torch.eye(2, dtype=torsions.dtype, device=torsions.device)[1]
     bb = torch.broadcast_to(bb, torsions.shape[:-2] + (1, 2))
     alpha = torch.cat((bb, torsions), dim=-2)  # [*, N, 8, 2]
     sin_a, cos_a = alpha[..., 0], alpha[..., 1]

@@ -18,6 +18,7 @@ next chain's first atom, and END.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
@@ -55,19 +56,27 @@ def _atom_record(serial: int, name: str, resname: str, chain: str, resseq: int, 
             f"  1.00  0.00      {chain:>4}{el}  \n")
 
 
+@functools.lru_cache(maxsize=4)
+def _residue_tables(device: torch.device):
+    """The residue tables the conversion reads, copied to ``device`` once:
+    a copy from pageable host memory waits for the device's queued work,
+    which would make a caller wait for the sampling it has just queued."""
+    return tuple(torch.as_tensor(x, device=device) for x in (
+        rc.restype_rigid_group_default_frame, rc.restype_atom14_to_rigid_group,
+        rc.restype_atom14_mask, rc.restype_atom14_rigid_group_positions))
+
+
 def convert_batch_for_pdb(batch: Dict[str, Any]) -> Dict[str, Any]:
     """The batch-level torsion -> frames -> atom14 conversion, on the
     batch's device, once per batch (no host fetch here)."""
     frames: RigidArray = batch["frames"]
     dev = frames.quats.device
-    table = lambda x: torch.as_tensor(x, device=dev)
     aatype = torch.as_tensor(batch["aatype"], device=dev)
+    default_frames, to_group, atom_mask, group_positions = _residue_tables(dev)
     group_rots, group_trans = torsion_angles_to_frames(
-        frames, batch["torsions"], aatype, table(rc.restype_rigid_group_default_frame))
+        frames, batch["torsions"], aatype, default_frames)
     atom14 = frames_to_atom14_positions(
-        group_rots, group_trans, aatype,
-        table(rc.restype_atom14_to_rigid_group), table(rc.restype_atom14_mask),
-        table(rc.restype_atom14_rigid_group_positions))
+        group_rots, group_trans, aatype, to_group, atom_mask, group_positions)
     return {
         "aatype": batch["aatype"],
         "mask": batch["mask"],

@@ -23,6 +23,7 @@ from pmhc_tpu_torch.geometry import (
     multiply_sin_cos,
     quat_invert,
     quat_multiply,
+    identity_quat,
     torch_normalize,
 )
 from pmhc_tpu_torch.models.nn import linear_block, mlp, mlp_hidden
@@ -129,8 +130,7 @@ def egnn_forward(
     global_delta = quat_multiply(q_j_b, quat_multiply(local_delta, inv_q_j))
     gd = torch.sum(global_delta * weights[..., None], dim=-2)
     has_neighbours = torch.sum(msg_mask, dim=-1) > 0.0
-    identity_q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=gd.dtype, device=gd.device)
-    gd = torch_normalize(torch.where(has_neighbours[..., None], gd, identity_q))
+    gd = torch_normalize(torch.where(has_neighbours[..., None], gd, identity_quat(gd)))
     upd_q = quat_multiply(gd, q_i)
 
     # torsion update

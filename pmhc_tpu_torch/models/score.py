@@ -28,7 +28,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -89,18 +88,15 @@ class ScoreNetwork(nn.Module):
             init_uniform_(self, generator)
 
 
-def relpos_index(max_len: int) -> np.ndarray:
-    """[N, N] relative-position index (N-1) + (i - j) in [0, 2N-2]."""
-    r = np.arange(max_len)
-    return (max_len - 1) + (r[:, None] - r[None, :])
-
-
 def relpos_edge_pre(layer: EGNNLayer, max_len: int) -> torch.Tensor:
-    """``one_hot(relpos) @ W1[2H:]`` as a gather of the edge rows -> [N, N, T]."""
+    """``one_hot(relpos) @ W1[2H:]`` as a gather of the edge rows -> [N, N, T],
+    at the relative-position index (N-1) + (i - j) in [0, 2N-2]. The index
+    is built on the weights' device, with no copy from the host, so a CUDA
+    graph can capture it."""
     w = layer.message_mlp[0].weight                   # [T, 2H+E]
     w_e = w[:, -(max_len * 2 - 1):].T                 # [E, T]
-    idx = torch.as_tensor(relpos_index(max_len), device=w.device)
-    return w_e[idx]
+    r = torch.arange(max_len, device=w.device)
+    return w_e[(max_len - 1) + (r[:, None] - r[None, :])]
 
 
 def score_network_forward(

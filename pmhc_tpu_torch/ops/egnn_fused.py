@@ -33,6 +33,7 @@ import torch
 
 from pmhc_tpu_torch.geometry import (
     RigidArray,
+    identity_quat,
     quat_conjugate,
     quat_multiply,
     torch_normalize,
@@ -45,6 +46,8 @@ T = TRANSITION
 LIN2_ROWS = {"att": (0, 1), "rot": (1, 5), "tor": (5, 12), "transl": (12, 13)}
 
 # kernel launches on the main path, per mode (the plain version counts nothing)
+# (a CUDA graph's capture takes its counts back and each replay adds them:
+# utils/graphs.py)
 LAUNCHES = {"fp32": 0, "bf16": 0}
 
 
@@ -188,8 +191,7 @@ def egnn_fused_plain(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg
     gdelta = quat_multiply(qj_b, quat_multiply(torch.sigmoid(lin2(rot, "rot")), inv_qj))
     gd = torch.sum(gdelta * weights, dim=-2)
     has_nb = (torch.sum(msg_mask, dim=-1) > 0.0)[..., None]
-    identity = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=gd.dtype, device=gd.device)
-    gd = torch_normalize(torch.where(has_nb, gd, identity))
+    gd = torch_normalize(torch.where(has_nb, gd, identity_quat(gd)))
     q_out = torch_normalize(quat_multiply(gd, q_i))
 
     delta_a = torch.sum(lin2(tor, "tor") * weights, dim=-2)             # [B, N, 7]
@@ -336,6 +338,12 @@ class LayerContext:
     def project(self, h: torch.Tensor) -> torch.Tensor:
         """Neighbour pre-activation h @ W1[H:2H] (no bias) -> [B, *, T]."""
         return _project(h, self.wj_t, self.bf16)
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """The device tensors a call reads (a captured step's static
+        inputs, refreshed in place for another batch)."""
+        return (self.w.buf, self.wj_t, self.aj_pocket, self.q_pocket, self.t_pocket, self.edge,
+                self.msg_mask)
 
     def inputs(self, h, q, t, tors, aj_pep):
         """The kernel's ten inputs for this peptide state (peptide

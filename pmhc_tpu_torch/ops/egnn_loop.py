@@ -37,6 +37,7 @@ from torch.nn import functional as F
 
 from pmhc_tpu_torch.geometry import (
     RigidArray,
+    identity_quat,
     multiply_sin_cos,
     quat_conjugate,
     quat_multiply,
@@ -57,6 +58,8 @@ LOOP_W_SIZE = sum(torch.Size(s).numel() for _, s in LOOP_W)
 OUT_NAMES = ("m", "D", "GD", "TA", "TR", "HID", "CNT")
 
 # kernel launches on the main path, per kernel and mode
+# (a CUDA graph's capture takes its counts back and each replay adds them:
+# utils/graphs.py)
 LAUNCHES = {"fwd_fp32": 0, "fwd_bf16": 0, "bwd_fp32": 0, "bwd_bf16": 0}
 
 
@@ -304,8 +307,7 @@ def egnn_forward_loop(layer: EGNNLayer, peptide_frames: RigidArray, peptide_tors
     # the loop sums relu(pre); the (linear) message lin2 applies once here,
     # over ALL neighbour slots: sum msg = HID @ wm2 + NP * bm2
     msg_sum = _project(HID, msg2.weight.T, bf16) + float(NP) * msg2.bias
-    identity = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=GD.dtype, device=GD.device)
-    gd = torch_normalize(torch.where((CNT > 0.0)[..., None], GD * inv_d, identity))
+    gd = torch_normalize(torch.where((CNT > 0.0)[..., None], GD * inv_d, identity_quat(GD)))
     upd_q = torch_normalize(quat_multiply(gd, q_i))
 
     fea0, fea2 = layer.feature_mlp[0], layer.feature_mlp[2]

@@ -40,7 +40,7 @@ from typing import Dict, List, Tuple
 import torch
 from torch.nn import functional as F
 
-from pmhc_tpu_torch.geometry import RigidArray, quat_conjugate, quat_multiply
+from pmhc_tpu_torch.geometry import RigidArray, identity_quat, quat_conjugate, quat_multiply
 from pmhc_tpu_torch.models.egnn import (
     INFINITY,
     N_TORSIONS,
@@ -56,6 +56,8 @@ T = TRANSITION
 MLPS = ("message", "attention", "feature", "translation", "rotation", "torsion")
 
 # kernel launches on the main path (the plain version counts nothing)
+# (a CUDA graph's capture takes its counts back and each replay adds them:
+# utils/graphs.py)
 LAUNCHES = {"fp32": 0}
 
 
@@ -167,8 +169,7 @@ def egnn_pallas_plain(w: PackedPallas, h, h_all, q_i, t_i, q_j, t_j, tors, msg_m
     global_delta = quat_multiply(qj_b, quat_multiply(local_delta, inv_qj))
     gd = torch.sum(global_delta * w3, dim=-2)                            # [B, N, 4]
     has_nb = torch.sum(msg_mask, dim=-1, keepdim=True) > 0.0
-    identity = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=gd.dtype, device=gd.device)
-    gd = torch.where(has_nb, gd, identity)
+    gd = torch.where(has_nb, gd, identity_quat(gd))
     gd = gd / torch.clamp(torch.sqrt(torch.sum(gd * gd, dim=-1, keepdim=True)), min=1e-12)
     upd_q = quat_multiply(gd, q_i)
     upd_q = upd_q / torch.clamp(torch.sqrt(torch.sum(upd_q * upd_q, dim=-1, keepdim=True)), min=1e-12)
@@ -270,6 +271,11 @@ class PallasContext:
     t_pocket: torch.Tensor
     edge: torch.Tensor
     msg_mask: torch.Tensor
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """The device tensors a call reads (a captured step's static
+        inputs, refreshed in place for another batch)."""
+        return (self.w.buf, self.h_pocket, self.q_pocket, self.t_pocket, self.edge, self.msg_mask)
 
     def inputs(self, h, q, t, tors):
         """The kernel's ten inputs for this peptide state."""

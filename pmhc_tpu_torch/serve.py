@@ -9,12 +9,16 @@ Counterpart of ``pmhc_tpu/serve.py``:
   (``diffusion.sampler.sample``), converts frames and torsions to atom14 on
   the device and returns one PDB per entry. ``dispatch`` / ``finalize``
   split the device work from the host serialization so a caller can
-  overlap them.
+  overlap them: ``dispatch`` queues the chain (from CUDA graphs on the
+  card, ``utils/graphs.py``, one capture per service and kept in its
+  ``graph_cache``; every batch has the service's shape) and the copies of
+  the PDB arrays into pinned host memory, and returns before the card is
+  done; ``finalize`` waits for that batch's copies only.
 - ``BatchingSampler``: a thread-safe ``submit(entry) -> Future`` front. A
   collector thread packs queued requests into batches (full batch or
-  ``max_wait_ms``, whichever first) and launches them; a finisher thread
-  fetches and serializes the previous batch's PDBs while the device runs
-  the next. ``max_queue`` bounds the undispatched backlog (``Overloaded``).
+  ``max_wait_ms``, whichever first) and dispatches them; a finisher thread
+  waits for the previous batch's arrays and serializes its PDBs while the
+  device runs the next. ``max_queue`` bounds the undispatched backlog (``Overloaded``).
 - ``frame_models``: N conformations as one multi-MODEL PDB.
 - The HTTP front end is ``pmhc_tpu_torch.cli.serve_cli``.
 
@@ -26,7 +30,10 @@ JAX package's ``fold_in(base_key, counter)`` per dispatched batch becomes
 ``SamplerService.batch_generator(counter)``: a fresh generator seeded
 ``batch_seed(seed, counter) = (seed mod 2**32) * 2**32 + counter`` (the
 ``BatchingSampler``'s batches count from 0). A request's trajectory
-depends on the batch it lands in, as in the JAX package.
+depends on the batch it lands in, as in the JAX package. The graphed
+chain draws from a generator registered with its graph, into which the
+caller's generator state is copied per batch, so its noise is the eager
+chain's.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Dict, List, Mapping, Sequence
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,6 +53,7 @@ from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
 from pmhc_tpu_torch.diffusion import DiffusionConfig, ScheduleTables, gen_noise, sample
 from pmhc_tpu_torch.io.pdb import convert_batch_for_pdb, fetch_pdb_arrays, pdb_bytes
 from pmhc_tpu_torch.models.score import ScoreNetwork, ScoreNetworkConfig, resolve_backend
+from pmhc_tpu_torch.utils.graphs import GraphCache, use_graphs
 
 _log = logging.getLogger(__name__)
 
@@ -126,6 +134,20 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class Dispatched(NamedTuple):
+    """A dispatched batch: its PDB arrays (host tensors, filled once
+    ``done`` has passed on the card) and its count of real entries."""
+
+    conv: Dict[str, Any]
+    n: int
+    done: Optional[torch.cuda.Event]
+
+    def wait(self) -> None:
+        """Wait until the arrays are on the host."""
+        if self.done is not None:
+            self.done.synchronize()
+
+
 class SamplerService:
     """A resident sampler for one batch shape.
 
@@ -136,7 +158,10 @@ class SamplerService:
     way; ``"dense"`` (also ``"xla"``) the oracle layer. ``bf16`` selects the
     fused kernel's bf16 mode; the ``pallas`` and ``dense`` backends run
     fp32 whatever it asks (``precision`` says what runs). ``fast_f32`` runs
-    the fp32 mode: the port has no 3-pass mode yet.
+    the fp32 mode: the port has no 3-pass mode yet. ``graphs`` (default:
+    on a CUDA device) runs the chain from CUDA graphs
+    (``sampler.STEPS_PER_GRAPH`` steps a graph); ``False`` runs it eagerly
+    (debugging, A/B).
     """
 
     def __init__(
@@ -151,8 +176,11 @@ class SamplerService:
         fast_f32: bool = False,
         seed: int = 0,
         device=None,
+        graphs: bool | None = None,
     ):
         self.device = resolve_device(device)
+        self.graphs = use_graphs(graphs, self.device)
+        self.graph_cache = GraphCache()
         # fp32 path: no silent TF32 downgrade of torch.matmul or cuDNN
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -200,25 +228,37 @@ class SamplerService:
         return model_batch, protein
 
     def dispatch(self, entries: Sequence[Dict[str, np.ndarray]],
-                 generator: torch.Generator | None = None):
-        """Queue sampling + the PDB-prep conversion for up to ``batch_size``
-        entries; no host fetch. Returns a handle for :meth:`finalize`."""
+                 generator: torch.Generator | None = None) -> Dispatched:
+        """Queue sampling, the PDB-prep conversion and, on the card, its
+        copies into pinned host memory for up to ``batch_size`` entries;
+        no wait for the card. Returns a handle for :meth:`finalize`."""
         generator = self.generator if generator is None else generator
         model_batch, protein = self.build_model_batch(entries, generator)
         pred = sample(self.model, model_batch, self.diffusion_config, self.model_config,
                       self.tables, generator=generator, bf16=self.bf16,
-                      num_steps=self.num_steps)
+                      num_steps=self.num_steps, graphs=self.graphs,
+                      graph_cache=self.graph_cache)
         pred.update(protein)
-        return convert_batch_for_pdb(pred), len(entries)
+        conv = convert_batch_for_pdb(pred)
+        if self.device.type != "cuda":
+            return Dispatched(conv, len(entries), None)
+        # the copies queue behind this batch's sampling, so a caller waits
+        # for this batch only, not for one dispatched after it
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
+                if isinstance(v, torch.Tensor) else v for k, v in conv.items()}
+        done = torch.cuda.Event()
+        done.record()
+        return Dispatched(host, len(entries), done)
 
     # -- host side ---------------------------------------------------------
 
     @staticmethod
-    def finalize(handle) -> List[bytes]:
-        """Fetch a :meth:`dispatch` handle and serialize each real entry."""
-        conv, n = handle
-        pc = fetch_pdb_arrays(conv)
-        return [pdb_bytes(None, i, precomputed=pc) for i in range(n)]
+    def finalize(handle: Dispatched) -> List[bytes]:
+        """Wait for a :meth:`dispatch` handle's arrays and serialize each
+        real entry."""
+        handle.wait()
+        pc = fetch_pdb_arrays(handle.conv)
+        return [pdb_bytes(None, i, precomputed=pc) for i in range(handle.n)]
 
     def sample_entries(self, entries, generator: torch.Generator | None = None) -> List[bytes]:
         """Blocking dispatch + finalize."""
@@ -226,7 +266,8 @@ class SamplerService:
 
     def warmup(self) -> float:
         """Run one synthetic entry end to end (builds the kernel on first
-        use) with batch 0's generator; returns elapsed seconds."""
+        use and, with graphs, captures the chain's step) with batch 0's
+        generator; returns elapsed seconds."""
         t0 = time.monotonic()
         self.sample_entries([dummy_entry()], self.batch_generator(0))
         return time.monotonic() - t0
@@ -252,12 +293,12 @@ class BatchingSampler:
     that entry's PDB bytes. A collector thread packs the queue into batches
     (dispatching as soon as the batch is full or the oldest queued request
     has waited ``max_wait_ms``) with the generator of that batch's number
-    (``SamplerService.batch_generator``); a finisher thread fetches and
-    serializes batch k while the device samples batch k+1.
+    (``SamplerService.batch_generator``); a finisher thread waits for batch
+    k's arrays (``Dispatched.wait``: the event recorded behind its copies)
+    and serializes them while the device samples batch k+1.
 
-    Both threads stay on the device's default stream (the current stream is
-    per thread in PyTorch), so the finisher's fetch orders after the
-    collector's sampling. At most two dispatched batches are in flight (the
+    Only the collector queues device work (and captures the chain's graph,
+    in its first batch or the service's warm-up). At most two dispatched batches are in flight (the
     ``maxsize=2`` done queue blocks the collector until the finisher
     drains), and ``max_queue`` bounds the undispatched backlog: beyond it
     ``submit`` raises :class:`Overloaded`. ``close()`` drains: every future

@@ -154,13 +154,15 @@ def test_checkpoint_dir_resume_and_flag_mismatch(data_dir, tmp_path):
     assert len(os.listdir(out)) == 3
 
 
-@pytest.mark.parametrize("extra", [["-b", "2"], ["-b", "2", "--device-data"], ["-b", "4"]],
-                         ids=["loader", "device_data", "partial_batch"])
+@pytest.mark.parametrize("extra", [["-b", "2"], ["-b", "2", "--device-data"], ["-b", "4"],
+                                   ["-b", "4", "--device-data"]],
+                         ids=["loader", "device_data", "partial_batch", "device_data_partial"])
 def test_steps_per_dispatch_equals_one_step_at_a_time(data_dir, tmp_path, extra):
-    """K = 2 batches per call (with --device-data: batches the resident
-    dataset gathers) give the same weights and CSV as one at a time; at
-    batch 4 the full batch waiting for a second one trains before the
-    partial final batch (6 entries)."""
+    """K = 2 batches per call (with --device-data: ``train_indices`` on the
+    index rows of full K-groups, then the leftover full batches and the
+    partial one a batch at a time) give the same weights and CSV as one at
+    a time; at batch 4 the full batch waiting for a second one trains
+    before the partial final batch (6 entries)."""
     paths = {}
     for k in ("1", "2"):
         paths[k] = str(tmp_path / f"k{k}.pth")
@@ -169,6 +171,35 @@ def test_steps_per_dispatch_equals_one_step_at_a_time(data_dir, tmp_path, extra)
     a, b = _load(paths["1"]), _load(paths["2"])
     assert all(torch.equal(a[n], b[n]) for n in a)
     assert _rows(paths["1"].replace(".pth", ".csv")) == _rows(paths["2"].replace(".pth", ".csv"))
+
+
+def test_sample_cli_writes_each_batch_as_the_service_samples_it(trained, data_dir, tmp_path):
+    """Batch i's PDBs are written while batch i+1 samples: every file holds
+    the bytes ``SamplerService`` gives for its own batch sampled alone with
+    that batch's generator (3 entries at batch 2, 2 samples: 4 batches)."""
+    from pmhc_tpu_torch.models.import_params import load_params
+    from pmhc_tpu_torch.serve import SamplerService
+
+    model, _ = trained
+    out = tmp_path / "o"
+    sample_cli.main([model, str(data_dir / "test.npz"), "-T", "4", "-b", "2", "--num-samples",
+                     "2", "--seed", "5", "--output-dir", str(out)] + CPU)
+    ds = PackedDataset.load(str(data_dir / "test.npz"))
+    svc = SamplerService(load_params(model), batch_size=2, noise_step_count=4, seed=5,
+                         device="cpu")
+    counter = 0
+    for start in range(0, len(ds), 2):
+        batch = ds.get_batch(list(range(start, min(start + 2, len(ds)))))
+        names = batch.pop("name")
+        protein = ds.get_protein_positions(names)
+        entries = [{**{k: v[i] for k, v in batch.items()}, **{k: v[i] for k, v in protein.items()}}
+                   for i in range(len(names))]
+        for si in range(2):
+            pdbs = svc.sample_entries(entries, svc.batch_generator(counter))
+            counter += 1
+            for name, pdb in zip(names, pdbs):
+                assert (out / f"{name}.{si + 1}.pdb").read_bytes() == pdb, (name, si)
+    assert len(os.listdir(out)) == 6
 
 
 def test_packed_input_equals_hdf5_input(data_dir, tmp_path):

@@ -3,6 +3,17 @@ training neighbour loop (forward and backward) and the round-1 fused
 layer (``pallas`` backend) against their plain PyTorch versions, and the
 sampler's and the trainer's routes through them.
 
+The chain and the train step from CUDA graphs (``utils/graphs.py``)
+against the same bodies run eagerly: the sampler's trajectories within
+``TRAJ_TOL`` (the graphs replay the eager step's kernels, so they are
+expected to agree exactly; chip_smoke.py reports whether they do); the
+trainer's losses within rtol 1e-4 and the change of its parameters and
+EMA from their start within 2e-2 of the eager change, over all tensors
+and for the median one (``chip_smoke.py``'s ``GRAPH_TRAIN_TOL``: the loop
+backward sums with atomics, in an order that changes from run to run). A
+replayed generator draws what an eager one of the same state draws,
+exactly.
+
 Each test skips without a card. This file imports neither JAX nor the JAX
 package, so it runs where only the port is installed:
 
@@ -24,9 +35,13 @@ import pytest
 import torch
 
 from chip_smoke import (
+    GRAPH_TRAIN_TOL,
     LOOP_TOL,
     PALLAS_TOL,
     TOL,
+    TRAJ_TOL,
+    change_close,
+    change_errors,
     layer_case,
     loop_case,
     loop_errors,
@@ -39,15 +54,21 @@ from chip_smoke import (
     pallas_ragged,
     ragged_case,
     random_model,
+    trainer_state,
     trajectory_check,
 )
 from pmhc_tpu_torch.data.realistic import realistic_packed
-from pmhc_tpu_torch.data.synthetic import synthetic_batch
+from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
+from pmhc_tpu_torch.diffusion import DiffusionConfig, gen_noise, sample
+from pmhc_tpu_torch.diffusion import sampler
+from pmhc_tpu_torch.diffusion.schedule import step_tables
+from pmhc_tpu_torch.models import ScoreNetworkConfig
 from pmhc_tpu_torch.ops import egnn_fused as ef
 from pmhc_tpu_torch.ops import egnn_loop as el
 from pmhc_tpu_torch.ops import egnn_pallas as ep
 from pmhc_tpu_torch.serve import SamplerService, dummy_entry
 from pmhc_tpu_torch.train import TrainConfig, Trainer
+from pmhc_tpu_torch.utils.graphs import GraphCache, Step
 
 torch.set_num_threads(1)
 
@@ -96,14 +117,13 @@ def test_service_launches_the_kernel_twice_per_step(bf16):
     svc = SamplerService(random_model(seed=0), batch_size=4, noise_step_count=5, bf16=bf16)
     assert svc.device.type == dev.type
     ef.reset_launches()
-    conv, n = svc.dispatch([dummy_entry(seed=i) for i in range(3)],
-                           torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
+    handle = svc.dispatch([dummy_entry(seed=i) for i in range(3)],
+                          torch.Generator(device=dev).manual_seed(0))
+    handle.wait()
     assert ef.LAUNCHES == {"fp32": 0 if bf16 else 10, "bf16": 10 if bf16 else 0}
-    q = conv["quats"][:n]
+    q = handle.conv["quats"][:handle.n]
     assert torch.isfinite(q).all()
-    torch.testing.assert_close(q.norm(dim=-1), torch.ones(q.shape[:-1], device=dev),
-                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(q.norm(dim=-1), torch.ones(q.shape[:-1]), atol=1e-5, rtol=0)
 
 
 @pytest.mark.gpu
@@ -280,3 +300,183 @@ def test_pinned_non_blocking_loader_matches_synchronous_copies():
     want = list(PrefetchLoader(packed, **kw))
     assert len(got) == 20
     _assert_batches_equal(got, want)
+
+
+def _noised_batch(dev, B: int, seed: int):
+    """A synthetic model batch on the card (row 1 a 4-residue peptide), its
+    peptide state replaced by noise drawn from ``seed``."""
+    nb = synthetic_batch(batch_size=B, seed=seed)
+    nb["mask"][1, 4:] = False
+    mb = prepare_batch(nb, dev)
+    start = gen_noise(torch.Generator(device=dev).manual_seed(seed), (B, 16), DiffusionConfig())
+    mb["frames"], mb["torsions"] = start["frames"], start["torsions"]
+    return mb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,bf16", [("fused", False), ("fused", True), ("pallas", False),
+                                          ("dense", False)])
+def test_graphed_sampler_matches_eager(backend, bf16, monkeypatch):
+    """The chain from CUDA graphs against the eager chain with the same
+    generator seed: T = 12 (twice: the second batch goes through the cached
+    graph, its context copied in), strided K = 5, and 4 steps per graph
+    (``sampler.STEPS_PER_GRAPH``: three 4-step replays, and 1-step graphs
+    for the rest); the kernel launched twice a step either way, the
+    caller's generator left where the eager chain leaves it."""
+    dev = _card()
+    model = random_model(seed=2).to(dev)
+    cfg = DiffusionConfig(noise_step_count=12)
+    mc = ScoreNetworkConfig(noise_step_count=12, backend=backend)
+    counter = {"fused": ef.LAUNCHES, "pallas": ep.LAUNCHES, "dense": None}[backend]
+    mode = "bf16" if bf16 else "fp32"
+    cache = GraphCache()
+    for seed, K, S in ((1, None, 1), (2, None, 1), (3, 5, 1), (4, None, 4)):
+        mb = _noised_batch(dev, 6, seed)
+        steps = len(step_tables(cfg, K)[0])
+        runs, states = {}, {}
+        for graphs in (True, False):
+            gen = torch.Generator(device=dev).manual_seed(100 + seed)
+            ef.reset_launches()
+            ep.reset_launches()
+            monkeypatch.setattr(sampler, "STEPS_PER_GRAPH", S)
+            runs[graphs] = sample(model, mb, cfg, mc, generator=gen, bf16=bf16, num_steps=K,
+                                  graphs=graphs, graph_cache=cache)
+            torch.cuda.synchronize()
+            states[graphs] = gen.get_state()
+            if counter is not None:
+                assert counter[mode] == 2 * steps, (graphs, dict(counter))
+        assert torch.equal(states[True], states[False])
+        for name, get in (("q", lambda r: r["frames"].quats), ("t", lambda r: r["frames"].trans),
+                          ("tors", lambda r: r["torsions"])):
+            err = float((get(runs[True]) - get(runs[False])).abs().max())
+            assert err <= TRAJ_TOL[name], (seed, name, err)
+    assert len(cache) == 2  # T = 12 (1 and 4 steps a graph) and K = 5
+
+
+@pytest.mark.gpu
+def test_graphed_service_matches_eager_service():
+    """``SamplerService`` with graphs (its default on the card) and with
+    ``graphs=False``, batch generators by number: the same PDB arrays; a
+    short batch and a full one share the one capture."""
+    _card()
+    model = random_model(seed=0)
+    svcs = {g: SamplerService(model, batch_size=4, noise_step_count=8, seed=3, graphs=g)
+            for g in (None, False)}
+    assert svcs[None].graphs and not svcs[False].graphs
+    for counter, n in ((0, 3), (1, 4)):
+        entries = [dummy_entry(seed=10 * counter + i) for i in range(n)]
+        out = {g: svc.dispatch(entries, svc.batch_generator(counter)) for g, svc in svcs.items()}
+        for h in out.values():
+            h.wait()
+        for k, tol in (("quats", TRAJ_TOL["q"]), ("trans", TRAJ_TOL["t"]), ("atom14", TRAJ_TOL["t"])):
+            np.testing.assert_allclose(out[None].conv[k].numpy(), out[False].conv[k].numpy(),
+                                       atol=tol, err_msg=k)
+    assert len(svcs[None].graph_cache) == 1
+
+
+def _assert_trainers_close(start, a: Trainer, b: Trainer, losses_a, losses_b):
+    """``a`` against ``b``, both from the state ``start`` (``trainer_state``):
+    losses, the change of parameters and EMA, and the counts."""
+    for step, (x, y) in enumerate(zip(losses_a, losses_b)):
+        assert abs(x - y) <= GRAPH_TRAIN_TOL["loss_rtol"] * abs(y), (step, x, y)
+    err = change_errors(start, trainer_state(a), trainer_state(b))
+    assert change_close(err), err
+    assert a.optimizer.count == b.optimizer.count and a.global_step == b.global_step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,per_sample_t,bf16", [
+    ({}, False, False),
+    ({}, False, True),
+    ({"ema_decay": 0.99, "grad_clip_norm": 0.5, "lr_warmup_steps": 2, "lr_decay_steps": 6,
+      "lr_final": 1e-4}, False, False),
+    ({"grad_accum": 2, "ema_decay": 0.9}, True, False),
+], ids=["adam", "adam_bf16", "ema_clip_schedule", "accum2_per_sample_t"])
+def test_graphed_trainer_matches_eager(kw, per_sample_t, bf16):
+    """``Trainer`` from CUDA graphs (its default on the card) against
+    ``graphs=False`` from the same seed, on 5 batches of 8 and a partial
+    batch of 5 (a second capture): losses, parameters, EMA and counts; 2
+    forward and 2 backward loop launches a step either way."""
+    dev = _card()
+    trainers = {g: Trainer(ScoreNetworkConfig(backend="auto"),
+                           DiffusionConfig(t_per_batch=not per_sample_t),
+                           TrainConfig(seed=4, nan_check_every=3, **kw), bf16=bf16, graphs=g)
+                for g in (None, False)}
+    assert trainers[None].graphs and trainers[None].device == dev
+    batches = [synthetic_batch(batch_size=8, seed=40 + k) for k in range(5)]
+    batches.append(synthetic_batch(batch_size=5, seed=50))
+    start = trainer_state(trainers[False])
+    el.reset_launches()
+    losses = {g: [float(tr.train_batch(b)["total loss"]) for b in batches]
+              for g, tr in trainers.items()}
+    mode = "bf16" if bf16 else "fp32"
+    assert el.LAUNCHES == {k: (2 * 2 * len(batches) if k.endswith(mode) else 0) for k in el.LAUNCHES}
+    _assert_trainers_close(start, trainers[None], trainers[False], losses[None], losses[False])
+
+
+@pytest.mark.gpu
+def test_train_indices_matches_train_batch_on_card():
+    """``train_indices`` on a resident dataset (3 steps, each a replay that
+    gathers its row) against 3 ``train_batch`` calls on the batches
+    ``get_batch`` gathers."""
+    from pmhc_tpu_torch.data import DeviceDataset
+
+    dev = _card()
+    data = DeviceDataset(realistic_packed(24, seed=3), dev)
+    idx = np.random.default_rng(0).permutation(24).reshape(3, 8)
+    a, b = (Trainer(train_config=TrainConfig(seed=6, ema_decay=0.9)) for _ in range(2))
+    start = trainer_state(b)
+    el.reset_launches()
+    losses_a = [float(s["total loss"]) for s in a.train_indices(data, idx)]
+    losses_b = [float(b.train_batch(data.get_batch(list(row)))["total loss"]) for row in idx]
+    assert el.LAUNCHES["fwd_fp32"] == el.LAUNCHES["bwd_fp32"] == 2 * 2 * 3
+    _assert_trainers_close(start, a, b, losses_a, losses_b)
+
+
+@pytest.mark.gpu
+def test_replayed_generator_draws_the_eager_stream_of_its_seed():
+    """A generator registered with a graph, reseeded (or given another
+    generator's state) between replays, draws exactly what an eager
+    generator of that state draws, and its state advances the same way."""
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    out = torch.empty(1000, device=dev)
+    step = Step(lambda: out.copy_(torch.randn(1000, generator=gen, device=dev)), [gen])
+
+    def eager(seed, draws):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(1000, generator=g, device=dev) for _ in range(draws)], g
+
+    gen.manual_seed(1)
+    step()  # eager warm-up, then the capture
+    assert step.graph is not None and torch.equal(out, eager(1, 1)[0][0])
+    for seed in (5, 7):
+        gen.manual_seed(seed)
+        got = []
+        for _ in range(3):
+            step()
+            got.append(out.clone())
+        want, ref = eager(seed, 3)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert torch.equal(gen.get_state(), ref.get_state())
+    src = torch.Generator(device=dev).manual_seed(11)
+    torch.rand(10, generator=src, device=dev)
+    gen.set_state(src.get_state())
+    step()
+    assert torch.equal(out, torch.randn(1000, generator=src, device=dev))
+
+
+@pytest.mark.gpu
+def test_a_capture_that_cannot_succeed_raises():
+    """A body that reads a device value on the host runs eagerly (the
+    warm-up) but cannot be captured: the step raises, keeps no graph and
+    leaves the launch counters as they were; the card works on."""
+    dev = _card()
+    x = torch.ones(4, device=dev)
+    step = Step(lambda: x.add_(float(x.sum())))
+    ef.reset_launches()
+    with pytest.raises(RuntimeError):
+        step()
+    assert step.graph is None and not any(ef.LAUNCHES.values())
+    torch.cuda.synchronize()
+    assert float(x.sum()) == 20.0  # the eager warm-up ran once

@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``pmhc_tpu_torch/`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, importing the port
+"""The port stands alone: no file of ``pmhc_tpu_torch/`` (nor the card's
+scripts ``chip_smoke.py``, ``chip_ab.py``, ``chip_studies.py``) imports
+JAX or the JAX package, importing the port
 (its data package and offline CLIs included) leaves JAX, the JAX package
 and h5py unloaded, its entry points (``SamplerService``, ``Trainer``, the
 HTTP server's ``create_server``, the train and sample CLIs) refuse to fall
@@ -19,7 +20,7 @@ PORT = os.path.join(REPO, "pmhc_tpu_torch")
 
 
 def _port_sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "chip_ab.py", "chip_studies.py")]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 10
@@ -142,3 +143,17 @@ def test_no_tf32_switched_on():
                     if getattr(target, "attr", "") == "allow_tf32":
                         assert isinstance(node.value, ast.Constant) and node.value.value is False, \
                             f"{path}:{node.lineno} turns TF32 on"
+
+
+@pytest.mark.parametrize("script,args", [("chip_smoke.py", []), ("chip_studies.py", []),
+                                         ("chip_studies.py", ["steps-per-graph"])])
+def test_card_scripts_refuse_to_run_without_a_card(script, args):
+    """Without a CUDA device the card's scripts exit 2 and print no result
+    (on a machine with a card, an unknown study name still exits 2)."""
+    if torch.cuda.is_available():
+        script, args = "chip_studies.py", ["no-such-study"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, os.path.join(REPO, script), *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 2, proc.stderr
+    assert '"ok"' not in proc.stdout
