@@ -8,43 +8,48 @@ Phases (any failure exits non-zero):
    power limit as ``nvidia-smi`` reports them;
 2. build: compiles every CUDA source of the port from this checkout with
    nvcc, one process per source, all started together (``-Xptxas -v``:
-   registers, shared memory, spills). The fused kernel's two
-   instantiations, the loop kernels' four and kernel #3 must not spill,
-   and ``cuobjdump -sass`` must find HMMA (tensor-core) instructions in
-   the bf16 instantiations of the fused kernel and of the loop forward and
-   backward, and none in their fp32 ones;
+   registers, shared memory, spills). The fused kernel's three
+   instantiations (fp32, bf16, high), the loop kernels' six and kernel #3
+   must not spill, and ``cuobjdump -sass`` must find HMMA (tensor-core)
+   instructions in the bf16 instantiations of the fused kernel and of the
+   loop forward and backward, none in their fp32 ones, and in their high
+   ones (``--fast-f32``: each product three mma.sync) 2.5-3.5 times the
+   bf16 count;
 3. kernels against their plain PyTorch versions on the card, at the main
-   paths' shapes (batch 64, both layer shapes, fp32 and bf16 modes), with
-   the tolerances stated below: the fused sampler layer, the training
-   neighbour loop forward (its seven accumulators) and backward (every
-   input's gradient and the loop weights'), and the round-1 fused layer
-   (TPU kernel #3, fp32, on a batch with peptides shorter than 16, so
-   some rows are fully masked). The fp32 kernels must fail the bf16
-   tolerances against the bf16 plain version on some output, so a bf16
-   mode that skipped its rounding could not pass. The fused layer, the
-   loop kernels and kernel #3 also run with their neighbours cut to NP =
-   90 (a ragged last row tile; for the loop backward a partial second
-   48-neighbour tile; for #3 a partial 32-neighbour block), and the loop
-   forward with 40 neighbours more, NP = 136 (two 96-neighbour tiles per
-   query row, merged online; the backward takes NP <= 96);
+   paths' shapes (batch 64, both layer shapes, fp32, bf16 and high
+   modes), with the tolerances stated below: the fused sampler layer, the
+   training neighbour loop forward (its seven accumulators) and backward
+   (every input's gradient and the loop weights'), and the round-1 fused
+   layer (TPU kernel #3, fp32, on a batch with peptides shorter than 16,
+   so some rows are fully masked). The fp32 kernels must fail the bf16
+   tolerances against the bf16 plain version on some output, and the bf16
+   kernels the high tolerances against the high plain version, so a mode
+   that skipped its rounding or its split could not pass. The fused layer,
+   the loop kernels and kernel #3 also run with their neighbours cut to
+   NP = 90 (a ragged last row tile; for the loop backward a partial
+   second 48-neighbour tile; for #3 a partial 32-neighbour block), and the
+   fused layer and the loop forward with 40 neighbours more, NP = 136 (two
+   96-neighbour tiles per query row, merged online; the loop backward
+   takes NP <= 96);
 4. the main paths, which run from CUDA graphs (``utils/graphs.py``: a
    step captured once per shape and mode, then replayed; each replay adds
    the captured launches to the counters, so the counts below are
    launches on the card). Serving: ``SamplerService(batch_size=64,
    noise_step_count=1000)`` answers 3 requests, then two full batches of
-   64, in fp32 and in bf16; checks the PDBs parse with finite coordinates
+   64, in fp32, bf16 and fast-f32; checks the PDBs parse with finite coordinates
    and the right chains, the quats are unit, and the kernel ran exactly
    2 x 1000 times per batch. Then a batch-64 strided 100-step trajectory
    from graphs is held against the eager one from the same batch
-   generator (fused fp32 and bf16, pallas; ``TRAJ_TOL``, and logged
+   generator (fused fp32, bf16 and high, pallas; ``TRAJ_TOL``, and logged
    whether bit-identical). Before it, a 4-step trajectory through the
-   kernel is held against the dense oracle layer with the same injected
-   noise. Training: ``Trainer`` at batch 64 takes 20 steps in fp32 and 20
-   in bf16 on synthetic batches; losses must be finite and the loop
-   kernels must run exactly 2 forward and 2 backward launches per step.
-   Before it, a 5-step trajectory through the kernels, with injected t
-   and noise, is held against the dense autograd path; after it, 5
-   graphed steps against 5 eager ones from one seed, per mode
+   kernel (fp32 and high) is held against the dense oracle layer with the
+   same injected noise. Training: ``Trainer`` at batch 64 takes 20 steps
+   in each of fp32, bf16 and fast-f32 on synthetic batches; losses must
+   be finite and the loop kernels must run exactly 2 forward and 2
+   backward launches per step in the mode. Before it, a 5-step trajectory
+   through the kernels (fp32 and high), with injected t and noise, is
+   held against the dense autograd path; after it, 5 graphed steps
+   against 5 eager ones from one seed, per mode
    (``GRAPH_TRAIN_TOL``, and logged whether bit-identical). The ``pallas``
    backend: a 4-step trajectory against the dense oracle; the HTTP server
    (``pmhc_tpu_torch.cli.serve_cli.create_server``, ``--backend pallas
@@ -66,10 +71,11 @@ Phases (any failure exits non-zero):
    rows, checkpoint step 32 -> 48); then 2 bf16 epochs with
    ``--device-data --steps-per-dispatch 4`` (four ``train_indices`` calls
    of 4 graph replays an epoch; 2 x 32 launches each way, no fp32), and
-   the same with ``--eager``. ``sample_cli`` (batch i's PDBs written
-   while batch i+1 samples) writes 67 PDBs in fp32, in bf16 and in fp32 with
-   ``--eager`` (2 x 1000 x 2 fused launches each, none of the other
-   mode), then 134 with
+   the same with ``--eager``; one ``--fast-f32`` epoch (16 x 2 high
+   launches each way, no other mode). ``sample_cli`` (batch i's PDBs
+   written while batch i+1 samples) writes 67 PDBs in fp32, in bf16, in
+   fast-f32 and in fp32 with ``--eager`` (2 x 1000 x 2 fused launches
+   each, none of another mode), then 134 with
    ``--bf16 --num-samples 2 --sample-steps 100`` (2 x 100 x 2 x 2); every
    PDB passes ``check_pdb``. Logged: seconds and examples/s per epoch, the
    seconds the step loop waited on the loader, the sample CLI's whole-call
@@ -80,11 +86,12 @@ Phases (any failure exits non-zero):
    from this run's shapes (for the
    fused layer and the loop forward also ``gemm_ms``, the yardstick of
    their dominant product alone: one ``torch.matmul`` of [B*N*NP, 64] @
-   [64, 256] in the mode's precision, which the port never calls); the
+   [64, 256] in the mode's precision, three bf16 ones for high, which the
+   port never calls); the
    wall seconds per batch-64 trajectory, per 64-request HTTP batch and per
    optimizer step; then, from graphs and eager, the wall of strided
-   100-step batch-64 sampling runs (fused fp32 and bf16, pallas) and of
-   20 training steps per mode, and ``torch.profiler`` over them (10 of
+   100-step batch-64 sampling runs (fused fp32, bf16 and high, pallas) and
+   of 20 training steps per mode, and ``torch.profiler`` over them (10 of
    the training steps): device time by kernel, idle share; and the
    sample CLI's overlap loop over 3 T=1000 batches from graphs.
    (``chip_studies.py`` measures the choices behind the defaults: steps
@@ -118,11 +125,18 @@ B, STEPS = 64, 1000
 # tolerances reject the fp32 kernel held against the bf16 plain version
 TOL = {"fp32": {"q": 5e-5, "t": 2e-4, "tors": 5e-5, "feat": 2e-4},
        "bf16": {"q": 2e-3, "t": 2e-2, "tors": 2e-3, "feat": 1e-2}}
+# high: both sides split the same operands into the same bf16 halves;
+# the sums differ in order, as in fp32 mode, hence fp32's tolerances
+TOL["high"] = dict(TOL["fp32"])
+MODES = ("fp32", "bf16", "high")
+# what SamplerService.precision and the CLIs report for each mode
+PRECISION = {"fp32": "f32", "bf16": "bf16", "high": "fast-f32"}
 # 4-step kernel trajectory vs the dense oracle with injected noise
 # (the JAX package's lane-sampler tolerances)
 TRAJ_TOL = {"q": 2e-4, "t": 1e-3, "tors": 2e-4}
 REPLACES = {"fp32": "pmhc_tpu/ops/egnn_pallas_lane.py:194",
-            "bf16": "pmhc_tpu/ops/egnn_pallas_lane_g8.py:177"}
+            "bf16": "pmhc_tpu/ops/egnn_pallas_lane_g8.py:177",
+            "high": "pmhc_tpu/ops/egnn_pallas_lane.py:194"}
 # the training loop kernels (forward, backward) against their plain
 # versions, as a share of each output's largest magnitude. fp32: sums in
 # another order (atomics included). bf16: the forward rounds at the same
@@ -134,10 +148,20 @@ REPLACES = {"fp32": "pmhc_tpu/ops/egnn_pallas_lane.py:194",
 # runs of the same inputs (the plain version's fp32 sums, and so its bf16
 # roundings, vary between runs), hence 3e-2.
 LOOP_TOL = {"fp32": {"fwd": 2e-5, "bwd": 2e-4}, "bf16": {"fwd": 2e-3, "bwd": 3e-2}}
+# high: the kernels' products and the plain version's (forward and
+# autograd, ops/egnn_fused.py::_split_mm) split the same operands; the sums
+# differ in order, as in fp32 mode, hence fp32's gradient tolerance. The
+# forward: measured (H100) up to 1.58e-5 of D's largest magnitude (layer 1;
+# fp32 mode 8.5e-7): the tensor cores sum the three passes in their own
+# order and exp(logit - m) turns a logit's absolute error into D's
+# relative one, hence 5e-5, which the bf16 kernels still break (1e-3)
+LOOP_TOL["high"] = {"fwd": 5e-5, "bwd": LOOP_TOL["fp32"]["bwd"]}
 LOOP_REPLACES = {"fwd_fp32": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:157",
                  "fwd_bf16": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:589",
                  "bwd_fp32": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:237",
-                 "bwd_bf16": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:678"}
+                 "bwd_bf16": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:678",
+                 "fwd_high": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:157",
+                 "bwd_high": "pmhc_tpu/ops/egnn_pallas_lane_vjp.py:237"}
 # kernel #3 against its plain version: fp32 sums in another order, as the
 # fused kernel's fp32 mode
 PALLAS_TOL = TOL["fp32"]
@@ -264,23 +288,35 @@ def ragged_case(args, n_neighbours: int = 90):
     return (w, h, q_i, t_i, tors, cut(a_j, 1), cut(q_j, 1), cut(t_j, 1), cut(edge, 1), cut(mask, 2))
 
 
-def work_of(args, bf16: bool):
-    """(FLOP, bytes) the layer needs for these inputs: every matmul MAC as
-    2 operations (per pair: head lin1 4T x T, lin2 13 x T, rot term 4 x T;
-    per node: a_i, torsion term, feature MLP), each input read once and
-    each output written once."""
+def bound_of(split_flops: float, other_flops: float, nbytes: float, mode: str):
+    """(bound ms, bound_by) of work whose tensor-core products take
+    ``split_flops`` and the rest ``other_flops``: the larger of the bytes
+    over 3.35 TB/s and the operations over the mode's peaks (fp32: all at
+    the fp32 peak; bf16: all at the bf16 peak; high: the split products
+    three times at the bf16 peak, the rest at the fp32 peak)."""
+    if mode == "high":
+        t_ops = 3 * split_flops / PEAK_BF16 + other_flops / PEAK_FP32
+    else:
+        t_ops = (split_flops + other_flops) / (PEAK_BF16 if mode == "bf16" else PEAK_FP32)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def work_of(args, mode: str):
+    """(FLOP, bytes, bound ms, bound_by) the layer needs for these inputs:
+    every matmul MAC as 2 operations (per pair: head lin1 4T x T and lin2
+    13 x T, the products a high mode splits; the rot term 4 x T; per node:
+    a_i, torsion term, feature MLP), each input read once and each output
+    written once."""
     w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, mask = args
     Bn, N, H = h.shape
     NP, T = a_j.shape[1], a_j.shape[2]
     pairs = Bn * N * NP
-    macs = pairs * (4 * T * T + 13 * T + 4 * T) + Bn * N * (T * H + T * 14 + T * H + T * T + w.O * T)
-    flops = 2 * macs + pairs * 3 * T  # + pre add, relu, HID sum
+    split = 2 * pairs * (4 * T * T + 13 * T)
+    other = 2 * (pairs * 4 * T + Bn * N * (T * H + T * 14 + T * H + T * T + w.O * T)) + pairs * 3 * T
     in_bytes = sum(x.numel() * 4 for x in (w.buf, h, q_i, t_i, tors, a_j, q_j, t_j, edge, mask))
     out_bytes = Bn * N * (4 + 3 + 14 + w.O) * 4
-    peak = PEAK_BF16 if bf16 else PEAK_FP32
-    bound_ms = max(flops / peak, (in_bytes + out_bytes) / PEAK_BYTES) * 1e3
-    bound_by = "operations" if flops / peak >= (in_bytes + out_bytes) / PEAK_BYTES else "bytes"
-    return flops, in_bytes + out_bytes, bound_ms, bound_by
+    return (split + other, in_bytes + out_bytes) + bound_of(split, other, in_bytes + out_bytes, mode)
 
 
 def pallas_case(model, layer: str, seed: int, device, batch_size: int = B):
@@ -447,35 +483,34 @@ def loop_errors(got: dict, want: dict, tol: dict):
     return res
 
 
-def work_of_loop(args, m, cts, kind: str, bf16: bool):
+def work_of_loop(args, m, cts, kind: str, mode: str):
     """(FLOP, bytes, bound ms, bound_by) of one loop-kernel launch on these
     inputs. Per (b, i, j) pair the forward does the head lin1 (4T x T
     MACs), the lin2 rows (13 x T) and the rotation term (4 x T), each MAC
     2 operations, plus the pre add, relu and HID sum (3T). The backward
     recomputes that and adds the whm outer product and whm^T d(pre_heads)
     (2 x 4T x T MACs), dW2 and w2^T d(out) (2 x 13 x T) and dwrq and
-    wrq^T d(rot) (2 x 4 x T). Each input is read once, each output
+    wrq^T d(rot) (2 x 4 x T). The products of whm and w2 are the ones a
+    high mode splits (``bound_of``). Each input is read once, each output
     written once."""
     w, a_i, tor, q_i, t_i, a_j, q_j, t_j, edge, mask = args
     Bn, N, NP = mask.shape
     T = a_i.shape[-1]
-    fwd = 2 * (4 * T * T + 13 * T + 4 * T) + 3 * T
-    per_pair = fwd if kind == "fwd" else fwd + 2 * (2 * 4 * T * T + 2 * 13 * T + 2 * 4 * T)
-    flops = Bn * N * NP * per_pair
+    split = 2 * (4 * T * T + 13 * T) * (1 if kind == "fwd" else 3)
+    other = (2 * 4 * T + 3 * T) + (0 if kind == "fwd" else 2 * 2 * 4 * T)
+    pairs = Bn * N * NP
     nbytes = lambda xs: sum(x.numel() * 4 for x in xs)
     if kind == "fwd":
         moved = nbytes(args) + Bn * N * (1 + 1 + 4 + 7 + 3 + T + 1) * 4
     else:
         moved = nbytes(args) + nbytes([m] + list(cts)) + nbytes(args[:9])
-    peak = PEAK_BF16 if bf16 else PEAK_FP32
-    t_ops, t_bytes = flops / peak, moved / PEAK_BYTES
-    return flops, moved, max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    return (pairs * (split + other), moved) + bound_of(pairs * split, pairs * other, moved, mode)
 
 
 def check_loop_kernels(model, dev):
     """Phase 3, training loop: both kernels against their plain versions
     at batch 64 with each layer's weights and on layer 2's inputs cut to
-    NP = 90, fp32 and bf16, forward outputs and every gradient; the forward
+    NP = 90, in each mode, forward outputs and every gradient; the forward
     also on layer 2's inputs grown to NP = 136 (``loop_two_tiles``). Returns
     the two layers' cases and the max abs error per mode and kernel."""
     cases = {layer: loop_case(model, layer, seed=10 + k, device=dev)
@@ -484,9 +519,11 @@ def check_loop_kernels(model, dev):
     checks = {**cases, "gnn2 NP=90": (loop_ragged(cases["gnn2"][0]), cases["gnn2"][1])}
     import torch
 
+    from pmhc_tpu_torch.ops.egnn_fused import FLAGS
+
     max_err = {}
-    for mode in ("fp32", "bf16"):
-        bf16 = mode == "bf16"
+    for mode in MODES:
+        bf16 = FLAGS[mode]
         worst = {"fwd": 0.0, "bwd": 0.0}
         for layer, (args, cts) in checks.items():
             got = loop_run(args, cts, bf16, kernel=True)
@@ -499,16 +536,21 @@ def check_loop_kernels(model, dev):
                     raise AssertionError(f"loop kernel {mode} {layer} {name} disagrees with plain version")
                 kind = "fwd" if name.startswith("out ") else "bwd"
                 worst[kind] = max(worst[kind], err)
-            if not bf16 and layer in cases:
+            if mode != "bf16" and layer in cases:
                 # the bf16 tolerances must catch a bf16 mode that skips its
-                # rounding: the fp32 kernels against the bf16 plain version
-                want16 = loop_run(args, cts, True, kernel=False)
+                # rounding (the fp32 kernels against the bf16 plain version),
+                # the high ones a high mode that rounds where it should split
+                # (the bf16 kernels against the high plain version)
+                other, against = ("fp32", "bf16") if mode == "fp32" else ("bf16", "high")
+                got_o = got if other == mode else loop_run(args, cts, FLAGS[other], kernel=True)
+                want_a = want if against == mode else loop_run(args, cts, FLAGS[against], kernel=False)
                 over = [name for name, (err, rel, t, ok) in
-                        loop_errors(got, want16, LOOP_TOL["bf16"]).items() if not ok]
-                log(f"sensitivity loop fp32 kernels vs bf16 plain {layer}: {len(over)} outputs break "
-                    f"the bf16 tolerances: {', '.join(over[:8])}")
+                        loop_errors(got_o, want_a, LOOP_TOL[against]).items() if not ok]
+                log(f"sensitivity loop {other} kernels vs {against} plain {layer}: {len(over)} outputs "
+                    f"break the {against} tolerances: {', '.join(over[:8])}")
                 if not over:
-                    raise AssertionError(f"bf16 loop tolerances cannot tell fp32 from bf16 on {layer}")
+                    raise AssertionError(f"{against} loop tolerances cannot tell {other} from {against} "
+                                         f"on {layer}")
         two = loop_two_tiles(cases["gnn2"][0])
         for name, (err, rel, t, ok) in loop_forward_errors(two, bf16, LOOP_TOL[mode]).items():
             log(f"check loop {mode} gnn2 NP={two[-1].shape[-1]} {name}: max_abs_err {err:.3e} = "
@@ -520,10 +562,10 @@ def check_loop_kernels(model, dev):
     return cases, max_err
 
 
-def train_trajectory_check(dev) -> None:
-    """Phase 4, training: 5 optimizer steps through the loop kernels held
-    against 5 through the dense layer's autograd, from the same weights,
-    with the same batches, timesteps and noise."""
+def train_trajectory_check(dev, mode: str = "fp32") -> None:
+    """Phase 4, training: 5 optimizer steps through the loop kernels in
+    ``mode`` held against 5 through the dense layer's autograd, from the
+    same weights, with the same batches, timesteps and noise."""
     import copy
 
     import torch
@@ -531,6 +573,7 @@ def train_trajectory_check(dev) -> None:
     from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
     from pmhc_tpu_torch.diffusion import DiffusionConfig, ScheduleTables, gen_noise
     from pmhc_tpu_torch.models import ScoreNetworkConfig
+    from pmhc_tpu_torch.ops.egnn_fused import FLAGS
     from pmhc_tpu_torch.train import Adam, train_step
 
     dc = DiffusionConfig()
@@ -545,23 +588,24 @@ def train_trajectory_check(dev) -> None:
         eps = gen_noise(g, (B, 16), dc)
         for bk, m in models.items():
             sums = train_step(m, opts[bk], batch, t, eps, model_config=ScoreNetworkConfig(backend=bk),
-                              diffusion_config=dc, tables=tables)
+                              diffusion_config=dc, tables=tables, bf16=FLAGS[mode])
             losses[bk].append(float(sums["total loss"]))
     for step, (a, b) in enumerate(zip(losses["fused"], losses["dense"])):
         rel = abs(a - b) / abs(b)
-        log(f"train trajectory step {step}: loss kernels {a:.6f} dense {b:.6f} rel {rel:.2e} "
+        log(f"train trajectory {mode} step {step}: loss kernels {a:.6f} dense {b:.6f} rel {rel:.2e} "
             f"(rtol {TRAIN_TOL['loss_rtol']:.0e})")
         if not rel <= TRAIN_TOL["loss_rtol"]:
-            raise AssertionError(f"training trajectory step {step}: loss disagrees with the dense path")
+            raise AssertionError(f"training trajectory {mode} step {step}: loss disagrees with the "
+                                 "dense path")
     worst, worst_name = 0.0, ""
     for (name, p), q in zip(models["fused"].named_parameters(), models["dense"].parameters()):
         diff = float((p.detach() - q.detach()).abs().max())
         if diff > worst:
             worst, worst_name = diff, name
-    log(f"train trajectory parameters after 5 steps: max abs diff {worst:.2e} ({worst_name}; "
+    log(f"train trajectory {mode} parameters after 5 steps: max abs diff {worst:.2e} ({worst_name}; "
         f"tol {TRAIN_TOL['param_atol']:.0e})")
     if not worst <= TRAIN_TOL["param_atol"]:
-        raise AssertionError(f"training trajectory: parameter {worst_name} off by {worst:.2e}")
+        raise AssertionError(f"training trajectory {mode}: parameter {worst_name} off by {worst:.2e}")
 
 
 def train_main_path(dev, card: str):
@@ -581,9 +625,10 @@ def train_main_path(dev, card: str):
 
     batches = [synthetic_batch(batch_size=B, seed=500 + k) for k in range(TRAIN_STEPS)]
     launches, walls = {}, {}
-    for mode in ("fp32", "bf16"):
+    for mode in MODES:
         tr = Trainer(ScoreNetworkConfig(backend="auto"), DiffusionConfig(),
-                     TrainConfig(seed=5, nan_check_every=TRAIN_STEPS), bf16=mode == "bf16")
+                     TrainConfig(seed=5, nan_check_every=TRAIN_STEPS), bf16=mode == "bf16",
+                     fast_f32=mode == "high")
         metrics = MetricsRecord()
         torch.cuda.synchronize()
         el.reset_launches()
@@ -612,7 +657,7 @@ def train_main_path(dev, card: str):
 def sampling_graphs_vs_eager(model, entries, card: str) -> None:
     """Phase 4: a batch-64 strided trajectory (``OFFLINE_SAMPLE_STEPS``
     steps) from CUDA graphs, the service's default, against the eager chain
-    from the same batch generator, fused fp32 and bf16 and ``pallas``: the
+    from the same batch generator, fused fp32, bf16 and high and ``pallas``: the
     kernel launched twice a step either way, the PDB arrays within
     ``TRAJ_TOL``. Logs the largest differences and whether the two are
     bit-identical."""
@@ -624,12 +669,13 @@ def sampling_graphs_vs_eager(model, entries, card: str) -> None:
 
     k = OFFLINE_SAMPLE_STEPS
     tol = {"quats": TRAJ_TOL["q"], "trans": TRAJ_TOL["t"], "atom14": TRAJ_TOL["t"]}
-    for backend, mode in (("auto", "fp32"), ("auto", "bf16"), ("pallas", "fp32")):
+    for backend, mode in (("auto", "fp32"), ("auto", "bf16"), ("auto", "high"), ("pallas", "fp32")):
         counter = ep.LAUNCHES if backend == "pallas" else ef.LAUNCHES
         out = {}
         for graphs in (True, False):
             svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=k,
-                                 backend=backend, bf16=mode == "bf16", seed=7, graphs=graphs)
+                                 backend=backend, bf16=mode == "bf16", fast_f32=mode == "high",
+                                 seed=7, graphs=graphs)
             torch.cuda.synchronize()
             ef.reset_launches()
             ep.reset_launches()
@@ -699,10 +745,10 @@ def training_graphs_vs_eager(card: str, steps: int = 5) -> None:
     from pmhc_tpu_torch.train import TrainConfig, Trainer
 
     batches = [synthetic_batch(batch_size=B, seed=800 + k) for k in range(steps)]
-    for mode in ("fp32", "bf16"):
+    for mode in MODES:
         trainers = {g: Trainer(ScoreNetworkConfig(backend="auto"), train_config=TrainConfig(
-            seed=12, learning_rate=TRAIN_LR, nan_check_every=0), bf16=mode == "bf16", graphs=g)
-            for g in (True, False)}
+            seed=12, learning_rate=TRAIN_LR, nan_check_every=0), bf16=mode == "bf16",
+            fast_f32=mode == "high", graphs=g) for g in (True, False)}
         start = trainer_state(trainers[False])
         losses = {g: [float(tr.train_batch(b)["total loss"]) for b in batches]
                   for g, tr in trainers.items()}
@@ -795,67 +841,82 @@ def build_entries(info: dict, kind_of) -> dict:
     return res
 
 
+# the kernels' template argument per mode (csrc/egnn_common.cuh), as it
+# appears in a mangled instantiation name (``egnn_fused_kernelILi2E...``)
+MODE_ARGS = {"fp32": "0", "bf16": "1", "high": "2"}
+
+
+def check_modes(res: dict, who: str, prefix: str = "") -> None:
+    """The HMMA rule of one kernel's three instantiations: fp32 runs none
+    (no TF32 either), bf16 some, and high, whose every tensor-core product
+    is three mma.sync, between 2.5 and 3.5 times the bf16 count (neither
+    fp32 nor bf16 under another name). None may spill."""
+    fp32, bf16, high = (res[prefix + m]["hmma"] for m in ("fp32", "bf16", "high"))
+    if fp32 or not bf16 or not 2.5 * bf16 <= high <= 3.5 * bf16:
+        raise AssertionError(f"{who}: HMMA fp32 {fp32} (must be 0), bf16 {bf16} (> 0), high {high} "
+                             f"(about 3x bf16): {res}")
+    if any(res[prefix + m]["spill_bytes"] for m in MODE_ARGS):
+        raise AssertionError(f"{who} spills registers: {res}")
+
+
 def check_loop_build(info: dict) -> dict:
-    """Phase 2, the loop kernels' four instantiations (forward and backward,
-    ``<false>`` fp32 and ``<true>`` bf16): registers and spills from ``ptxas
-    -v`` and HMMA counts from the SASS. None may spill; the bf16 forward and
-    backward must use the tensor cores and the fp32 ones must not (no TF32
-    either). Returns {kind: {"registers", "spill_bytes", "smem_bytes",
-    "hmma"}}."""
+    """Phase 2, the loop kernels' six instantiations (forward and backward,
+    ``<0>`` fp32, ``<1>`` bf16, ``<2>`` high): registers and spills from
+    ``ptxas -v`` and HMMA counts from the SASS, held to ``check_modes``.
+    Returns {kind: {"registers", "spill_bytes", "smem_bytes", "hmma"}}."""
     def kind_of(name):
         for kind in ("fwd", "bwd"):
-            for flag, mode in (("0", "fp32"), ("1", "bf16")):
-                if f"egnn_loop_{kind}_kernelILb{flag}E" in name:
+            for mode, arg in MODE_ARGS.items():
+                if f"egnn_loop_{kind}_kernelILi{arg}E" in name:
                     return f"{kind}_{mode}"
         return None
 
     res = build_entries(info, kind_of)
     log(f"build egnn_loop instantiations: {json.dumps(res)}")
-    kinds = {"fwd_fp32", "fwd_bf16", "bwd_fp32", "bwd_bf16"}
+    kinds = {f"{k}_{m}" for k in ("fwd", "bwd") for m in MODE_ARGS}
     if set(res) != kinds or any(r["registers"] is None for r in res.values()):
-        raise AssertionError(f"egnn_loop: ptxas did not report all four instantiations: {res}")
-    if any(not res[f"{k}_bf16"]["hmma"] or res[f"{k}_fp32"]["hmma"] for k in ("fwd", "bwd")):
-        raise AssertionError("egnn_loop: the bf16 forward and backward must use the tensor cores "
-                             f"(HMMA) and the fp32 ones must not: {res}")
-    if any(r["spill_bytes"] for r in res.values()):
-        raise AssertionError(f"egnn_loop spills registers: {res}")
+        raise AssertionError(f"egnn_loop: ptxas did not report all six instantiations: {res}")
+    for k in ("fwd", "bwd"):
+        check_modes(res, f"egnn_loop {k}", prefix=f"{k}_")
     return res
 
 
 def check_fused_build(info: dict) -> dict:
-    """Phase 2, the fused kernel's two instantiations (``<true>`` bf16,
-    ``<false>`` fp32): registers and spills from ``ptxas -v``, and the HMMA
-    (tensor-core) instructions in the built library's SASS. The bf16 one
-    must have some, the fp32 one none (no TF32 either); neither may spill.
-    Returns {mode: {"registers", "spill_bytes", "smem_bytes", "hmma"}}."""
-    mode_of = lambda name: "bf16" if "egnn_fused_kernelILb1E" in name else \
-        "fp32" if "egnn_fused_kernelILb0E" in name else None
+    """Phase 2, the fused kernel's three instantiations (``<0>`` fp32,
+    ``<1>`` bf16, ``<2>`` high): registers and spills from ``ptxas -v``, and
+    the HMMA (tensor-core) instructions in the built library's SASS, held
+    to ``check_modes``. Returns {mode: {"registers", "spill_bytes",
+    "smem_bytes", "hmma"}}."""
+    def mode_of(name):
+        for mode, arg in MODE_ARGS.items():
+            if f"egnn_fused_kernelILi{arg}E" in name:
+                return mode
+        return None
+
     res = build_entries(info, mode_of)
     log(f"build egnn_fused instantiations: {json.dumps(res)}")
-    if set(res) != {"fp32", "bf16"} or any(r["registers"] is None for r in res.values()):
-        raise AssertionError(f"egnn_fused: ptxas did not report both instantiations: {res}")
-    if not res["bf16"]["hmma"] or res["fp32"]["hmma"]:
-        raise AssertionError("egnn_fused: the bf16 instantiation must use the tensor cores (HMMA) "
-                             f"and the fp32 one must not: {res}")
-    if any(r["spill_bytes"] for r in res.values()):
-        raise AssertionError(f"egnn_fused spills registers: {res}")
+    if set(res) != set(MODE_ARGS) or any(r["registers"] is None for r in res.values()):
+        raise AssertionError(f"egnn_fused: ptxas did not report all three instantiations: {res}")
+    check_modes(res, "egnn_fused")
     return res
 
 
-def gemm_ms(args, bf16: bool) -> float:
+def gemm_ms(args, mode: str) -> float:
     """ms of one ``torch.matmul`` of [B*N*NP, T] @ [T, 4T] in the mode's
-    precision (fp32 without TF32, or bf16): the dominant product of the
-    fused layer and of the loop forward alone, a yardstick the port never
-    calls. ``args``: either's inputs (a_j at 5, the mask at 9)."""
+    precision (fp32 without TF32, or bf16; high: three bf16 ones, its
+    split's passes): the dominant product of the fused layer and of the
+    loop forward alone, a yardstick the port never calls. ``args``:
+    either's inputs (a_j at 5, the mask at 9)."""
     import torch
 
     _, h, _, _, _, a_j, _, _, _, mask = args
     T = a_j.shape[-1]
-    dtype = torch.bfloat16 if bf16 else torch.float32
+    dtype = torch.float32 if mode == "fp32" else torch.bfloat16
     g = torch.Generator(device=h.device).manual_seed(0)
     x = torch.randn((mask.numel(), T), generator=g, device=h.device).to(dtype)
     wt = torch.randn((T, 4 * T), generator=g, device=h.device).to(dtype)
-    return time_ms(lambda: torch.matmul(x, wt), iters=100)
+    passes = 3 if mode == "high" else 1
+    return time_ms(lambda: [torch.matmul(x, wt) for _ in range(passes)], iters=100)
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -920,13 +981,14 @@ def loop_times(cases, loop_err, train_launches, card: str) -> list:
     import torch
 
     from pmhc_tpu_torch.ops import egnn_loop as el
+    from pmhc_tpu_torch.ops.egnn_fused import FLAGS
 
     lib = el._lib()
     cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731 (a capture's own)
     rows = []
     for kind in ("fwd", "bwd"):
-        for mode in ("fp32", "bf16"):
-            bf16 = mode == "bf16"
+        for mode in MODES:
+            bf16 = FLAGS[mode]
             per = {"ms": [], "plain_ms": [], "bound_ms": [], "gemm_ms": []}
             bound_by = None
             for layer, (args, cts) in cases.items():
@@ -936,12 +998,12 @@ def loop_times(cases, loop_err, train_launches, card: str) -> list:
                     ms = time_ms(lambda: el.launch_fwd(lib, *args, bf16=bf16, stream=cur()), 50)
                     with torch.no_grad():
                         plain = time_ms(lambda: el.egnn_loop_plain(*args, bf16=bf16), 5)
-                    gemm = gemm_ms(args, bf16)
+                    gemm = gemm_ms(args, mode)
                     per["gemm_ms"].append(gemm)
                 else:
                     ms = time_ms(lambda: el.launch_bwd(lib, *args, m, cts, bf16=bf16, stream=cur()), 20)
                     plain = time_ms(lambda: loop_run(args, cts, bf16, kernel=False), 3)
-                flops, nbytes, bound_ms, bound_by = work_of_loop(args, m, cts, kind, bf16)
+                flops, nbytes, bound_ms, bound_by = work_of_loop(args, m, cts, kind, mode)
                 log(json.dumps({"metric": f"egnn_loop_{kind}_ms", "mode": mode, "layer": layer,
                                 "ms": ms, "plain_ms": plain, "gemm_ms": gemm, "bound_ms": bound_ms,
                                 "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
@@ -964,7 +1026,7 @@ def loop_times(cases, loop_err, train_launches, card: str) -> list:
     return rows
 
 
-def train_breakdown(bf16: bool, graphs: bool) -> dict:
+def train_breakdown(mode: str, graphs: bool) -> dict:
     """Device time by kernel and idle share over 10 batch-64 training steps
     in the mode, from CUDA graphs or eager (after 3 warm-up steps), and the
     median host-clock wall of TRAIN_STEPS steps, each ended by a
@@ -976,7 +1038,7 @@ def train_breakdown(bf16: bool, graphs: bool) -> dict:
     from pmhc_tpu_torch.train import TrainConfig, Trainer
 
     tr = Trainer(ScoreNetworkConfig(backend="auto"), train_config=TrainConfig(seed=9, nan_check_every=0),
-                 bf16=bf16, graphs=graphs)
+                 bf16=mode == "bf16", fast_f32=mode == "high", graphs=graphs)
     batches = [synthetic_batch(batch_size=B, seed=700 + k) for k in range(TRAIN_STEPS)]
     for b in batches[:3]:
         tr.train_batch(b)
@@ -1026,10 +1088,10 @@ def overlap_walls(model, entries, card: str, batches: int = 3) -> None:
                     "wall_s": time.monotonic() - t_start, "per_batch": stats, "card": card}))
 
 
-def trajectory_check(model, dev, backend: str) -> None:
-    """Phase 4: a 4-step batch-4 trajectory through ``backend``'s kernel
-    held against the dense oracle with the same injected noise; the kernel
-    must run 2 launches per step."""
+def trajectory_check(model, dev, backend: str, mode: str = "fp32") -> None:
+    """Phase 4: a 4-step batch-4 trajectory through ``backend``'s kernel in
+    ``mode`` held against the dense oracle with the same injected noise;
+    the kernel must run 2 launches per step."""
     import torch
 
     from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
@@ -1051,18 +1113,21 @@ def trajectory_check(model, dev, backend: str) -> None:
                                 torch.stack([n["frames"].trans for n in inj])),
            "torsions": torch.stack([n["torsions"] for n in inj])}
     counter = {"fused": ef.LAUNCHES, "pallas": ep.LAUNCHES}[backend]
-    before = counter["fp32"]
+    before = counter[mode]
     traj = {bk: sample(model, mb, cfg4, ScoreNetworkConfig(noise_step_count=4, backend=bk),
-                       injected_noise=inj) for bk in (backend, "dense")}
+                       bf16=ef.FLAGS[mode], injected_noise=inj) for bk in (backend, "dense")}
     torch.cuda.synchronize()
-    if counter["fp32"] - before != 2 * 4:
-        raise AssertionError(f"{backend} trajectory: {counter['fp32'] - before} launches, expected 8")
+    if counter[mode] - before != 2 * 4:
+        raise AssertionError(f"{backend} {mode} trajectory: {counter[mode] - before} launches, "
+                             "expected 8")
     for name, get in (("q", lambda r: r["frames"].quats), ("t", lambda r: r["frames"].trans),
                       ("tors", lambda r: r["torsions"])):
         err = float((get(traj[backend]) - get(traj["dense"])).abs().max())
-        log(f"trajectory {backend} vs dense {name}: max_abs_err {err:.3e} (tol {TRAJ_TOL[name]:.0e})")
+        log(f"trajectory {backend} {mode} vs dense {name}: max_abs_err {err:.3e} "
+            f"(tol {TRAJ_TOL[name]:.0e})")
         if not err <= TRAJ_TOL[name]:
-            raise AssertionError(f"4-step {backend} trajectory {name} disagrees with the dense oracle")
+            raise AssertionError(f"4-step {backend} {mode} trajectory {name} disagrees with the dense "
+                                 "oracle")
 
 
 def check_pallas_kernel(cases) -> float:
@@ -1304,7 +1369,8 @@ def csv_rows(path: str) -> list:
 
 def offline_train(args: list, want: dict, card: str, mode: str) -> dict:
     """One ``train_cli.main`` run with the loop kernels' counters reset just
-    before; their counts must equal ``want``. Returns the CLI's epoch stats."""
+    before; their counts must equal ``want`` (a mode left out: none).
+    Returns the CLI's epoch stats."""
     import torch
 
     from pmhc_tpu_torch.cli import train_cli
@@ -1321,6 +1387,7 @@ def offline_train(args: list, want: dict, card: str, mode: str) -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = dict(el.LAUNCHES)
+    want = {k: want.get(k, 0) for k in counts}
     log(f"offline train {mode}: {len(stats['epochs'])} epochs in {wall:.1f} s, loop launches "
         f"{counts} (expected {want})")
     if counts != want or any(ef.LAUNCHES.values()) or any(ep.LAUNCHES.values()):
@@ -1332,7 +1399,7 @@ def offline_train(args: list, want: dict, card: str, mode: str) -> dict:
 
 def offline_sample(args: list, ds, out: str, mode: str, n_files: int, want: int, card: str):
     """One ``sample_cli.main`` run with the fused kernel's counters reset just
-    before: exactly ``want`` launches in ``mode``, none in the other, and
+    before: exactly ``want`` launches in ``mode``, none in another, and
     ``n_files`` PDBs that pass ``check_pdb``."""
     import torch
 
@@ -1345,11 +1412,11 @@ def offline_sample(args: list, ds, out: str, mode: str, n_files: int, want: int,
     stats = sample_cli.main(args + ["--output-dir", out, "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    other = "bf16" if mode == "fp32" else "fp32"
+    others = {k: v for k, v in ef.LAUNCHES.items() if k != mode}
     files = sorted(os.listdir(out))
     log(f"offline sample {mode} {' '.join(args[2:])}: {len(files)} PDBs in {wall:.1f} s, fused "
-        f"launches {ef.LAUNCHES[mode]} (expected {want}), {other} {ef.LAUNCHES[other]}")
-    if ef.LAUNCHES[mode] != want or ef.LAUNCHES[other] != 0:
+        f"launches {ef.LAUNCHES[mode]} (expected {want}), other modes {others}")
+    if ef.LAUNCHES[mode] != want or any(others.values()) or stats["precision"] != PRECISION[mode]:
         raise AssertionError(f"offline sample {mode}: launches {dict(ef.LAUNCHES)}, expected {want}")
     if len(files) != n_files:
         raise AssertionError(f"offline sample {mode}: {len(files)} PDB files, expected {n_files}")
@@ -1435,7 +1502,13 @@ def offline_main_path(card: str) -> None:
         # the same epoch eager (a fresh model: the output file is removed)
         os.remove(bf16_cmd[2])
         stats["bf16 eager"] = offline_train(bf16_cmd + ["--eager"], bf16_want, card, "bf16 eager")
-        for mode in ("fp32", "bf16", "bf16 eager"):
+        # -- fast-f32: one epoch of the default path (the loader, graphs)
+        stats["fast-f32"] = offline_train(
+            [paths["train"], "1", os.path.join(work, "model_high.pth"), "--batch-size", str(B),
+             "--fast-f32"], {"fwd_high": 2 * steps, "bwd_high": 2 * steps}, card, "fast-f32")
+        if stats["fast-f32"]["precision"] != "fast-f32":
+            raise AssertionError(f"offline train --fast-f32 ran {stats['fast-f32']['precision']}")
+        for mode in ("fp32", "bf16", "bf16 eager", "fast-f32"):
             log(json.dumps({"metric": "train_cli", "mode": mode, "batch": B,
                             "epoch_s": [e["seconds"] for e in stats[mode]["epochs"]],
                             "examples_per_s": [e["examples_per_s"] for e in stats[mode]["epochs"]],
@@ -1446,7 +1519,8 @@ def offline_main_path(card: str) -> None:
         test = PackedDataset.load(paths["test"])
         n_test = len(test)
         n_batches = -(-n_test // B)
-        for mode, extra in (("fp32", []), ("bf16", ["--bf16"]), ("fp32", ["--eager"])):
+        for mode, extra in (("fp32", []), ("bf16", ["--bf16"]), ("high", ["--fast-f32"]),
+                            ("fp32", ["--eager"])):
             offline_sample([model, paths["test"], "-b", str(B)] + extra, test,
                            os.path.join(work, f"sampled_{mode}{''.join(extra)}"), mode, n_test,
                            n_batches * STEPS * 2, card)
@@ -1561,11 +1635,14 @@ def main() -> int:
     model = random_model(seed=0).to(dev).eval()
     cases = {layer: layer_case(model, layer, seed=i + 1, device=dev)
              for i, layer in enumerate(("gnn1", "gnn2"))}
-    # and a ragged last row tile: layer 2's neighbours cut to NP = 90
-    checks = {**cases, "gnn2 NP=90": ragged_case(cases["gnn2"])}
+    # and a ragged last row tile: layer 2's neighbours cut to NP = 90; two
+    # tiles a row: layer 1's grown to NP = 136 (loop_two_tiles: the fused
+    # layer's neighbour inputs sit where the loop's do)
+    checks = {**cases, "gnn2 NP=90": ragged_case(cases["gnn2"]),
+              "gnn1 NP=136": loop_two_tiles(cases["gnn1"])}
     max_err = {}
-    for mode in ("fp32", "bf16"):
-        bf16 = mode == "bf16"
+    for mode in MODES:
+        bf16 = ef.FLAGS[mode]
         errs = []
         for layer, args in checks.items():
             got = ef.egnn_fused(*args, bf16=bf16)
@@ -1579,20 +1656,25 @@ def main() -> int:
                 if not ok:
                     raise AssertionError(f"kernel {mode} {layer} {name} disagrees with plain version")
                 errs.append(err)
-            if not bf16 and layer in cases:
+            if mode != "bf16" and layer in cases:
                 # the bf16 tolerances must be tight enough to catch a bf16 mode
-                # that skips its rounding: the fp32 kernel, held against the
-                # bf16 plain version, has to fail them on some output
-                want = ef.egnn_fused_plain(*args, bf16=True)
+                # that skips its rounding (the fp32 kernel, held against the
+                # bf16 plain version, has to fail them on some output), and
+                # the high ones a high mode that rounds where it should split
+                # (the bf16 kernel against the high plain version)
+                other, against = ("fp32", "bf16") if mode == "fp32" else ("bf16", "high")
+                got_o = got if other == mode else ef.egnn_fused(*args, bf16=ef.FLAGS[other])
+                want = ef.egnn_fused_plain(*args, bf16=ef.FLAGS[against])
                 over = []
-                for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
+                for name, g, w in zip(("q", "t", "tors", "feat"), got_o, want):
                     err = float((g - w).abs().max())
-                    log(f"sensitivity fp32 kernel vs bf16 plain {layer} {name}: max_abs_err "
-                        f"{err:.3e} (bf16 tol {TOL['bf16'][name]:.0e})")
-                    if err > TOL["bf16"][name]:
+                    log(f"sensitivity {other} kernel vs {against} plain {layer} {name}: max_abs_err "
+                        f"{err:.3e} ({against} tol {TOL[against][name]:.0e})")
+                    if err > TOL[against][name]:
                         over.append(name)
                 if not over:
-                    raise AssertionError(f"bf16 tolerances cannot tell fp32 from bf16 on {layer}")
+                    raise AssertionError(f"{against} tolerances cannot tell {other} from {against} "
+                                         f"on {layer}")
         max_err[mode] = max(errs)
     loop_cases, loop_err = check_loop_kernels(model, dev)
     pallas_cases = {layer: pallas_case(model, layer, seed=20 + i, device=dev)
@@ -1605,12 +1687,16 @@ def main() -> int:
     from pmhc_tpu_torch.serve import SamplerService
 
     trajectory_check(model, dev, "fused")
+    trajectory_check(model, dev, "fused", "high")
 
     entries3 = [request_entry(seed=100 + i) for i in range(3)]
     entries64 = [request_entry(seed=200 + i) for i in range(B)]
     launches = {}
-    for mode in ("fp32", "bf16"):
-        svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, bf16=mode == "bf16", seed=7)
+    for mode in MODES:
+        svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, bf16=mode == "bf16",
+                             fast_f32=mode == "high", seed=7)
+        if svc.precision != PRECISION[mode]:
+            raise AssertionError(f"SamplerService {mode} reports precision {svc.precision}")
         gen = torch.Generator(device=dev).manual_seed(1234)
         walls = []  # (dispatch s, finalize s, dispatch's return s) of each batch of 64
         for label, entries in (("3 requests", entries3), ("batch of 64", entries64),
@@ -1626,7 +1712,7 @@ def main() -> int:
             t2 = time.monotonic()
             conv, n = handle.conv, handle.n
             count = ef.LAUNCHES[mode]
-            other = ef.LAUNCHES["bf16" if mode == "fp32" else "fp32"]
+            other = sum(v for k, v in ef.LAUNCHES.items() if k != mode)
             log(f"main path {mode} {label}: {len(pdbs)} PDBs in {t2 - t0:.2f} s "
                 f"(sampling {t1 - t0:.2f} s, PDB text {t2 - t1:.2f} s), "
                 f"kernel launches {count} (expected {2 * STEPS})")
@@ -1653,6 +1739,7 @@ def main() -> int:
     sampling_graphs_vs_eager(model, entries64, card)
 
     train_trajectory_check(dev)
+    train_trajectory_check(dev, "high")
     train_launches, train_walls = train_main_path(dev, card)
     training_graphs_vs_eager(card)
 
@@ -1670,15 +1757,15 @@ def main() -> int:
     # alone, the launches captured in a graph and replayed (time_ms)
     fused_lib = ef._lib()
     cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731 (a capture's own)
-    for mode in ("fp32", "bf16"):
-        bf16 = mode == "bf16"
+    for mode in MODES:
+        bf16 = ef.FLAGS[mode]
         per = {"ms": [], "plain_ms": [], "bound_ms": [], "gemm_ms": []}
         bound_by = None
         for layer, args in cases.items():
             ms = time_ms(lambda: ef.launch(fused_lib, *args, bf16=bf16, stream=cur()), iters=100)
             plain = time_ms(lambda: ef.egnn_fused_plain(*args, bf16=bf16), iters=10)
-            gemm = gemm_ms(args, bf16)
-            flops, nbytes, bound_ms, bound_by = work_of(args, bf16)
+            gemm = gemm_ms(args, mode)
+            flops, nbytes, bound_ms, bound_by = work_of(args, mode)
             log(json.dumps({"metric": "egnn_fused_ms", "mode": mode, "layer": layer, "ms": ms,
                             "plain_ms": plain, "gemm_ms": gemm, "bound_ms": bound_ms,
                             "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
@@ -1708,25 +1795,26 @@ def main() -> int:
     # dispatch and its device busy time and idle share
     steps_k = 100
     gen = torch.Generator(device=dev).manual_seed(99)
-    for backend, mode in (("auto", "fp32"), ("auto", "bf16"), ("pallas", "fp32")):
+    for backend, mode in (("auto", "fp32"), ("auto", "bf16"), ("auto", "high"), ("pallas", "fp32")):
         for graphs in (True, False):
             svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=steps_k,
-                                 backend=backend, bf16=mode == "bf16", seed=7, graphs=graphs)
+                                 backend=backend, bf16=mode == "bf16", fast_f32=mode == "high",
+                                 seed=7, graphs=graphs)
             svc.sample_entries(entries64[:1])  # warm-up: the kernels' first load, the capture
             bd = device_breakdown(lambda: svc.dispatch(entries64, gen))
             log(json.dumps({"metric": "device_breakdown", "path": "sample", "backend": backend,
                             "mode": mode, "graphs": graphs, "batch": B, "steps": steps_k, **bd,
                             "card": card}))
     overlap_walls(model, entries64, card)
-    for mode in ("fp32", "bf16"):
+    for mode in MODES:
         w = sorted(train_walls[mode][1:])  # the first step loads the kernels and captures
         log(json.dumps({"metric": "train_step_s_median", "mode": mode, "graphs": True, "batch": B,
                         "median_s": w[len(w) // 2], "card": card}))
-    for mode in ("fp32", "bf16"):
+    for mode in MODES:
         for graphs in (True, False):
             log(json.dumps({"metric": "device_breakdown", "path": "train", "mode": mode,
                             "graphs": graphs, "batch": B, "steps": 10,
-                            **train_breakdown(mode == "bf16", graphs), "card": card}))
+                            **train_breakdown(mode, graphs), "card": card}))
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,9 @@ serves HTTP requests, micro-batching concurrent requests into its batch
 shape:
 
 - ``GET /healthz``: JSON service status and configuration (the JAX
-  server's keys; ``precision`` is what the layers run at: the ``pallas``
-  and ``xla`` backends run fp32 whatever ``--bf16`` / ``--fast-f32`` ask,
-  and ``--fast-f32`` runs fp32 everywhere).
+  server's keys; ``precision`` is what the layers run at: ``"bf16"``,
+  ``"fast-f32"`` or ``"f32"``; the ``pallas`` and ``xla`` backends run
+  fp32 whatever ``--bf16`` / ``--fast-f32`` ask).
 - ``POST /sample``: body, an ``.npz`` archive with the single-complex entry
   arrays (``pmhc_tpu_torch.serve.ENTRY_SPECS``). Response: the sampled
   complex as PDB text (chains P and M). ``?samples=N`` returns N
@@ -73,7 +73,9 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mode of the fused kernel (auto / pallas_lane / g8 only)")
     p.add_argument("--fast-f32", action="store_true",
-                   help="accepted for the JAX server's flags; runs fp32")
+                   help="high mode of the fused kernel: its products split into bf16 "
+                        "hi/lo halves, ~1.5e-5 relative (auto / pallas_lane / g8 only; "
+                        "--bf16 wins)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-samples", type=int, default=16,
                    help="cap on ?samples=N per request")

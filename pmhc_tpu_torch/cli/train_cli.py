@@ -25,7 +25,8 @@ batch from the resident dataset), the full rows left over and the
 partial last row one ``train_batch`` each.
 
 ``main`` returns per-epoch timings: wall seconds, examples, and the
-seconds the step loop waited on the loader (time spent in ``next``).
+seconds the step loop waited on the loader (time spent in ``next``), and
+the precision the layers ran at (``"f32"``, ``"bf16"``, ``"fast-f32"``).
 """
 
 from __future__ import annotations
@@ -71,7 +72,9 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mode of the loop kernels (the fused backend; pallas runs fp32)")
     p.add_argument("--fast-f32", action="store_true",
-                   help="accepted for the JAX CLI's flags; runs fp32")
+                   help="high mode of the loop kernels: their products split into bf16 "
+                        "hi/lo halves, ~1.5e-5 relative (the fused backend; pallas runs "
+                        "fp32; --bf16 wins)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ema-decay", type=float, default=None,
                    help="EMA of the parameters, exported with every save as <model>.ema.pth")
@@ -156,8 +159,6 @@ def _run(args):
     device = resolve_device(args.device)
     backend = resolve_backend(args.backend)
     _log.info("backend %r -> %s on %s", args.backend, backend, device)
-    if args.fast_f32:
-        _log.info("--fast-f32: the port has no 3-pass mode; running fp32")
 
     model_config = ScoreNetworkConfig(noise_step_count=args.T, backend=backend)
     diffusion_config = DiffusionConfig(noise_step_count=args.T,
@@ -176,7 +177,9 @@ def _run(args):
         _log.info("resuming from %s", args.output_model)
         params = load_checkpoint(args.output_model, model_config).state_dict()
     trainer = Trainer(model_config, diffusion_config, train_config, params=params,
-                      bf16=args.bf16, device=device, graphs=False if args.eager else None)
+                      bf16=args.bf16, fast_f32=args.fast_f32, device=device,
+                      graphs=False if args.eager else None)
+    _log.info("precision %s", trainer.precision)
 
     ckpt_mgr = None
     if args.orbax_dir:
@@ -339,7 +342,7 @@ def _run(args):
             i += 1
         run(pending, metrics)  # leftover batches (< K)
         end_epoch(epoch_index, metrics, t0, examples, wait, stats)
-    return {"epochs": stats}
+    return {"epochs": stats, "precision": trainer.precision}
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 // Constants and device helpers shared by the port's EGNN kernels: the
 // fused sampler layer (egnn_fused.cu), the training loop (egnn_loop.cu)
 // and the round-1 layer (egnn_pallas.cu). The widths (T, HEADS, NTOR,
-// NOUT), the layouts of the per-neighbour geometry record and of the
-// online-softmax state, the loop weights' pointers (LoopW), bf16 rounding
-// (rnd: round to nearest even, or nothing in fp32 mode), quaternion
+// NOUT), the precision modes, the layouts of the per-neighbour geometry
+// record and of the online-softmax state, the loop weights' pointers
+// (LoopW), bf16 rounding (rnd: round to nearest even, or nothing), quaternion
 // product and conjugate, and a warp maximum. The neighbour-tile loop of
 // the fused layer and the loop forward is in egnn_tile.cuh.
 
@@ -22,6 +22,14 @@ constexpr int NTOR = 7;
 constexpr int NOUT = 13;            // lin2 rows: att 1, rot 4, tor 7, trl 1
 constexpr int GEO = 20;             // floats per neighbour geometry record
 constexpr int FOLD = 20;            // m, D, GD[4], TA[7], TR[3], CNT
+
+// Precision modes of the fused layer and the loop kernels (the C entries'
+// ``mode`` argument; the JAX package's mm_maker(bf16) with bf16 = False,
+// True, "high"): fp32 (IEEE fp32 FMA), bf16 (the products' operands
+// rounded to bf16, fp32 sums) and high (--fast-f32: each operand of those
+// products split into bf16 halves hi + lo, the product hi*hi + hi*lo +
+// lo*hi in fp32 sums, ~1.5e-5 relative).
+constexpr int MODE_FP32 = 0, MODE_BF16 = 1, MODE_HIGH = 2;
 
 // geometry record: -d2, qdot^2, local quat[4], q_j^-1[4], q_j[4], dx[3], mask
 constexpr int G_ND2 = 0, G_QD2 = 1, G_LQ = 2, G_INV = 6, G_QJ = 10, G_DX = 14, G_MASK = 17;

@@ -2,7 +2,7 @@
 // pmhc_tpu_torch/models/egnn.py in one kernel, on pre-projected inputs.
 //
 // Replaces two TPU kernels that compute the same function:
-//   pmhc_tpu/ops/egnn_pallas_lane.py::_make_kernel      (egnn_lane_core, f32)
+//   pmhc_tpu/ops/egnn_pallas_lane.py::_make_kernel      (egnn_lane_core, f32, "high")
 //   pmhc_tpu/ops/egnn_pallas_lane_g8.py::_make_kernel_g8 (egnn_lane8_core, --bf16)
 // Neither TPU layout (lane packing, component-major 8-groups, selection
 // matmuls, HEADPACK, batch grid) is carried over: this kernel computes
@@ -33,8 +33,10 @@
 // tensor cores (989 TFLOP/s): >= 3.5 us; there the CUDA-core work around
 // the products (the hid tile, geometry, the extra terms, relu and
 // rounding of 24,576 head units per query row, the fold) sets the time.
+// high: three tensor-core passes (>= ~10 us) and the splits of hid and act
+// on the CUDA cores.
 //
-// Design: one template, two tile products. What it does about the six
+// Design: one template, three tile products (fp32, bf16, high). What it does about the six
 // limits of this kernel's first design (a 256-thread block per query row,
 // a thread per head unit with its whm row in registers):
 // 1. Serial stages: the geometry records and the fold run on three warps
@@ -77,11 +79,18 @@
 // shared with the training loop's forward (egnn_loop.cu); this file adds
 // the row groups' node MLPs and the finalize.
 //
-// Modes (template BF16): fp32 is IEEE fp32 FMA throughout (no TF32).
-// bf16 rounds every MLP matmul operand to bf16 (round to nearest even):
-// whm and hid, wrq and the local quaternion, w2 and act, the node MLPs'
-// operands; every sum stays fp32, and geometry, the attention's rank-1
-// terms, biases, softmax and fold stay fp32.
+// Modes (template MODE, egnn_common.cuh): fp32 is IEEE fp32 FMA
+// throughout (no TF32). bf16 rounds every MLP matmul operand to bf16
+// (round to nearest even): whm and hid, wrq and the local quaternion, w2
+// and act, the node MLPs' operands; every sum stays fp32, and geometry,
+// the attention's rank-1 terms, biases, softmax and fold stay fp32.
+// high (--fast-f32; TPU kernel #1 with mm_maker("high")) splits the
+// operands of the two tensor-core products, whm and hid, w2 and act, into
+// bf16 hi + lo and sums hi*hi + hi*lo + lo*hi in fp32: three mma.sync per
+// bf16 one. Unlike the TPU kernel, which splits every matmul, it runs the
+// rotation term and the node MLPs (wmi, wtt, wfh, wfm2, wf2) in fp32 FMA,
+// as the fp32 mode does: on the CUDA cores a split would cost more and be
+// less exact. The plain version does the same.
 //
 // Interface: plain C, loaded with ctypes. The launcher allocates
 // nothing, launches on the caller's stream and returns
@@ -135,9 +144,9 @@ __host__ __device__ inline Offsets weight_offsets(int H, int O) {
 
 // Shared memory, in floats (every region 16-byte aligned): the tile loop's
 // (egnn_tile.cuh), then the row groups'.
-template <bool BF16>
-struct Smem : TileSmem<BF16> {
-  static constexpr int NR = TileSmem<BF16>::END;  // next group's node inputs [RG][NODE]
+template <int MODE>
+struct Smem : TileSmem<MODE> {
+  static constexpr int NR = TileSmem<MODE>::END;  // next group's node inputs [RG][NODE]
   // the row group's node inputs, a_i, torsion node terms (+ bt1), HID sums
   // and feature MLP hiddens, [RG][NODE] and [RG][T]
   static constexpr int NS = NR + RG * NODE;
@@ -147,9 +156,10 @@ struct Smem : TileSmem<BF16> {
   static constexpr int FH = HS + RG * T;
   static constexpr int TOTAL = FH + RG * T;
   static constexpr size_t BYTES = TOTAL * sizeof(float);
+  static_assert(BYTES <= 232448, "fused layer shared memory exceeds the H100's 227 KB");
 };
 
-template <bool BF16>
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 egnn_fused_kernel(const float* __restrict__ w,
                   const float* __restrict__ h,      // [B, N, H]
@@ -166,7 +176,8 @@ egnn_fused_kernel(const float* __restrict__ w,
                   float* __restrict__ out_tors,     // [B, N, 7, 2]
                   float* __restrict__ out_feat,     // [B, N, O]
                   int rows, int per_block, int N, int NP, int H, int O) {
-  using S = Smem<BF16>;
+  using S = Smem<MODE>;
+  constexpr bool RND = MODE == MODE_BF16;  // the node MLPs' operands rounded to bf16
   extern __shared__ __align__(16) float smem[];
   float* sm = smem;
   const int row_lo = blockIdx.x * per_block;
@@ -185,7 +196,7 @@ egnn_fused_kernel(const float* __restrict__ w,
   auto prefetch = [&](int it, bool with_bj) {
     const int row = row_lo + it / tiles, tl = it % tiles;
     const int b = row / N;
-    prefetch_tile<BF16>(sm, src, b, row - b * N, row, tl, with_bj, tid);
+    prefetch_tile<MODE>(sm, src, b, row - b * N, row, tl, with_bj, tid);
     if (tl == 0 && (row - row_lo) % RG == 0) {
       const int rg = min(RG, row_hi - row);
       for (int e = tid; e < rg * NODE; e += THREADS) {
@@ -203,7 +214,7 @@ egnn_fused_kernel(const float* __restrict__ w,
   prefetch(0, true);
 
   // -- the block's resident weights (while the first tile lands) -------------
-  stage_weights<BF16>(sm, LoopW{w + off.whm, w + off.wad, w + off.waq, w + off.ba1, w + off.br1,
+  stage_weights<MODE>(sm, LoopW{w + off.whm, w + off.wad, w + off.waq, w + off.ba1, w + off.br1,
                                 w + off.bt1, w + off.bl1, w + off.wrq, w + off.w2, w + off.b2}, tid);
 
   for (int it = 0; it < items; ++it) {
@@ -227,7 +238,7 @@ egnn_fused_kernel(const float* __restrict__ w,
         float wr[T / 4];
 #pragma unroll
         for (int kk = 0; kk < T / 4; ++kk)
-          wr[kk] = q + 4 * kk < H ? rnd<BF16>(__ldg(w + off.wmi + o * H + q + 4 * kk)) : 0.f;
+          wr[kk] = q + 4 * kk < H ? rnd<RND>(__ldg(w + off.wmi + o * H + q + 4 * kk)) : 0.f;
         const float bias = __ldg(w + off.bm1 + o);
         float acc[RG] = {};  // the group's rows side by side (rows past rg are not stored)
 #pragma unroll
@@ -235,7 +246,7 @@ egnn_fused_kernel(const float* __restrict__ w,
           if (q + 4 * kk < H)
 #pragma unroll
             for (int rr = 0; rr < RG; ++rr)
-              acc[rr] = fmaf(wr[kk], rnd<BF16>(nr[rr * NODE + N_H + q + 4 * kk]), acc[rr]);
+              acc[rr] = fmaf(wr[kk], rnd<RND>(nr[rr * NODE + N_H + q + 4 * kk]), acc[rr]);
 #pragma unroll
         for (int rr = 0; rr < RG; ++rr) {
           float a = acc[rr] + __shfl_xor_sync(0xffffffffu, acc[rr], 1);
@@ -246,14 +257,14 @@ egnn_fused_kernel(const float* __restrict__ w,
         const int o = (tid - 4 * T) >> 1, q = tid & 1;
         float wr[NTOR];
 #pragma unroll
-        for (int kk = 0; kk < NTOR; ++kk) wr[kk] = rnd<BF16>(__ldg(w + off.wtt + o * 2 * NTOR + q + 2 * kk));
+        for (int kk = 0; kk < NTOR; ++kk) wr[kk] = rnd<RND>(__ldg(w + off.wtt + o * 2 * NTOR + q + 2 * kk));
         const float bias = __ldg(w + off.bt1 + o);
         float acc[RG] = {};
 #pragma unroll
         for (int kk = 0; kk < NTOR; ++kk)
 #pragma unroll
           for (int rr = 0; rr < RG; ++rr)
-            acc[rr] = fmaf(wr[kk], rnd<BF16>(nr[rr * NODE + N_TOR + q + 2 * kk]), acc[rr]);
+            acc[rr] = fmaf(wr[kk], rnd<RND>(nr[rr * NODE + N_TOR + q + 2 * kk]), acc[rr]);
 #pragma unroll
         for (int rr = 0; rr < RG; ++rr) {
           const float a = acc[rr] + __shfl_xor_sync(0xffffffffu, acc[rr], 1);
@@ -265,7 +276,7 @@ egnn_fused_kernel(const float* __restrict__ w,
     const float* ns = sm + S::NS + r * NODE;
 
     // -- build: hid tile, HID partials, geometry records; a new row's state --
-    build_tile<BF16>(sm, sm + S::AI + r * T, ns + N_Q, ns + N_T, nj, tid, warp, lane);
+    build_tile<MODE>(sm, sm + S::AI + r * T, ns + N_Q, ns + N_T, nj, tid, warp, lane);
     if (tl == 0 && tid >= 128 && tid < 128 + T) {  // the torsion head's extra term
       sm[S::COEF + 4 * HEADS + 2 * T + tid - 128] = sm[S::TN + r * T + tid - 128];
     } else if (tl == 0 && tid >= 192 && tid < 192 + FOLD) {  // the running fold
@@ -278,22 +289,22 @@ egnn_fused_kernel(const float* __restrict__ w,
       prefetch(it + 1, nrow / N != b || ntl != tl);
     }
 
-    tile_product<BF16>(sm, nj, warp, lane);
+    tile_product<MODE>(sm, nj, warp, lane);
     __syncthreads();  // lin2 outputs ready
 
     // -- fold: warps 0-2 fold 32 neighbours each; warps 3-4 sum HID --------
     if (warp < 3) {
-      fold_tile<BF16>(sm, nj, warp, lane);
+      fold_tile<MODE>(sm, nj, warp, lane);
     } else if (warp < 5) {
       const int k = tid - 96;
-      if (k < T) sm[S::HS + r * T + k] = hid_sum<BF16>(sm, sm[S::HS + r * T + k], k);
+      if (k < T) sm[S::HS + r * T + k] = hid_sum<MODE>(sm, sm[S::HS + r * T + k], k);
     }
     __syncthreads();
 
     // -- warp 0: merge the three partials into the row's running state;
     // -- after the row's last tile, its geometry outputs ----------------------
     if (warp == 0) {
-      merge_tile<BF16>(sm, lane);
+      merge_tile<MODE>(sm, lane);
       const float* fr = sm + S::FR;
       if (tl + 1 == tiles && lane < 1 + 3 + NTOR) {
         const float inv_d = 1.f / fr[F_D];
@@ -336,8 +347,8 @@ egnn_fused_kernel(const float* __restrict__ w,
 #pragma unroll
       for (int kk = 0; kk < T / 4; ++kk) {
         const int k = q + 4 * kk;
-        wh[kk] = k < H ? rnd<BF16>(__ldg(w + off.wfh + o * H + k)) : 0.f;
-        wm[kk] = rnd<BF16>(__ldg(w + off.wfm2 + o * T + k));
+        wh[kk] = k < H ? rnd<RND>(__ldg(w + off.wfh + o * H + k)) : 0.f;
+        wm[kk] = rnd<RND>(__ldg(w + off.wfm2 + o * T + k));
       }
       const float bias = __ldg(w + off.bf1 + o);
       float acc[RG] = {};
@@ -346,17 +357,17 @@ egnn_fused_kernel(const float* __restrict__ w,
         if (q + 4 * kk < H)
 #pragma unroll
           for (int rr = 0; rr < RG; ++rr)
-            acc[rr] = fmaf(wh[kk], rnd<BF16>(sm[S::NS + rr * NODE + N_H + q + 4 * kk]), acc[rr]);
+            acc[rr] = fmaf(wh[kk], rnd<RND>(sm[S::NS + rr * NODE + N_H + q + 4 * kk]), acc[rr]);
 #pragma unroll
       for (int kk = 0; kk < T / 4; ++kk)
 #pragma unroll
         for (int rr = 0; rr < RG; ++rr)
-          acc[rr] = fmaf(wm[kk], rnd<BF16>(sm[S::HS + rr * T + q + 4 * kk]), acc[rr]);
+          acc[rr] = fmaf(wm[kk], rnd<RND>(sm[S::HS + rr * T + q + 4 * kk]), acc[rr]);
 #pragma unroll
       for (int rr = 0; rr < RG; ++rr) {
         float a = acc[rr] + __shfl_xor_sync(0xffffffffu, acc[rr], 1);
         a += __shfl_xor_sync(0xffffffffu, a, 2);
-        if (q == 0 && rr < rg) sm[S::FH + rr * T + o] = rnd<BF16>(fmaxf(a + bias, 0.f));
+        if (q == 0 && rr < rg) sm[S::FH + rr * T + o] = rnd<RND>(fmaxf(a + bias, 0.f));
       }
     }
     __syncthreads();
@@ -364,7 +375,7 @@ egnn_fused_kernel(const float* __restrict__ w,
       const int o = (base + tid) >> 2, q = tid & 3;
       float wr[T / 4];
 #pragma unroll
-      for (int kk = 0; kk < T / 4; ++kk) wr[kk] = o < O ? rnd<BF16>(__ldg(w + off.wf2 + o * T + q + 4 * kk)) : 0.f;
+      for (int kk = 0; kk < T / 4; ++kk) wr[kk] = o < O ? rnd<RND>(__ldg(w + off.wf2 + o * T + q + 4 * kk)) : 0.f;
       const float bias = o < O ? __ldg(w + off.bf2 + o) : 0.f;
       float acc[RG] = {};
 #pragma unroll
@@ -381,13 +392,13 @@ egnn_fused_kernel(const float* __restrict__ w,
   }
 }
 
-template <bool BF16>
+template <int MODE>
 int launch(const float* w, const float* h, const float* qi, const float* ti, const float* tors,
            const float* aj, const float* qj, const float* tj, const float* edge, const float* mask,
            float* out_q, float* out_t, float* out_tors, float* out_feat,
            int B, int N, int NP, int H, int O, cudaStream_t stream) {
   static std::atomic<int> sms_of[MAX_DEVICES];
-  const int sms = persistent_sms(egnn_fused_kernel<BF16>, Smem<BF16>::BYTES, sms_of);
+  const int sms = persistent_sms(egnn_fused_kernel<MODE>, Smem<MODE>::BYTES, sms_of);
   if (sms < 0) return -sms;
   // one block per SM, each a contiguous run of query rows
   int rows = B * N;
@@ -395,8 +406,8 @@ int launch(const float* w, const float* h, const float* qi, const float* ti, con
   const int grid = (rows + per_block - 1) / per_block;
   void* args[] = {&w, &h, &qi, &ti, &tors, &aj, &qj, &tj, &edge, &mask,
                   &out_q, &out_t, &out_tors, &out_feat, &rows, &per_block, &N, &NP, &H, &O};
-  const cudaError_t err = cudaLaunchKernel(egnn_fused_kernel<BF16>, dim3(grid), dim3(THREADS), args,
-                                           Smem<BF16>::BYTES, stream);
+  const cudaError_t err = cudaLaunchKernel(egnn_fused_kernel<MODE>, dim3(grid), dim3(THREADS), args,
+                                           Smem<MODE>::BYTES, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -414,16 +425,21 @@ int egnn_fused_launch(const float* w, const float* h, const float* qi, const flo
                       const float* tors, const float* aj, const float* qj, const float* tj,
                       const float* edge, const float* mask, float* out_q, float* out_t,
                       float* out_tors, float* out_feat, int B, int N, int NP, int H, int O,
-                      int bf16, void* stream) {
+                      int mode, void* stream) {
   using namespace pmhc;
   if (H < 1 || H > T || O < 1 || O > HEADS || B < 1 || N < 1 || NP < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return launch<true>(w, h, qi, ti, tors, aj, qj, tj, edge, mask, out_q, out_t, out_tors,
-                        out_feat, B, N, NP, H, O, s);
+  if (mode == MODE_BF16) {
+    return launch<MODE_BF16>(w, h, qi, ti, tors, aj, qj, tj, edge, mask, out_q, out_t, out_tors,
+                             out_feat, B, N, NP, H, O, s);
   }
-  return launch<false>(w, h, qi, ti, tors, aj, qj, tj, edge, mask, out_q, out_t, out_tors,
-                       out_feat, B, N, NP, H, O, s);
+  if (mode == MODE_HIGH) {
+    return launch<MODE_HIGH>(w, h, qi, ti, tors, aj, qj, tj, edge, mask, out_q, out_t, out_tors,
+                             out_feat, B, N, NP, H, O, s);
+  }
+  if (mode != MODE_FP32) return (int)cudaErrorInvalidValue;
+  return launch<MODE_FP32>(w, h, qi, ti, tors, aj, qj, tj, edge, mask, out_q, out_t, out_tors,
+                           out_feat, B, N, NP, H, O, s);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 // The training layer's neighbour loop for Hopper (sm_90a): a forward and
-// a backward kernel, each with an fp32 and a bf16 mode.
+// a backward kernel, each with an fp32, a bf16 and a high (--fast-f32)
+// mode (egnn_common.cuh).
 //
 // Replaces four TPU kernels of pmhc_tpu/ops/egnn_pallas_lane_vjp.py:
-//   forward   _make_loop_fwd (f32), _make_loop_fwd_g8 (--bf16)
-//   backward  _make_loop_bwd (f32), _make_loop_bwd_g8 (--bf16)
+//   forward   _make_loop_fwd (f32, "high"), _make_loop_fwd_g8 (--bf16)
+//   backward  _make_loop_bwd (f32, "high"), _make_loop_bwd_g8 (--bf16)
 // on the [B, N, C] layout, without the TPU layouts (lane packing,
 // component-major 8-groups, selection matmuls, HEADPACK, batch grid).
 // Plain PyTorch twin: pmhc_tpu_torch/ops/egnn_loop.py::egnn_loop_plain
@@ -41,7 +42,8 @@
 // fp32 peak, >= ~0.01 ms at 989 TFLOP/s bf16; 700 W). fp32: its three
 // products are FFMA in register tiles; bf16: they run on the tensor cores,
 // and the CUDA-core work around them (recompute epilogues, adjoints, the
-// per-unit sums, atomics) sets the time.
+// per-unit sums, atomics) sets the time; high: three tensor-core passes
+// per product (>= ~0.03 ms), with the splits on the CUDA cores.
 //
 // bf16 mode: the rounding points of egnn_tile.cuh in the recompute;
 // in the backward, the operands of the dW2 and dwhm/dwrq outer products,
@@ -128,9 +130,9 @@ struct BwdIO {
 constexpr int L_AI = 0, L_TN = T, L_QI = 2 * T, L_TI = 2 * T + 4, L_NODE = 2 * T + 8;
 
 // Shared memory of the forward, in floats: the tile loop's, then the row's.
-template <bool BF16>
-struct FSmem : TileSmem<BF16> {
-  static constexpr int NR = TileSmem<BF16>::END;  // the row's node inputs [L_NODE]
+template <int MODE>
+struct FSmem : TileSmem<MODE> {
+  static constexpr int NR = TileSmem<MODE>::END;  // the row's node inputs [L_NODE]
   static constexpr int BT1 = NR + L_NODE;         // bt1 [T]
   static constexpr int HS = BT1 + T;              // the row's HID over its earlier tiles [T]
   static constexpr int TOTAL = HS + T;
@@ -138,10 +140,10 @@ struct FSmem : TileSmem<BF16> {
   static_assert(BYTES <= 232448, "forward shared memory exceeds the H100's 227 KB");
 };
 
-template <bool BF16>
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
     egnn_loop_fwd_kernel(const Inputs in, const FwdOut out, int per_block) {
-  using S = FSmem<BF16>;
+  using S = FSmem<MODE>;
   extern __shared__ __align__(16) float smem[];
   float* sm = smem;
   const int rows = in.B * in.N;
@@ -164,7 +166,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto prefetch = [&](int it, bool with_bj) {
     const int row = row_lo + it / tiles, tl = it % tiles;
     const int b = row / N;
-    prefetch_tile<BF16>(sm, src, b, row - b * N, row, tl, with_bj, tid);
+    prefetch_tile<MODE>(sm, src, b, row - b * N, row, tl, with_bj, tid);
     if (tl == 0) {
       if (tid < T / 4) {
         copy16(sm + S::NR + L_AI + 4 * tid, in.ai + (size_t)row * T + 4 * tid, al_ai);
@@ -181,7 +183,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   prefetch(0, true);
 
   // -- the block's resident weights (while the first tile lands) -------------
-  stage_weights<BF16>(sm, loop_w(in.w), tid);
+  stage_weights<MODE>(sm, loop_w(in.w), tid);
   if (tid < T) sm[S::BT1 + tid] = in.w[O_BT1 + tid];
 
   for (int it = 0; it < items; ++it) {
@@ -192,7 +194,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();  // this item's inputs have landed; the last item's merge is done
 
     // -- build: hid tile, HID partials, geometry records; a new row's state --
-    build_tile<BF16>(sm, sm + S::NR + L_AI, sm + S::NR + L_QI, sm + S::NR + L_TI, nj, tid, warp, lane);
+    build_tile<MODE>(sm, sm + S::NR + L_AI, sm + S::NR + L_QI, sm + S::NR + L_TI, nj, tid, warp, lane);
     if (tl == 0 && tid >= 128 && tid < 128 + T) {  // the torsion head's extra term: tor_node + bt1
       const int k = tid - 128;
       sm[S::COEF + 4 * HEADS + 2 * T + k] = sm[S::NR + L_TN + k] + sm[S::BT1 + k];
@@ -206,17 +208,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       prefetch(it + 1, nrow / N != b || ntl != tl);
     }
 
-    tile_product<BF16>(sm, nj, warp, lane);
+    tile_product<MODE>(sm, nj, warp, lane);
     __syncthreads();  // lin2 outputs ready
 
     // -- fold: warps 0-2 fold 32 neighbours each; warps 3-4 sum HID --------
     const bool last = tl + 1 == tiles;
     if (warp < 3) {
-      fold_tile<BF16>(sm, nj, warp, lane);
+      fold_tile<MODE>(sm, nj, warp, lane);
     } else if (warp < 5) {
       const int k = tid - 96;
       if (k < T) {
-        const float s = hid_sum<BF16>(sm, tl == 0 ? 0.f : sm[S::HS + k], k);
+        const float s = hid_sum<MODE>(sm, tl == 0 ? 0.f : sm[S::HS + k], k);
         if (last) {
           out.HID[(size_t)row * T + k] = s;
         } else {
@@ -228,7 +230,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // -- warp 0: merge the partials; after the row's last tile, its outputs --
     if (warp == 0) {
-      const float v = merge_tile<BF16>(sm, lane);
+      const float v = merge_tile<MODE>(sm, lane);
       if (last) {
         if (lane == F_M) {
           out.m[row] = v;
@@ -277,10 +279,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 //             relu-gated: d(a_i) summed per tile into shared memory, d(a_j)
 //             and d(edge) by vector atomics. The split evens the work per
 //             warp.
-// bf16 (template BF16): the products on mma.sync m16n8k16 (bf16 operands,
+// bf16 (template MODE): the products on mma.sync m16n8k16 (bf16 operands,
 // fp32 sums): whm as two sets of B fragments (for act and for d(hid)), the
 // lin2 forward from act's C fragments, the lin2 backward and dW2 from DP;
-// fp32: IEEE FMA in register tiles (no TF32, no tensor cores).
+// fp32: IEEE FMA in register tiles (no TF32, no tensor cores). high
+// (--fast-f32): the bf16 mode's tasks with each product split into three
+// mma.sync (mma_split_16816) on the fp32 mode's shared memory (whm, w2 and
+// the hid tile in fp32; split fragments of whm twice over would not fit
+// in 227 KB beside DW and DP): every fragment is split from fp32 where it
+// is loaded, and act stays unrounded in DP.
 // The per-element state (q_j, q_j^-1, t_j of the row's batch element) is
 // cached for all NP neighbours and rebuilt when a block's run of rows
 // crosses into the next batch element.
@@ -299,9 +306,11 @@ constexpr int FR_LD = 12;              // cached per neighbour: q_j[4], q_j^-1[4
 constexpr int F_QJ = 0, F_INV = 4, F_TJ = 8;
 constexpr int CT_M = 0, CT_D = 1, CT_GD = 2, CT_TA = 6, CT_TR = 13, CT_N = 16;
 
-// Shared memory of the backward, in floats (every region 16-byte aligned).
-template <bool BF16>
+// Shared memory of the backward, in floats (every region 16-byte aligned);
+// high mode has the fp32 mode's regions (and one d(a_i) slot).
+template <int MODE>
 struct BSmem {
+  static constexpr bool BF16 = MODE == MODE_BF16;
   static constexpr int WHM = 0;   // bf16: B fragments of whm^T [4 heads][8 n][4 k][32] uint2; fp32: whm [HEADS][HF_LD]
   static constexpr int WHT = WHM + (BF16 ? HEADS * T / 2 : HEADS * HF_LD);  // bf16: B fragments of whm [8 n][16 k][32] uint2
   static constexpr int W2F = WHT + (BF16 ? HEADS * T / 2 : 0);   // bf16: lin2 B fragments [4 heads][4 k][32] uint2
@@ -321,7 +330,7 @@ struct BSmem {
   static constexpr int NODE = TN + T;                             // q_i[4], t_i[3]
   static constexpr int CT = NODE + 8;                             // m and the cotangents [CT_N]
   static constexpr int DAI = CT + CT_N;                           // d(a_i) partials [DAI_SLOTS][T]
-  static constexpr int DAI_SLOTS = BF16 ? 1 : 5;
+  static constexpr int DAI_SLOTS = MODE == MODE_FP32 ? 5 : 1;
   static constexpr int RQL = DAI + DAI_SLOTS * T;                 // d(q_i)[4], d(t_i)[3] per neighbour slot [BT][8]
   static constexpr int DW2 = RQL + BT * 8;                        // dW2 sums [3 neighbour blocks][NOUT][T]
   static constexpr int W2S = DW2 + 3 * NOUT * T;                  // fp32: w2 [NOUT][T]
@@ -346,7 +355,7 @@ __device__ __forceinline__ void rs_step(const float (&v)[N], float (&o)[N / 2], 
 }
 
 // The extra term's coefficients of head unit u (HEAD = u / T): c0..c3, cb.
-template <bool BF16, int HEAD>
+template <bool RND, int HEAD>
 __device__ __forceinline__ void unit_coef(const LoopW& w, const float* tn, int uu, float* c) {
   c[0] = c[1] = c[2] = c[3] = 0.f;
   if constexpr (HEAD == 0) {
@@ -355,7 +364,7 @@ __device__ __forceinline__ void unit_coef(const LoopW& w, const float* tn, int u
     c[4] = __ldg(w.ba1 + uu);
   } else if constexpr (HEAD == 1) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) c[r] = rnd<BF16>(__ldg(w.wrq + uu * 4 + r));
+    for (int r = 0; r < 4; ++r) c[r] = rnd<RND>(__ldg(w.wrq + uu * 4 + r));
     c[4] = __ldg(w.br1 + uu);
   } else if constexpr (HEAD == 2) {
     c[4] = tn[uu];
@@ -371,7 +380,7 @@ __device__ __forceinline__ void unit_coef(const LoopW& w, const float* tn, int u
 // OUTS.
 template <int HEAD>
 __device__ __forceinline__ void s1_fp32(float* sm, const LoopW& w, int jb, int lane) {
-  using S = BSmem<false>;
+  using S = BSmem<MODE_FP32>;
   constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
   constexpr int NE = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 1;
   const int pg = lane >> 3, ug = lane & 7;
@@ -440,7 +449,7 @@ __device__ __forceinline__ void s1_fp32(float* sm, const LoopW& w, int jb, int l
 // neighbours read as 0: padding carries no gradient into DP, dW2 or the sums.
 template <int HEAD>
 __device__ __forceinline__ void s3_fp32(float* sm, const LoopW& w, int jb, int nj, int lane, float* dw2) {
-  using S = BSmem<false>;
+  using S = BSmem<MODE_FP32>;
   constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
   const int pg = lane >> 3, ug = lane & 7;
   float act[4][8], dp[4][8];
@@ -523,7 +532,7 @@ __device__ __forceinline__ void s3_fp32(float* sm, const LoopW& w, int jb, int n
 // 15); the lin2 rows go to OUTS.
 template <int HEAD>
 __device__ __forceinline__ void s1_bf16(float* sm, const LoopW& w, int jb, int lane) {
-  using S = BSmem<true>;
+  using S = BSmem<MODE_BF16>;
   constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
   constexpr int NE = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 1;
   const int g = lane >> 2, c = lane & 3;
@@ -594,7 +603,7 @@ __device__ __forceinline__ void s1_bf16(float* sm, const LoopW& w, int jb, int l
 // or the sums.
 template <int HEAD>
 __device__ __forceinline__ void s3_bf16(float* sm, const LoopW& w, int jb, int nj, int lane, float* dw2) {
-  using S = BSmem<true>;
+  using S = BSmem<MODE_BF16>;
   constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
   constexpr int NS = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 0;
   const int g = lane >> 2, c = lane & 3;
@@ -681,7 +690,7 @@ __device__ __forceinline__ void s3_bf16(float* sm, const LoopW& w, int jb, int n
 // + 4ua + a (a < 4) x columns 4cb + k and 32 + 4cb + k (k < 4): 64 sums kept
 // in DW as 16 float4 (slot 2a' + h: unit index a' < 8, column half h).
 __device__ __forceinline__ void p3_fp32(float* sm, int warp, int lane) {
-  using S = BSmem<false>;
+  using S = BSmem<MODE_FP32>;
   const int ua = lane >> 3, cb = lane & 7;
   float4* dw = reinterpret_cast<float4*>(sm + S::DW) + warp * 16 * 32 + lane;
   float acc[8][8];
@@ -716,7 +725,7 @@ __device__ __forceinline__ void p3_fp32(float* sm, int warp, int lane) {
 // 3 k-steps) x the 8 n-tiles of columns (B = hid^T fragments): its C
 // fragments are kept in DW, slot mt * 8 + nt.
 __device__ __forceinline__ void p3_bf16(float* sm, int warp, int lane) {
-  using S = BSmem<true>;
+  using S = BSmem<MODE_BF16>;
   const int g = lane >> 2, c = lane & 3;
   const float* dp = sm + S::DP;
   const uint32_t* ht = reinterpret_cast<const uint32_t*>(sm + S::HIDT);
@@ -785,7 +794,7 @@ __device__ __forceinline__ void dpre_out2(const BwdIO& io, size_t aj_at, size_t 
 // neighbours nq + 8q (q < 4) x columns 4cg + k.
 __device__ __forceinline__ void p2a_fp32(const float* sm, const BwdIO& io, size_t aj0, size_t ed0,
                                          int nj, int warp, int lane, float (&dai)[4]) {
-  using S = BSmem<false>;
+  using S = BSmem<MODE_FP32>;
   const int nq = (lane >> 4) + 2 * (warp - 8), col = 4 * (lane & 15);
   float acc[4][4];
 #pragma unroll
@@ -828,7 +837,7 @@ __device__ __forceinline__ void p2a_fp32(const float* sm, const BwdIO& io, size_
 // columns 8 warp + 4h + k.
 __device__ __forceinline__ void p2b_fp32(const float* sm, const BwdIO& io, size_t aj0, size_t ed0,
                                          int nj, int warp, int lane, float (&dai)[4]) {
-  using S = BSmem<false>;
+  using S = BSmem<MODE_FP32>;
   const int j = 32 + (lane >> 1), col = 8 * warp + 4 * (lane & 1);
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   const float* dp = sm + S::DP + j * DP_LD;
@@ -862,7 +871,7 @@ __device__ __forceinline__ void p2b_fp32(const float* sm, const BwdIO& io, size_
 template <int MT, int NN>
 __device__ __forceinline__ void p2_bf16(const float* sm, const BwdIO& io, size_t aj0, size_t ed0,
                                         int nj, int mt0, int nt0, int lane, float (&dai)[4]) {
-  using S = BSmem<true>;
+  using S = BSmem<MODE_BF16>;
   const int g = lane >> 2, c = lane & 3;
   float acc[MT][NN][4];
 #pragma unroll
@@ -913,6 +922,255 @@ __device__ __forceinline__ void p2_bf16(const float* sm, const BwdIO& io, size_t
   }
 }
 
+// A fragment (hi, lo) split from a row-major fp32 tile, p = &tile[g][2c]:
+// rows g and g + 8 (ld floats apart), columns 2c, 2c + 1 and 2c + 8, 2c + 9.
+__device__ __forceinline__ void split_a(const float* p, int ld, uint32_t (&h)[4], uint32_t (&l)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(p), x1 = *reinterpret_cast<const float2*>(p + 8 * ld);
+  const float2 x2 = *reinterpret_cast<const float2*>(p + 8), x3 = *reinterpret_cast<const float2*>(p + 8 * ld + 8);
+  split_bf16x2(x0.x, x0.y, h[0], l[0]);
+  split_bf16x2(x1.x, x1.y, h[1], l[1]);
+  split_bf16x2(x2.x, x2.y, h[2], l[2]);
+  split_bf16x2(x3.x, x3.y, h[3], l[3]);
+}
+
+// B fragment (hi, lo) of column n = g split from an fp32 row that holds k
+// contiguously, p = &row[2c]: k = 2c, 2c + 1 and 2c + 8, 2c + 9.
+__device__ __forceinline__ void split_b(const float* p, uint32_t (&h)[2], uint32_t (&l)[2]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(p), x1 = *reinterpret_cast<const float2*>(p + 8);
+  split_bf16x2(x0.x, x0.y, h[0], l[0]);
+  split_bf16x2(x1.x, x1.y, h[1], l[1]);
+}
+
+// The same where k runs down a column, ld floats apart: p = &col[2c * ld].
+__device__ __forceinline__ void split_b_col(const float* p, int ld, uint32_t (&h)[2], uint32_t (&l)[2]) {
+  split_bf16x2(p[0], p[ld], h[0], l[0]);
+  split_bf16x2(p[8 * ld], p[9 * ld], h[1], l[1]);
+}
+
+// S1, high: s1_bf16's tile with each product split (hid and whm from the
+// fp32 tile and rows, split per k-step; act and the lin2 rows); act goes
+// to DP unrounded.
+template <int HEAD>
+__device__ __forceinline__ void s1_high(float* sm, const LoopW& w, int jb, int lane) {
+  using S = BSmem<MODE_HIGH>;
+  constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
+  constexpr int NE = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 1;
+  const int g = lane >> 2, c = lane & 3;
+  const int j = jb + g;
+  float e[2][NE];
+  pair_operands<HEAD>(sm + S::GEOS, j, e[0]);
+  pair_operands<HEAD>(sm + S::GEOS, j + 8, e[1]);
+  float lacc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int t = 0; t < 4; ++t) {
+    float cc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t ah[4], al[4];
+      split_a(sm + S::HID + j * HF_LD + 16 * ks + 2 * c, HF_LD, ah, al);
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        uint32_t bh[2], bl[2];
+        split_b(sm + S::WHM + (HEAD * T + 16 * t + 8 * nn + g) * HF_LD + 16 * ks + 2 * c, bh, bl);
+        mma_split_16816(cc[nn], ah, al, bh, bl);
+      }
+    }
+    uint32_t lh[4], ll[4];
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {
+      const int uu = 16 * t + 8 * nn + 2 * c;
+      float c0[5], c1[5];
+      unit_coef<false, HEAD>(w, sm + S::TN, uu, c0);
+      unit_coef<false, HEAD>(w, sm + S::TN, uu + 1, c1);
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const float x0 = fmaxf(cc[nn][2 * h8] + extra_term<HEAD>(e[h8], c0), 0.f);
+        const float x1 = fmaxf(cc[nn][2 * h8 + 1] + extra_term<HEAD>(e[h8], c1), 0.f);
+        split_bf16x2(x0, x1, lh[2 * nn + h8], ll[2 * nn + h8]);
+        *reinterpret_cast<float2*>(sm + S::DP + (j + 8 * h8) * DP_LD + HEAD * T + uu) = float2{x0, x1};
+      }
+    }
+    uint32_t bh[2] = {0u, 0u}, bl[2] = {0u, 0u};  // the head's lin2 rows, padded to n = 8 with zeros
+    if (g < R) split_b(sm + S::W2S + (R0 + g) * T + 16 * t + 2 * c, bh, bl);
+    mma_split_16816(lacc, lh, ll, bh, bl);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = 2 * c + r;
+    if (n < R) {
+      const float bias = __ldg(w.b2 + R0 + n);
+      sm[S::OUTS + j * DV_LD + R0 + n] = lacc[r] + bias;
+      sm[S::OUTS + (j + 8) * DV_LD + R0 + n] = lacc[2 + r] + bias;
+    }
+  }
+}
+
+// S3, high: s3_bf16 with each product split (d(out), act from DP, w2 from
+// W2S); phase E's sums take d(rot) and wrq unrounded.
+template <int HEAD>
+__device__ __forceinline__ void s3_high(float* sm, const LoopW& w, int jb, int nj, int lane, float* dw2) {
+  using S = BSmem<MODE_HIGH>;
+  constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
+  constexpr int NS = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 0;
+  const int g = lane >> 2, c = lane & 3;
+  const int ja = jb + g, jc = jb + g + 8;
+  auto dv = [&](int j, int o) { return j < nj && o < R ? sm[S::DOUT + j * DV_LD + R0 + o] : 0.f; };
+  float av[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float* src = sm + S::DP + HEAD * T + 8 * nt + 2 * c;
+    const float2 x0 = *reinterpret_cast<const float2*>(src + ja * DP_LD);
+    const float2 x1 = *reinterpret_cast<const float2*>(src + jc * DP_LD);
+    av[nt][0] = x0.x, av[nt][1] = x0.y, av[nt][2] = x1.x, av[nt][3] = x1.y;
+  }
+  {  // dW2[R0 + o][unit] += d(out)^T @ act (A rows = lin2 rows, k = neighbours)
+    uint32_t ah[4] = {0u, 0u, 0u, 0u}, al[4] = {0u, 0u, 0u, 0u};
+    split_bf16x2(dv(jb + 2 * c, g), dv(jb + 2 * c + 1, g), ah[0], al[0]);
+    split_bf16x2(dv(jb + 2 * c + 8, g), dv(jb + 2 * c + 9, g), ah[2], al[2]);
+    const float* ar = sm + S::DP + (jb + 2 * c) * DP_LD + HEAD * T + g;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      uint32_t bh[2], bl[2];
+      split_b_col(ar + 8 * nt, DP_LD, bh, bl);
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_split_16816(acc, ah, al, bh, bl);
+      if (g < R) {
+        dw2[(R0 + g) * T + 8 * nt + 2 * c] += acc[0];
+        dw2[(R0 + g) * T + 8 * nt + 2 * c + 1] += acc[1];
+      }
+    }
+    __syncwarp();
+  }
+  uint32_t ah[4] = {0u, 0u, 0u, 0u}, al[4] = {0u, 0u, 0u, 0u};
+  split_bf16x2(dv(ja, 2 * c), dv(ja, 2 * c + 1), ah[0], al[0]);
+  split_bf16x2(dv(jc, 2 * c), dv(jc, 2 * c + 1), ah[1], al[1]);
+  const float* w2r = sm + S::W2S + R0 * T;
+  float ev[2 * NS + 1];
+#pragma unroll
+  for (int k = 0; k < 2 * NS; ++k) ev[k] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int un = 8 * nt + g, o = 2 * c;  // B[k = lin2 row][n = unit], k >= R zero
+    uint32_t bh[2] = {0u, 0u}, bl[2] = {0u, 0u};
+    split_bf16x2(o < R ? w2r[o * T + un] : 0.f, o + 1 < R ? w2r[(o + 1) * T + un] : 0.f, bh[0], bl[0]);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_split_16816(acc, ah, al, bh, bl);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = av[nt][k] > 0.f ? acc[k] : 0.f;
+    float* dst = sm + S::DP + HEAD * T + 8 * nt + 2 * c;
+    *reinterpret_cast<float2*>(dst + ja * DP_LD) = float2{acc[0], acc[1]};
+    *reinterpret_cast<float2*>(dst + jc * DP_LD) = float2{acc[2], acc[3]};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int uu = 8 * nt + 2 * c + e;
+      float cs[NS + 1];
+      if constexpr (HEAD == 0) {
+        cs[0] = __ldg(w.wad + uu);
+        cs[1] = __ldg(w.waq + uu);
+      } else if constexpr (HEAD == 1) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) cs[s] = __ldg(w.wrq + uu * 4 + s);
+      }
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8)
+#pragma unroll
+        for (int s = 0; s < NS; ++s) ev[h8 * NS + s] = fmaf(cs[s], acc[2 * h8 + e], ev[h8 * NS + s]);
+    }
+  }
+  if constexpr (NS > 0) {
+    float h1[NS], h2[NS / 2];
+    rs_step<2 * NS, 2>(reinterpret_cast<float(&)[2 * NS]>(ev), h1, lane);
+    rs_step<NS, 1>(h1, h2, lane);
+#pragma unroll
+    for (int k = 0; k < NS / 2; ++k) {
+      const int f = c * (NS / 2) + k, h8 = f / NS, s = f % NS;
+      sm[S::REDS + (h8 ? jc : ja) * RED_LD + (HEAD == 0 ? 4 + s : s)] = h2[k];
+    }
+  }
+}
+
+// P, warps 0-7, high: p3_bf16 with each product split (d(pre_heads) from
+// DP, hid^T from the fp32 hid tile); the same C fragment slots in DW.
+__device__ __forceinline__ void p3_high(float* sm, int warp, int lane) {
+  using S = BSmem<MODE_HIGH>;
+  const int g = lane >> 2, c = lane & 3;
+  uint32_t ah[2][3][4], al[2][3][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) {
+      const float* r = sm + S::DP + (16 * ks + 2 * c) * DP_LD + 32 * warp + 16 * mt + g;
+      split_bf16x2(r[0], r[DP_LD], ah[mt][ks][0], al[mt][ks][0]);
+      split_bf16x2(r[8], r[DP_LD + 8], ah[mt][ks][1], al[mt][ks][1]);
+      split_bf16x2(r[8 * DP_LD], r[9 * DP_LD], ah[mt][ks][2], al[mt][ks][2]);
+      split_bf16x2(r[8 * DP_LD + 8], r[9 * DP_LD + 8], ah[mt][ks][3], al[mt][ks][3]);
+    }
+  float4* dw = reinterpret_cast<float4*>(sm + S::DW) + warp * 16 * 32 + lane;
+#pragma unroll 2
+  for (int nt = 0; nt < 8; ++nt) {
+    uint32_t bh[3][2], bl[3][2];
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks)
+      split_b_col(sm + S::HID + (16 * ks + 2 * c) * HF_LD + 8 * nt + g, HF_LD, bh[ks], bl[ks]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float4 v = dw[(mt * 8 + nt) * 32];
+      float acc[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int ks = 0; ks < 3; ++ks) mma_split_16816(acc, ah[mt][ks], al[mt][ks], bh[ks], bl[ks]);
+      dw[(mt * 8 + nt) * 32] = float4{acc[0], acc[1], acc[2], acc[3]};
+    }
+  }
+}
+
+// P, d(hid), high: p2_bf16 with each product split (d(pre_heads) from DP,
+// whm from its fp32 rows, k = units down a column), relu-gated by the fp32
+// hid tile.
+template <int MT, int NN>
+__device__ __forceinline__ void p2_high(const float* sm, const BwdIO& io, size_t aj0, size_t ed0,
+                                        int nj, int mt0, int nt0, int lane, float (&dai)[4]) {
+  using S = BSmem<MODE_HIGH>;
+  const int g = lane >> 2, c = lane & 3;
+  float acc[MT][NN][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn) acc[m][nn][0] = acc[m][nn][1] = acc[m][nn][2] = acc[m][nn][3] = 0.f;
+#pragma unroll 2
+  for (int ks = 0; ks < HEADS / 16; ++ks) {
+    uint32_t bh[NN][2], bl[NN][2];
+#pragma unroll
+    for (int nn = 0; nn < NN; ++nn)
+      split_b_col(sm + S::WHM + (16 * ks + 2 * c) * HF_LD + 8 * (nt0 + nn) + g, HF_LD, bh[nn], bl[nn]);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      uint32_t ah[4], al[4];
+      split_a(sm + S::DP + (16 * (mt0 + m) + g) * DP_LD + 16 * ks + 2 * c, DP_LD, ah, al);
+#pragma unroll
+      for (int nn = 0; nn < NN; ++nn) mma_split_16816(acc[m][nn], ah, al, bh[nn], bl[nn]);
+    }
+  }
+#pragma unroll
+  for (int nn = 0; nn < NN; ++nn) {
+    const int col = 8 * (nt0 + nn) + 2 * c;
+    const float gh0 = sm[S::GH + col], gh1 = sm[S::GH + col + 1];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const int j = 16 * (mt0 + m) + g + 8 * h8;
+        if (j < nj) {
+          const float2 hv = *reinterpret_cast<const float2*>(sm + S::HID + j * HF_LD + col);
+          const float d0 = hv.x > 0.f ? acc[m][nn][2 * h8] + gh0 : 0.f;
+          const float d1 = hv.y > 0.f ? acc[m][nn][2 * h8 + 1] + gh1 : 0.f;
+          const size_t at = (size_t)j * T + col;
+          dpre_out2(io, aj0 + at, ed0 + at, float2{d0, d1}, dai[2 * nn], dai[2 * nn + 1]);
+        }
+      }
+    }
+  }
+}
+
 // Built with -DPMHC_LOOP_PHASES (chip_ab.py --phases) the backward adds up,
 // per warp and phase, the cycles from the phase's start to the warp's
 // arrival at the phase's closing barrier (row [warp]), and on thread 0 the
@@ -941,10 +1199,12 @@ __device__ __forceinline__ long long clock_now() {
 #define phase_sync(k) __syncthreads()
 #endif
 
-template <bool BF16>
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
     egnn_loop_bwd_kernel(const Inputs in, const BwdIO io) {
-  using S = BSmem<BF16>;
+  using S = BSmem<MODE>;
+  constexpr bool BF16 = MODE == MODE_BF16;
+  constexpr bool MMA = MODE != MODE_FP32;  // bf16 and high: the tasks on the tensor cores
   extern __shared__ __align__(16) float smem[];
   float* sm = smem;
   const int tid = threadIdx.x;
@@ -1151,6 +1411,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         else if (hd == 1) s1_bf16<1>(sm, lw, jb, lane);
         else if (hd == 2) s1_bf16<2>(sm, lw, jb, lane);
         else s1_bf16<3>(sm, lw, jb, lane);
+      } else if constexpr (MMA) {
+        if (hd == 0) s1_high<0>(sm, lw, jb, lane);
+        else if (hd == 1) s1_high<1>(sm, lw, jb, lane);
+        else if (hd == 2) s1_high<2>(sm, lw, jb, lane);
+        else s1_high<3>(sm, lw, jb, lane);
       } else {
         if (hd == 0) s1_fp32<0>(sm, lw, jb, lane);
         else if (hd == 1) s1_fp32<1>(sm, lw, jb, lane);
@@ -1216,6 +1481,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         else if (hd == 1) s3_bf16<1>(sm, lw, jb, nj, lane, dw2);
         else if (hd == 2) s3_bf16<2>(sm, lw, jb, nj, lane, dw2);
         else s3_bf16<3>(sm, lw, jb, nj, lane, dw2);
+      } else if constexpr (MMA) {
+        if (hd == 0) s3_high<0>(sm, lw, jb, nj, lane, dw2);
+        else if (hd == 1) s3_high<1>(sm, lw, jb, nj, lane, dw2);
+        else if (hd == 2) s3_high<2>(sm, lw, jb, nj, lane, dw2);
+        else s3_high<3>(sm, lw, jb, nj, lane, dw2);
       } else {
         if (hd == 0) s3_fp32<0>(sm, lw, jb, nj, lane, dw2);
         else if (hd == 1) s3_fp32<1>(sm, lw, jb, nj, lane, dw2);
@@ -1233,6 +1503,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (warp < 8) {
           if constexpr (BF16) {
             p3_bf16(sm, warp, lane);
+          } else if constexpr (MMA) {
+            p3_high(sm, warp, lane);
           } else {
             p3_fp32(sm, warp, lane);
             p2b_fp32(sm, io, aj0, ed0, nj, warp, lane, dai);
@@ -1316,6 +1588,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
           if constexpr (BF16) {
             p2_bf16<3, 2>(sm, io, aj0, ed0, nj, 0, 2 * (warp - 8), lane, dai);
+          } else if constexpr (MMA) {
+            p2_high<3, 2>(sm, io, aj0, ed0, nj, 0, 2 * (warp - 8), lane, dai);
           } else {
             p2a_fp32(sm, io, aj0, ed0, nj, warp, lane, dai);
           }
@@ -1323,7 +1597,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       // d(a_i): the lanes' sums over this tile's neighbours, reduced over the
       // lanes that share columns, added to slots of disjoint columns
-      if constexpr (BF16) {
+      if constexpr (MMA) {
         if (warp >= 8) {  // over the 8 g lanes; lanes 0-3: columns 16 (w - 8) + 8nn + 2c + r
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
@@ -1389,7 +1663,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float4* dw = reinterpret_cast<const float4*>(sm + S::DW) + warp * 16 * 32 + lane;
     for (int s = 0; s < 16; ++s) {
       const float4 v = dw[s * 32];
-      if constexpr (BF16) {  // slot mt * 8 + nt: units 32w + 16mt + g (+ 8), columns 8nt + 2c (+ 1)
+      if constexpr (MMA) {  // slot mt * 8 + nt: units 32w + 16mt + g (+ 8), columns 8nt + 2c (+ 1)
         const int u = 32 * warp + 16 * (s >> 3) + (lane >> 2), col = 8 * (s & 7) + 2 * (lane & 3);
         part[O_WHM + u * T + col] = v.x;
         part[O_WHM + u * T + col + 1] = v.y;
@@ -1435,27 +1709,27 @@ __global__ void egnn_loop_reduce_kernel(const float* __restrict__ partial, float
   dw[k] = s;
 }
 
-template <bool BF16>
+template <int MODE>
 int launch_fwd(Inputs in, FwdOut out, cudaStream_t stream) {
   static std::atomic<int> sms_of[MAX_DEVICES];
-  const int sms = persistent_sms(egnn_loop_fwd_kernel<BF16>, FSmem<BF16>::BYTES, sms_of);
+  const int sms = persistent_sms(egnn_loop_fwd_kernel<MODE>, FSmem<MODE>::BYTES, sms_of);
   if (sms < 0) return -sms;
   // one block per SM, each a contiguous run of query rows
   const int rows = in.B * in.N;
   int per_block = (rows + sms - 1) / sms;
   const int grid = (rows + per_block - 1) / per_block;
   void* args[] = {&in, &out, &per_block};
-  const cudaError_t err = cudaLaunchKernel(egnn_loop_fwd_kernel<BF16>, dim3(grid), dim3(THREADS), args,
-                                           FSmem<BF16>::BYTES, stream);
+  const cudaError_t err = cudaLaunchKernel(egnn_loop_fwd_kernel<MODE>, dim3(grid), dim3(THREADS), args,
+                                           FSmem<MODE>::BYTES, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <bool BF16>
+template <int MODE>
 int launch_bwd(Inputs in, BwdIO io, float* dw, int blocks, cudaStream_t stream) {
   if (in.NP > MAXNP) return (int)cudaErrorInvalidValue;
   static std::atomic<int> sms_of[MAX_DEVICES];
-  const int sms = persistent_sms(egnn_loop_bwd_kernel<BF16>, BSmem<BF16>::BYTES, sms_of);
+  const int sms = persistent_sms(egnn_loop_bwd_kernel<MODE>, BSmem<MODE>::BYTES, sms_of);
   if (sms < 0) return -sms;
   cudaError_t err;
   const size_t nbr = (size_t)in.B * in.NP;
@@ -1466,8 +1740,8 @@ int launch_bwd(Inputs in, BwdIO io, float* dw, int blocks, cudaStream_t stream) 
           cudaSuccess)
     return (int)err;
   void* args[] = {&in, &io};
-  err = cudaLaunchKernel(egnn_loop_bwd_kernel<BF16>, dim3(blocks), dim3(THREADS), args,
-                         BSmem<BF16>::BYTES, stream);
+  err = cudaLaunchKernel(egnn_loop_bwd_kernel<MODE>, dim3(blocks), dim3(THREADS), args,
+                         BSmem<MODE>::BYTES, stream);
   if (err != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const float* partial = io.partial;
@@ -1514,13 +1788,16 @@ int egnn_loop_fwd_launch(const float* w, const float* ai, const float* tor, cons
                          const float* ti, const float* aj, const float* qj, const float* tj,
                          const float* edge, const float* mask, float* m, float* D, float* GD,
                          float* TA, float* TR, float* HID, float* CNT, int B, int N, int NP,
-                         int bf16, void* stream) {
+                         int mode, void* stream) {
   using namespace pmhc;
   if (B < 1 || N < 1 || NP < 1) return (int)cudaErrorInvalidValue;
   const Inputs in = {w, ai, tor, qi, ti, aj, qj, tj, edge, mask, B, N, NP};
   const FwdOut out = {m, D, GD, TA, TR, HID, CNT};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_fwd<true>(in, out, s) : launch_fwd<false>(in, out, s);
+  if (mode == MODE_BF16) return launch_fwd<MODE_BF16>(in, out, s);
+  if (mode == MODE_HIGH) return launch_fwd<MODE_HIGH>(in, out, s);
+  if (mode != MODE_FP32) return (int)cudaErrorInvalidValue;
+  return launch_fwd<MODE_FP32>(in, out, s);
 }
 
 int egnn_loop_bwd_launch(const float* w, const float* ai, const float* tor, const float* qi,
@@ -1529,13 +1806,16 @@ int egnn_loop_bwd_launch(const float* w, const float* ai, const float* tor, cons
                          const float* gGD, const float* gTA, const float* gTR, const float* gHID,
                          float* dai, float* dtor, float* dqi, float* dti, float* daj, float* dqj,
                          float* dtj, float* dedge, float* dw, float* partial, int B, int N, int NP,
-                         int bf16, int blocks, void* stream) {
+                         int mode, int blocks, void* stream) {
   using namespace pmhc;
   if (B < 1 || N < 1 || NP < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
   const Inputs in = {w, ai, tor, qi, ti, aj, qj, tj, edge, mask, B, N, NP};
   const BwdIO io = {m, gD, gGD, gTA, gTR, gHID, dai, dtor, dqi, dti, daj, dqj, dtj, dedge, partial};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bwd<true>(in, io, dw, blocks, s) : launch_bwd<false>(in, io, dw, blocks, s);
+  if (mode == MODE_BF16) return launch_bwd<MODE_BF16>(in, io, dw, blocks, s);
+  if (mode == MODE_HIGH) return launch_bwd<MODE_HIGH>(in, io, dw, blocks, s);
+  if (mode != MODE_FP32) return (int)cudaErrorInvalidValue;
+  return launch_bwd<MODE_FP32>(in, io, dw, blocks, s);
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@
 //
 // Per (row, tile), between barriers:
 //   build_tile     the hid tile relu(a_i + a_j + edge), rounded to bf16 in
-//                  bf16 mode, rows past the tile's neighbours zero; each
+//                  bf16 mode, split into bf16 hi and lo tiles in high mode,
+//                  rows past the tile's neighbours zero; each
 //                  warp's partial sums of HID (unrounded, over the tile's
 //                  neighbours); the geometry records, one thread per
 //                  neighbour;
@@ -21,7 +22,8 @@
 //                  epilogues differ: act = relu(whm @ hid + extra), then the
 //                  head's lin2 rows from the task's own registers;
 //                  head_task_bf16 on mma.sync m16n8k16 (the epilogue's C
-//                  fragments are the lin2's A fragments), head_task_fp32 in
+//                  fragments are the lin2's A fragments), head_task_high
+//                  the same with three mma.sync per product, head_task_fp32 in
 //                  8 x 8 FFMA register tiles (the lin2 partials through a
 //                  shuffle reduce-scatter);
 //   fold_tile      warps 0-2, 32 neighbours each: the masked logits'
@@ -30,8 +32,8 @@
 //   merge_tile     warp 0: the three partials into the row's running state
 //                  (online merge: a row of several tiles merges each).
 // stage_weights puts whm, the lin2 rows and the extra-term coefficients in
-// shared memory once per block (bf16: as mma B fragments), while the first
-// tile's copies land.
+// shared memory once per block (bf16: as mma B fragments; high: as hi and
+// lo B fragments), while the first tile's copies land.
 //
 // The extra terms of the head pre-activations (egnn_common.cuh's
 // geometry records supply their operands):
@@ -43,7 +45,11 @@
 // (round to nearest even): whm and hid, wrq and the local quat (rounded
 // once, in the geometry record), w2 and act. The attention's rank-1
 // terms, the biases, the node terms, geometry, softmax and every sum stay
-// fp32.
+// fp32. high mode splits the operands of the two tensor-core products,
+// whm and hid, w2 and act, into bf16 hi + lo (split_bf16x2) and sums
+// hi*hi + hi*lo + lo*hi; the rotation term multiplies wrq and the local
+// quat unrounded in fp32 FMA (more exact than a split; the plain version
+// does the same).
 
 #pragma once
 
@@ -68,21 +74,24 @@ constexpr int O_LD = NOUT + 4;
 constexpr int STAGE_LD = T + 1;      // fp32 whm transpose staging
 
 // The shared memory of the tile loop, in floats (every region 16-byte
-// aligned); a kernel's own regions follow from END.
-template <bool BF16>
+// aligned); a kernel's own regions follow from END. high mode keeps the hi
+// B fragments, then the lo ones (WHM, W2F), and the hid tile's hi rows,
+// then its lo rows (HID).
+template <int MODE>
 struct TileSmem {
+  static constexpr bool BF = MODE == MODE_BF16, HI = MODE == MODE_HIGH;
   static constexpr int WHM = 0;    // bf16: B fragments [4 heads][8 n][4 k][32 lanes] uint2; fp32: whm^T [T][HEADS]
-  static constexpr int COEF = WHM + (BF16 ? HEADS * T / 2 : HEADS * T);  // [5][HEADS] extra-term c0..c3, cb
+  static constexpr int COEF = WHM + (BF ? HEADS * T / 2 : HEADS * T);   // [5][HEADS] extra-term c0..c3, cb
   static constexpr int W2 = COEF + 5 * HEADS;                            // fp32: lin2 rows [NOUT][T]
-  static constexpr int B2 = W2 + (BF16 ? 0 : NOUT * T);                  // [16]
+  static constexpr int B2 = W2 + (MODE == MODE_FP32 ? NOUT * T : 0);     // [16]
   static constexpr int W2F = B2 + 16;  // bf16: lin2 B fragments [4 heads][4 k][32 lanes] uint2
-  static constexpr int AJ = W2F + (BF16 ? 4 * 4 * 32 * 2 : 0);  // the next tile's inputs (cp.async): a_j [TILE][T]
+  static constexpr int AJ = W2F + (BF ? 4 * 4 * 32 * 2 : HI ? 2 * 4 * 4 * 32 * 2 : 0);  // the next tile's inputs (cp.async): a_j [TILE][T]
   static constexpr int ED = AJ + TILE * T;                               // edge [TILE][T]
   static constexpr int QJ = ED + TILE * T;                               // q_j [TILE][4]
   static constexpr int TJ = QJ + TILE * 4;                               // t_j [TILE * 3]
   static constexpr int MK = TJ + TILE * 3;                               // mask [TILE]
   static constexpr int HID = MK + TILE;  // hid tile: bf16 [TILE][HB_LD] words; fp32 [TILE][HF_LD]
-  static constexpr int GEOS = HID + TILE * (BF16 ? HB_LD : HF_LD);       // [TILE][GEO_LD]
+  static constexpr int GEOS = HID + TILE * (BF ? HB_LD : HI ? 2 * HB_LD : HF_LD);  // [TILE][GEO_LD]
   static constexpr int OUTS = GEOS + TILE * GEO_LD;                      // lin2 outputs [TILE][O_LD]
   static constexpr int HSP = OUTS + TILE * O_LD;                         // HID partials [WARPS][T]
   static constexpr int FP = HSP + WARPS * T;                             // fold partials [3][FOLD]
@@ -169,7 +178,7 @@ __device__ __forceinline__ float fold_sums(const float (&v)[16], int lane) {
 // + 32 + 4ug + v (v < 4) per lane (pg = lane / 8, ug = lane % 8).
 template <int HEAD>
 __device__ __forceinline__ void head_task_fp32(float* sm, int jb, int lane) {
-  using S = TileSmem<false>;
+  using S = TileSmem<MODE_FP32>;
   constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
   const int pg = lane >> 3, ug = lane & 7;
   const float* hrow = sm + S::HID + (jb + pg) * HF_LD;
@@ -241,7 +250,7 @@ __device__ __forceinline__ void head_task_fp32(float* sm, int jb, int lane) {
 // HEAD on the tensor cores.
 template <int HEAD>
 __device__ __forceinline__ void head_task_bf16(float* sm, int jb, int lane) {
-  using S = TileSmem<true>;
+  using S = TileSmem<MODE_BF16>;
   constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
   constexpr int NE = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 1;
   const int g = lane >> 2, c = lane & 3;
@@ -325,28 +334,142 @@ __device__ __forceinline__ void head_task_bf16(float* sm, int jb, int lane) {
   }
 }
 
+// high task: head_task_bf16's tiles with every product split, hi*hi +
+// hi*lo + lo*hi on the tensor cores. The hid A fragments are loaded per
+// k-step (hi and lo, both m-tiles), not held for the whole task: held,
+// they would double the bf16 task's 32 registers of A fragments.
+template <int HEAD>
+__device__ __forceinline__ void head_task_high(float* sm, int jb, int lane) {
+  using S = TileSmem<MODE_HIGH>;
+  constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
+  constexpr int NE = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 1;
+  const int g = lane >> 2, c = lane & 3;
+  const uint32_t* hh = reinterpret_cast<const uint32_t*>(sm + S::HID);
+  const uint32_t* hl = hh + TILE * HB_LD;
+  const uint2* whh = reinterpret_cast<const uint2*>(sm + S::WHM);
+  const uint2* whl = whh + 4 * 8 * 4 * 32;
+  const uint2* w2h = reinterpret_cast<const uint2*>(sm + S::W2F) + HEAD * 4 * 32 + lane;
+  const uint2* w2l = w2h + 4 * 4 * 32;
+  const float* coef = sm + S::COEF;
+  float e[2][2][NE];  // [m-tile][row g, g + 8] extra-term operands
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    pair_operands<HEAD>(sm + S::GEOS, jb + 16 * mt + g, e[mt][0]);
+    pair_operands<HEAD>(sm + S::GEOS, jb + 16 * mt + g + 8, e[mt][1]);
+  }
+  float lacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 1
+  for (int t = 0; t < 4; ++t) {  // units 16t .. 16t + 15 of the head: n-tiles 2t, 2t + 1
+    float cc[2][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) cc[mt][nn][r] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int j = jb + 16 * mt + g;
+        const int at[4] = {j * HB_LD + ks * 8 + c, (j + 8) * HB_LD + ks * 8 + c, j * HB_LD + ks * 8 + 4 + c,
+                           (j + 8) * HB_LD + ks * 8 + 4 + c};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          ah[mt][r] = hh[at[r]];
+          al[mt][r] = hl[at[r]];
+        }
+      }
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        const int f = ((HEAD * 8 + 2 * t + nn) * 4 + ks) * 32 + lane;
+        const uint2 bh = whh[f], bl = whl[f];
+        const uint32_t b_h[2] = {bh.x, bh.y}, b_l[2] = {bl.x, bl.y};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_split_16816(cc[mt][nn], ah[mt], al[mt], b_h, b_l);
+      }
+    }
+    // epilogue on the C fragments: + extra, relu, split; the two n-tiles
+    // are the lin2's A fragments (hi, lo) for k-step t
+    uint32_t lh[2][4], ll[2][4];
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {
+      const int u = HEAD * T + 16 * t + 8 * nn + 2 * c;
+      float c0[5], c1[5];
+#pragma unroll
+      for (int r = 0; r < 5; ++r) {
+        c0[r] = coef[r * HEADS + u];
+        c1[r] = coef[r * HEADS + u + 1];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int h8 = 0; h8 < 2; ++h8) {
+          const float x0 = fmaxf(cc[mt][nn][2 * h8] + extra_term<HEAD>(e[mt][h8], c0), 0.f);
+          const float x1 = fmaxf(cc[mt][nn][2 * h8 + 1] + extra_term<HEAD>(e[mt][h8], c1), 0.f);
+          split_bf16x2(x0, x1, lh[mt][2 * nn + h8], ll[mt][2 * nn + h8]);
+        }
+      }
+    }
+    const uint2 vh = w2h[t * 32], vl = w2l[t * 32];
+    const uint32_t b2h[2] = {vh.x, vh.y}, b2l[2] = {vl.x, vl.y};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) mma_split_16816(lacc[mt], lh[mt], ll[mt], b2h, b2l);
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int j = jb + 16 * mt + g;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = 2 * c + r;
+      if (n < R) {
+        sm[S::OUTS + j * O_LD + R0 + n] = lacc[mt][r] + sm[S::B2 + R0 + n];
+        sm[S::OUTS + (j + 8) * O_LD + R0 + n] = lacc[mt][2 + r] + sm[S::B2 + R0 + n];
+      }
+    }
+  }
+}
+
+// Two B fragment registers of whm / w2 at wr (elements 0, 1 and 8, 9):
+// bf16 rounded (hi), or hi and lo (high; lo at f[lo_at]).
+template <int MODE>
+__device__ __forceinline__ void stage_frag(uint2* f, int e, int lo_at, const float* wr) {
+  if constexpr (MODE == MODE_HIGH) {
+    uint32_t h0, l0, h1, l1;
+    split_bf16x2(wr[0], wr[1], h0, l0);
+    split_bf16x2(wr[8], wr[9], h1, l1);
+    f[e] = make_uint2(h0, h1);
+    f[lo_at + e] = make_uint2(l0, l1);
+  } else {
+    f[e] = make_uint2(pack_bf16x2(wr[0], wr[1]), pack_bf16x2(wr[8], wr[9]));
+  }
+}
+
 // whm, the lin2 rows and b2, and the extra-term coefficients of heads 0,
 // 1 and 3, into shared memory (head 2's cb is the kernel's to set per row).
 // fp32 transposes whm through the hid tile, which must not be in use.
-template <bool BF16>
+template <int MODE>
 __device__ __forceinline__ void stage_weights(float* sm, const LoopW& w, int tid) {
-  using S = TileSmem<BF16>;
-  if constexpr (BF16) {
+  using S = TileSmem<MODE>;
+  if constexpr (MODE != MODE_FP32) {
     uint2* whf = reinterpret_cast<uint2*>(sm + S::WHM);
 #pragma unroll
     for (int e = tid; e < 4 * 8 * 4 * 32; e += THREADS) {
       const int l = e & 31, ks = (e >> 5) & 3, nt = e >> 7;  // nt = head * 8 + n-tile
-      const float* wr = w.whm + (nt * 8 + (l >> 2)) * T + 16 * ks + 2 * (l & 3);
-      whf[e] = make_uint2(pack_bf16x2(wr[0], wr[1]), pack_bf16x2(wr[8], wr[9]));
+      stage_frag<MODE>(whf, e, 4 * 8 * 4 * 32, w.whm + (nt * 8 + (l >> 2)) * T + 16 * ks + 2 * (l & 3));
     }
     // the lin2 B fragments of each head, its rows padded to n = 8 with zeros
     uint2* w2f = reinterpret_cast<uint2*>(sm + S::W2F);
     for (int e = tid; e < 4 * 4 * 32; e += THREADS) {
       const int l = e & 31, t = (e >> 5) & 3, hd = e >> 7;
       const int n = l >> 2;
-      const float* wr = w.w2 + (row0_of(hd) + n) * T + 16 * t + 2 * (l & 3);
-      w2f[e] = n < rows_of(hd) ? make_uint2(pack_bf16x2(wr[0], wr[1]), pack_bf16x2(wr[8], wr[9]))
-                               : make_uint2(0u, 0u);
+      if (n < rows_of(hd)) {
+        stage_frag<MODE>(w2f, e, 4 * 4 * 32, w.w2 + (row0_of(hd) + n) * T + 16 * t + 2 * (l & 3));
+      } else {
+        w2f[e] = make_uint2(0u, 0u);
+        if constexpr (MODE == MODE_HIGH) w2f[4 * 4 * 32 + e] = make_uint2(0u, 0u);
+      }
     }
   } else {
     // whm^T, 64 rows at a time through a padded staging tile (the hid
@@ -371,14 +494,14 @@ __device__ __forceinline__ void stage_weights(float* sm, const LoopW& w, int tid
       c[1] = w.waq[uu];
       c[4] = w.ba1[uu];
     } else if (hd == 1) {
-      for (int r = 0; r < 4; ++r) c[r] = rnd<BF16>(w.wrq[uu * 4 + r]);
+      for (int r = 0; r < 4; ++r) c[r] = rnd<MODE == MODE_BF16>(w.wrq[uu * 4 + r]);
       c[4] = w.br1[uu];
     } else if (hd == 3) {
       c[4] = w.bl1[uu];
     }
     for (int r = 0; r < 5; ++r) sm[S::COEF + r * HEADS + u] = c[r];
   }
-  if constexpr (!BF16) {
+  if constexpr (MODE == MODE_FP32) {
     for (int e = tid; e < NOUT * T; e += THREADS) sm[S::W2 + e] = w.w2[e];
   }
   if (tid < NOUT) sm[S::B2 + tid] = w.b2[tid];
@@ -411,10 +534,10 @@ __device__ __forceinline__ void copy16(float* dst, const float* src, bool aligne
 // cp.async of tile tl of query row (b, i) = row into the raw buffers: its
 // edge and mask rows and, with with_bj, its a_j, q_j and t_j rows. The
 // caller commits.
-template <bool BF16>
+template <int MODE>
 __device__ __forceinline__ void prefetch_tile(float* sm, const TileSrc& s, int b, int i, int row, int tl,
                                               bool with_bj, int tid) {
-  using S = TileSmem<BF16>;
+  using S = TileSmem<MODE>;
   const int j0 = tl * TILE, nj = min(TILE, s.NP - j0);
   if (with_bj) {
     const float* src = s.aj + ((size_t)b * s.NP + j0) * T;
@@ -432,10 +555,10 @@ __device__ __forceinline__ void prefetch_tile(float* sm, const TileSrc& s, int b
 // The tile's hid rows (nj neighbours; rows past nj zero), each warp's HID
 // partials and the geometry records, from the raw buffers and the row's
 // a_i [T], q_i [4], t_i [3] in shared memory.
-template <bool BF16>
+template <int MODE>
 __device__ __forceinline__ void build_tile(float* sm, const float* ai, const float* q_i, const float* t_i,
                                            int nj, int tid, int warp, int lane) {
-  using S = TileSmem<BF16>;
+  using S = TileSmem<MODE>;
   const float2 ai2 = *reinterpret_cast<const float2*>(ai + 2 * lane);
   float hs0 = 0.f, hs1 = 0.f;
   for (int j = warp; j < TILE; j += WARPS) {
@@ -448,8 +571,11 @@ __device__ __forceinline__ void build_tile(float* sm, const float* ai, const flo
       hs0 += v0;
       hs1 += v1;
     }
-    if constexpr (BF16) {
+    if constexpr (MODE == MODE_BF16) {
       reinterpret_cast<uint32_t*>(sm + S::HID)[j * HB_LD + lane] = pack_bf16x2(v0, v1);
+    } else if constexpr (MODE == MODE_HIGH) {
+      uint32_t* hh = reinterpret_cast<uint32_t*>(sm + S::HID);
+      split_bf16x2(v0, v1, hh[j * HB_LD + lane], hh[(TILE + j) * HB_LD + lane]);
     } else {
       *reinterpret_cast<float2*>(sm + S::HID + j * HF_LD + 2 * lane) = float2{v0, v1};
     }
@@ -475,7 +601,7 @@ __device__ __forceinline__ void build_tile(float* sm, const float* ai, const flo
       g[G_ND2] = -d2;
       g[G_QD2] = qdot * qdot;
       for (int c = 0; c < 4; ++c) {
-        g[G_LQ + c] = rnd<BF16>(lq[c]);  // bf16: the rotation term's operand, rounded once
+        g[G_LQ + c] = rnd<MODE == MODE_BF16>(lq[c]);  // bf16: the rotation term's operand, rounded once
         g[G_INV + c] = inv[c];
         g[G_QJ + c] = q_j[c];
       }
@@ -489,15 +615,20 @@ __device__ __forceinline__ void build_tile(float* sm, const float* ai, const flo
 
 // The 12 warp tasks: warp = (32-neighbour block, head); the heads rotate
 // over the SM's four sub-partitions (warp % 4), whose epilogues differ.
-template <bool BF16>
+template <int MODE>
 __device__ __forceinline__ void tile_product(float* sm, int nj, int warp, int lane) {
   const int jb = 32 * (warp >> 2), hd = (warp + (warp >> 2)) & 3;
   if (jb < nj) {
-    if constexpr (BF16) {
+    if constexpr (MODE == MODE_BF16) {
       if (hd == 0) head_task_bf16<0>(sm, jb, lane);
       else if (hd == 1) head_task_bf16<1>(sm, jb, lane);
       else if (hd == 2) head_task_bf16<2>(sm, jb, lane);
       else head_task_bf16<3>(sm, jb, lane);
+    } else if constexpr (MODE == MODE_HIGH) {
+      if (hd == 0) head_task_high<0>(sm, jb, lane);
+      else if (hd == 1) head_task_high<1>(sm, jb, lane);
+      else if (hd == 2) head_task_high<2>(sm, jb, lane);
+      else head_task_high<3>(sm, jb, lane);
     } else {
       if (hd == 0) head_task_fp32<0>(sm, jb, lane);
       else if (hd == 1) head_task_fp32<1>(sm, jb, lane);
@@ -510,9 +641,9 @@ __device__ __forceinline__ void tile_product(float* sm, int nj, int warp, int la
 // Warps 0-2: neighbours 32 warp .. 32 warp + 31 of the tile folded into a
 // partial of the online softmax (logit - (1 - mask) * 1e9; the maximum,
 // then D, GD[4], TA[7], TR[3], CNT against it). Rows past nj are left out.
-template <bool BF16>
+template <int MODE>
 __device__ __forceinline__ void fold_tile(float* sm, int nj, int warp, int lane) {
-  using S = TileSmem<BF16>;
+  using S = TileSmem<MODE>;
   const int j = 32 * warp + lane;
   const bool valid = j < nj;
   float* fp = sm + S::FP + warp * FOLD;
@@ -547,9 +678,9 @@ __device__ __forceinline__ void fold_tile(float* sm, int nj, int warp, int lane)
 }
 
 // s0 plus the warps' partial sums of HID column k
-template <bool BF16>
+template <int MODE>
 __device__ __forceinline__ float hid_sum(const float* sm, float s0, int k) {
-  using S = TileSmem<BF16>;
+  using S = TileSmem<MODE>;
   for (int w8 = 0; w8 < WARPS; ++w8) s0 += sm[S::HSP + w8 * T + k];
   return s0;
 }
@@ -557,9 +688,9 @@ __device__ __forceinline__ float hid_sum(const float* sm, float s0, int k) {
 // Warp 0: the three fold partials merged into the row's running state
 // (from m = -1e30 and zero sums at the row's first tile). Returns the
 // merged state's entry ``lane`` (lanes <= F_CNT; 0 on the others).
-template <bool BF16>
+template <int MODE>
 __device__ __forceinline__ float merge_tile(float* sm, int lane) {
-  using S = TileSmem<BF16>;
+  using S = TileSmem<MODE>;
   float* fr = sm + S::FR;
   float v = 0.f;
   if (lane <= F_CNT) {

@@ -8,6 +8,13 @@
 //   mma_bf16_16816   D += A (16x16 bf16, row) * B (16x8 bf16, col), fp32 C/D
 //   pack_bf16x2      cvt.rn.bf16x2.f32: two floats rounded to nearest even
 //                    into one register, the first argument in the low half
+//   split_bf16x2     the --fast-f32 split of two floats into bf16 halves:
+//                    hi = bf16_rn(x), lo = bf16_rn(x - hi), as two registers
+//                    laid out as pack_bf16x2's (x - hi is exact in fp32, so
+//                    hi + lo keeps ~16 significant bits of x)
+//   mma_split_16816  D += A * B from split operands: hi*hi + hi*lo + lo*hi,
+//                    three mma.sync (the lo*lo term, ~2^-16 relative, is
+//                    dropped, as in the JAX package's mm_maker("high"))
 //   cp_async16 / cp_async4, cp_async_commit, cp_async_wait_all
 //                    global -> shared copies in flight while the block
 //                    computes (emulated: a plain copy; the waits do nothing)
@@ -67,6 +74,25 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   r = uint32_t(__float2bfloat16_rn(lo).x) | (uint32_t(__float2bfloat16_rn(hi).x) << 16);
 #endif
   return r;
+}
+
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+#if defined(__CUDA_ARCH__)
+  hi = pack_bf16x2(x0, x1);
+  lo = pack_bf16x2(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xffff0000u));
+#elif defined(PMHC_CUDA_EMU)
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
+  hi = uint32_t(h0.x) | (uint32_t(h1.x) << 16);
+  lo = uint32_t(__float2bfloat16_rn(x0 - __bfloat162float(h0)).x) |
+       (uint32_t(__float2bfloat16_rn(x1 - __bfloat162float(h1)).x) << 16);
+#endif
+}
+
+__device__ __forceinline__ void mma_split_16816(float d[4], const uint32_t ah[4], const uint32_t al[4],
+                                                const uint32_t bh[2], const uint32_t bl[2]) {
+  mma_bf16_16816(d, ah, bh);
+  mma_bf16_16816(d, ah, bl);
+  mma_bf16_16816(d, al, bh);
 }
 
 // 16 bytes, both addresses 16-byte aligned; bypasses L1 (.cg)

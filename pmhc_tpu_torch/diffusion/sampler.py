@@ -13,8 +13,11 @@ Each step then runs the layer-2 peptide projection relu(inner) @ W1[H:2H]
 (a plain ``torch.matmul``), two fused-layer launches, and
 ``remove_noise``. In bf16 mode the neighbour projections take one bf16
 pass (operands rounded, fp32 sums), as ``sample_lane``'s DEFAULT-precision
-XLA matmuls do on the TPU. The dense backend evaluates ``score_network_forward``
-per step instead (the oracle path). The ``pallas`` backend runs the JAX
+XLA matmuls do on the TPU; in high mode (``--fast-f32``) the kernel splits
+its products into bf16 halves and the projections stay IEEE fp32, what
+``sample_lane``'s ``Precision.HIGH`` matmuls give on the CPU. The dense
+backend evaluates ``score_network_forward`` per step instead (the oracle
+path). The ``pallas`` backend runs the JAX
 package's generic sampler step, two ``ops/egnn_pallas.py`` launches per
 step, with its static context (packed weights, message mask, edge terms,
 the pocket halves of ``h_all``, ``q_j`` and ``t_j``) built once.
@@ -58,7 +61,7 @@ from pmhc_tpu_torch.models.score import (
     resolve_backend,
     score_network_forward,
 )
-from pmhc_tpu_torch.ops.egnn_fused import layer_context
+from pmhc_tpu_torch.ops.egnn_fused import layer_context, mode_of
 from pmhc_tpu_torch.ops.egnn_pallas import pallas_context
 from pmhc_tpu_torch.utils.graphs import GraphCache, Step, own_batch, use_graphs
 
@@ -100,7 +103,7 @@ class Forward:
 
 
 def fused_forward(model: ScoreNetwork, batch: Dict[str, Any], model_config: ScoreNetworkConfig,
-                  bf16: bool) -> Forward:
+                  bf16) -> Forward:
     """Build both layers' static context once; return its ``Forward``."""
     mask = batch["mask"].float()
     pocket_mask = batch["pocket_mask"].float()
@@ -246,7 +249,7 @@ def sample(
     model_config: ScoreNetworkConfig,
     tables: ScheduleTables | None = None,
     generator: torch.Generator | None = None,
-    bf16: bool = False,
+    bf16=False,
     injected_noise: Dict[str, Any] | None = None,
     num_steps: int | None = None,
     graphs: bool | None = None,
@@ -255,8 +258,9 @@ def sample(
     """Full reverse diffusion from the noised state in ``batch``.
 
     ``batch``: the ``score_network_forward`` contract, all on one device.
-    ``bf16`` selects the fused kernel's bf16 mode (the ``pallas`` and
-    ``dense`` backends run fp32). ``num_steps`` (K) below
+    ``bf16`` selects the fused kernel's mode (``ops/egnn_fused.py::mode_of``:
+    False fp32, True bf16, ``"high"`` the ``--fast-f32`` split products;
+    the ``pallas`` and ``dense`` backends run fp32). ``num_steps`` (K) below
     T runs the strided few-step sampler. Fresh per-step noise comes from
     ``generator`` (on the batch's device) unless ``injected_noise`` is
     given. ``graphs`` (default: on a CUDA device, without
@@ -297,7 +301,7 @@ def sample(
         q, t, tors = chain.q, chain.t, chain.tors
     else:
         cache = GraphCache() if graph_cache is None else graph_cache
-        key = ("sample", id(model), backend, bool(bf16) and backend == "fused", config,
+        key = ("sample", id(model), backend, mode_of(bf16) if backend == "fused" else "fp32", config,
                model_config, shape, tuple(batch["pocket_mask"].shape), ts.tobytes())
         entry = cache.get(key)
         if entry is None:

@@ -104,7 +104,7 @@ def score_network_forward(
     batch: Dict[str, Any],
     t,
     config: ScoreNetworkConfig,
-    bf16: bool = False,
+    bf16=False,
 ) -> Dict[str, Any]:
     """Predict the noise on a batch of noised states, differentiably.
 
@@ -112,8 +112,11 @@ def score_network_forward(
     ``features`` [B, N, 22], ``mask`` [B, N], ``pocket_frames`` (RigidArray
     [B, P]), ``pocket_mask`` [B, P], ``pocket_features`` [B, P, 22].
     ``t``: int, or a [B] tensor of per-sample timesteps. ``bf16`` selects
-    the loop kernels' bf16 mode (``"fused"`` backend only: ``"pallas"``
-    runs fp32 whatever it asks, as in the JAX package).
+    the loop kernels' mode in the JAX package's convention
+    (``pmhc_tpu/models/score.py``'s ``mm_mode``): True bf16, ``"high"``
+    the ``--fast-f32`` split products, False fp32 (``"fused"`` backend
+    only: ``"pallas"`` and ``"dense"`` run fp32 whatever it asks, as in
+    the JAX package).
     Returns ``{"frames": RigidArray, "torsions": [B, N, 7, 2]}``.
     """
     backend = resolve_backend(config.backend)

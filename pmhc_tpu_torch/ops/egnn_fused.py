@@ -12,10 +12,16 @@ frames ``q_j`` [B, NP, 4] / ``t_j`` [B, NP, 3] (peptide first, then
 pocket), ``edge`` [N, NP, T] (zero toward the pocket) and ``msg_mask``
 [B, N, NP]. Outputs ``(q [B,N,4], t [B,N,3], tors [B,N,7,2], feat [B,N,O])``.
 
-Modes: fp32 (IEEE fp32, no TF32; the kernel's products on the CUDA
-cores) and bf16 (every MLP matmul operand rounded to bf16, fp32
-accumulation; geometry, softmax and fold in fp32; the kernel's
-per-neighbour products on the tensor cores).
+Modes, selected by ``bf16`` in the JAX package's convention (``mm_maker``:
+False, True, ``"high"``; ``mode_of``): fp32 (IEEE fp32, no TF32; the
+kernel's products on the CUDA cores), bf16 (every MLP matmul operand
+rounded to bf16, fp32 accumulation; geometry, softmax and fold in fp32;
+the kernel's per-neighbour products on the tensor cores) and high
+(``--fast-f32``: the two per-neighbour products, whm @ hid and the lin2,
+with both operands split into bf16 halves, hi@hi + hi@lo + lo@hi in fp32
+on the tensor cores; the rotation term, the node MLPs and the neighbour
+projections in fp32, where the TPU kernel splits every matmul: see
+``_split_mm``).
 ``egnn_fused`` launches the kernel for CUDA tensors and takes
 ``egnn_fused_plain`` only for CPU tensors. ``layer_context`` builds and
 checks a layer's static inputs once (the sampler's per-trajectory
@@ -48,12 +54,27 @@ LIN2_ROWS = {"att": (0, 1), "rot": (1, 5), "tor": (5, 12), "transl": (12, 13)}
 # kernel launches on the main path, per mode (the plain version counts nothing)
 # (a CUDA graph's capture takes its counts back and each replay adds them:
 # utils/graphs.py)
-LAUNCHES = {"fp32": 0, "bf16": 0}
+LAUNCHES = {"fp32": 0, "bf16": 0, "high": 0}
+# the kernels' ``mode`` argument (``csrc/egnn_common.cuh``), and each
+# mode's ``bf16`` flag in the JAX package's convention (``mode_of``)
+MODE_IDS = {"fp32": 0, "bf16": 1, "high": 2}
+FLAGS = {"fp32": False, "bf16": True, "high": "high"}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def mode_of(bf16) -> str:
+    """The mode of a ``bf16`` flag in the JAX package's convention
+    (``mm_maker``): False -> ``"fp32"``, True -> ``"bf16"``, ``"high"`` ->
+    ``"high"`` (``--fast-f32``). Anything else raises."""
+    if isinstance(bf16, str):
+        if bf16 != "high":
+            raise ValueError(f"unknown precision mode {bf16!r}: False, True or 'high'")
+        return "high"
+    return "bf16" if bf16 else "fp32"
 
 
 def weight_layout(H: int, O: int) -> List[Tuple[str, Tuple[int, ...]]]:
@@ -153,14 +174,65 @@ def _bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x + (r - x).detach() if x.requires_grad else r
 
 
+def _split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x split into bf16 halves, as fp32: hi = bf16(x), lo = bf16(x - hi)
+    (round to nearest even; x - hi is exact)."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def _split_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with both operands split into bf16 halves: hi@hi + hi@lo +
+    lo@hi, fp32 sums (lo@lo, ~2^-16 relative, dropped)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return torch.matmul(ah, bh) + torch.matmul(ah, bl) + torch.matmul(al, bh)
+
+
+class _SplitMM(torch.autograd.Function):
+    """x [..., in] @ wt[out, in].T in split products, forward and backward:
+    the gradients are split products too, as the high loop backward and
+    the JAX package's high VJP compute them."""
+
+    @staticmethod
+    def forward(ctx, x, wt):
+        ctx.save_for_backward(x, wt)
+        return _split_product(x, wt.T)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wt = ctx.saved_tensors
+        gx = _split_product(g, wt) if ctx.needs_input_grad[0] else None
+        gw = None
+        if ctx.needs_input_grad[1]:
+            gw = _split_product(g.reshape(-1, g.shape[-1]).T, x.reshape(-1, x.shape[-1]))
+        return gx, gw
+
+
+def _split_mm(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """x [..., in] @ wt[out, in].T as the kernels' high mode computes it,
+    the JAX package's ``mm_maker("high")``: both operands split into bf16
+    halves (``_split``), hi@hi + hi@lo + lo@hi with fp32 sums. Its
+    gradients are split products as well (``_SplitMM``), where
+    ``_bf16_round`` passes gradients through: the loop backward's products
+    are split, and the cancellation in some gradients (d(q_i), the rotation
+    head's) amplifies a split's ~2^-17 relative error to ~1e-3 of their
+    largest magnitude, so a plain backward in fp32 could not hold the
+    kernel to the fp32 tolerances."""
+    return _SplitMM.apply(x, wt)
+
+
 def egnn_fused_plain(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask,
-                     bf16: bool = False):
-    """The kernel's function written densely over [B, N, NP, T], in both
-    modes (same folded weights, same bf16 rounding points)."""
-    r = _bf16_round if bf16 else (lambda x: x)
+                     bf16=False):
+    """The kernel's function written densely over [B, N, NP, T], in each
+    mode (same folded weights, same bf16 rounding and split points)."""
+    mode = mode_of(bf16)
+    r = _bf16_round if mode == "bf16" else (lambda x: x)
 
     def mm(x, wt):  # x [..., in] @ wt[out, in].T
         return torch.matmul(r(x), r(wt).T)
+
+    def mmk(x, wt):  # the kernel's tensor-core products: split in high mode
+        return _split_mm(x, wt) if mode == "high" else mm(x, wt)
 
     B, N = h.shape[:2]
     a_i = mm(h, w["wmi"]) + w["bm1"]                                   # [B, N, T]
@@ -175,7 +247,7 @@ def egnn_fused_plain(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg
     local_q = quat_multiply(inv_qj, quat_multiply(qi_b, qj_b))         # [B, N, NP, 4]
     tor_node = mm(tors.reshape(B, N, 2 * N_TORSIONS), w["wtt"])         # [B, N, T]
 
-    heads = mm(hid, w["whm"])                                           # [B, N, NP, 4T]
+    heads = mmk(hid, w["whm"])                                          # [B, N, NP, 4T]
     att = heads[..., :T] + (w["wad"] * (-d2)[..., None] + w["waq"] * qdot2[..., None] + w["ba1"])
     rot = heads[..., T:2 * T] + (mm(local_q, w["wrq"]) + w["br1"])
     tor = heads[..., 2 * T:3 * T] + (tor_node[:, :, None] + w["bt1"])
@@ -183,7 +255,7 @@ def egnn_fused_plain(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg
 
     def lin2(act, name):
         lo, hi = LIN2_ROWS[name]
-        return mm(torch.relu(act), w["w2"][lo:hi]) + w["b2"][lo:hi]
+        return mmk(torch.relu(act), w["w2"][lo:hi]) + w["b2"][lo:hi]
 
     logits = lin2(att, "att")[..., 0] - (1.0 - msg_mask) * INFINITY     # [B, N, NP]
     weights = torch.softmax(logits, dim=-1)[..., None]
@@ -256,7 +328,7 @@ def device_ctx(dev: torch.device):
     return torch.cuda.device(dev) if switch else contextlib.nullcontext()
 
 
-def launch(lib, w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16: bool,
+def launch(lib, w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16,
            stream: int = 0):
     """One launch of the kernel on checked inputs; returns (q, t, tors,
     feat). ``stream`` is the CUDA stream handle (0: the default). Inputs
@@ -272,13 +344,13 @@ def launch(lib, w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask
     err = lib.egnn_fused_launch(
         *(x.data_ptr() for x in (w.buf, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask,
                                  out_q, out_t, out_tors, out_feat)),
-        B, N, NP, w.H, w.O, int(bf16), stream)
+        B, N, NP, w.H, w.O, MODE_IDS[mode_of(bf16)], stream)
     if err != 0:
         raise RuntimeError(f"egnn_fused kernel launch failed: CUDA error {err}")
     return out_q, out_t, out_tors, out_feat
 
 
-def _run(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16: bool):
+def _run(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16):
     """Checked inputs -> the plain version (CPU) or one kernel launch (CUDA)."""
     if h.device.type == "cpu":
         return egnn_fused_plain(w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16)
@@ -288,14 +360,15 @@ def _run(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16:
     with device_ctx(dev):
         out = launch(_lib(), w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16,
                      torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["bf16" if bf16 else "fp32"] += 1
+    LAUNCHES[mode_of(bf16)] += 1
     return out
 
 
 def egnn_fused(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask,
-               bf16: bool = False):
+               bf16=False):
     """The fused layer: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Raises on anything the kernel does not take."""
+    for CPU tensors. ``bf16``: False, True or ``"high"`` (``mode_of``).
+    Raises on anything the kernel does not take."""
     B, N, _ = h.shape
     NP = a_j.shape[1]
     dev = h.device
@@ -309,10 +382,12 @@ def egnn_fused(w: PackedLayer, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask,
     return _run(w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, msg_mask, bf16)
 
 
-def _project(x: torch.Tensor, w_t: torch.Tensor, bf16: bool) -> torch.Tensor:
+def _project(x: torch.Tensor, w_t: torch.Tensor, bf16) -> torch.Tensor:
     """x @ w_t; in bf16 mode one bf16 pass (operands rounded, fp32 sums),
-    which is what XLA's DEFAULT precision does on the TPU."""
-    if bf16:
+    which is what XLA's DEFAULT precision does on the TPU. fp32 and high
+    run IEEE fp32 (TF32 off): high is what XLA's ``Precision.HIGH`` gives
+    on the CPU, where the JAX package's tests run, not the TPU's 3-pass."""
+    if mode_of(bf16) == "bf16":
         return torch.matmul(_bf16_round(x), _bf16_round(w_t))
     return torch.matmul(x, w_t)
 
@@ -333,7 +408,7 @@ class LayerContext:
     t_pocket: torch.Tensor
     edge: torch.Tensor
     msg_mask: torch.Tensor
-    bf16: bool
+    bf16: bool | str  # False, True or "high" (mode_of)
 
     def project(self, h: torch.Tensor) -> torch.Tensor:
         """Neighbour pre-activation h @ W1[H:2H] (no bias) -> [B, *, T]."""
@@ -363,11 +438,12 @@ class LayerContext:
 
 
 def layer_context(layer: EGNNLayer, edge_pre, mask, pocket_features,
-                  pocket_frames: RigidArray, pocket_mask, bf16: bool = False) -> LayerContext:
+                  pocket_frames: RigidArray, pocket_mask, bf16=False) -> LayerContext:
     """Pack, project and check one layer's static inputs. ``edge_pre``
     [N, N, T], ``mask`` [B, N], ``pocket_features`` [B, P, H] (the layer's
     input width), ``pocket_mask`` [B, P]; ``bf16`` selects the kernel's
-    bf16 mode and one bf16 pass for the neighbour projections."""
+    mode (``mode_of``): True its bf16 mode and one bf16 pass for the
+    neighbour projections, ``"high"`` its high mode and fp32 projections."""
     N, P, H = mask.shape[-1], pocket_mask.shape[-1], pocket_features.shape[-1]
     B = mask.shape[0]
     NP = N + P
@@ -379,7 +455,7 @@ def layer_context(layer: EGNNLayer, edge_pre, mask, pocket_features,
             aj_pocket=_project(pocket_features, wj_t, bf16).contiguous(),
             q_pocket=pocket_frames.quats.contiguous(), t_pocket=pocket_frames.trans.contiguous(),
             edge=torch.nn.functional.pad(edge_pre, (0, 0, 0, P)).contiguous(),
-            msg_mask=message_mask(mask, pocket_mask).contiguous(), bf16=bool(bf16))
+            msg_mask=message_mask(mask, pocket_mask).contiguous(), bf16=FLAGS[mode_of(bf16)])
     dev = ctx.edge.device
     _check_weights(ctx.w, dev)
     for name, x, shape in (

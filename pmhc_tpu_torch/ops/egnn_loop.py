@@ -19,12 +19,19 @@ lin2 layers as 13 rows (``w2``, ``b2``). They are built with
 differentiable fp32 ops, packed into one flat buffer, and their gradient
 flows back onto the layer's parameters through autograd.
 
-Modes: fp32 (IEEE fp32) and bf16 (the loop's matmul operands rounded to
+Modes (``bf16`` as in ``ops/egnn_fused.py::mode_of``: False, True,
+``"high"``): fp32 (IEEE fp32), bf16 (the loop's matmul operands rounded to
 bf16, fp32 sums; the node projections ``a_i``, ``tor_node`` and the
 finalize's matmuls take one bf16 pass, ``a_j`` stays fp32, as in the JAX
-package's ``--bf16`` training path). ``EGNNLoopFn`` launches the kernels
-on CUDA tensors and takes ``egnn_loop_plain`` (forward) and autograd
-through it (backward) on CPU tensors.
+package's ``--bf16`` training path) and high (``--fast-f32``: the loop's
+head and lin2 products, and in the backward every product the bf16 mode
+runs on the tensor cores, with both operands split into bf16 halves,
+hi@hi + hi@lo + lo@hi; the rotation term, the node projections and the
+finalize in IEEE fp32, which is what the JAX package's ``Precision.HIGH``
+matmuls give on the CPU). ``EGNNLoopFn`` launches the kernels on CUDA
+tensors and takes ``egnn_loop_plain`` (forward) and autograd through it
+(backward) on CPU tensors; the plain version's splits pass gradients
+through, so its backward multiplies in fp32 where the high kernel splits.
 """
 
 from __future__ import annotations
@@ -44,7 +51,17 @@ from pmhc_tpu_torch.geometry import (
     torch_normalize,
 )
 from pmhc_tpu_torch.models.egnn import INFINITY, N_TORSIONS, TRANSITION, EGNNLayer, message_mask
-from pmhc_tpu_torch.ops.egnn_fused import LIN2_ROWS, _bf16_round, _check, _project, device_ctx
+from pmhc_tpu_torch.ops.egnn_fused import (
+    LIN2_ROWS,
+    FLAGS,
+    MODE_IDS,
+    _bf16_round,
+    _check,
+    _project,
+    _split_mm,
+    device_ctx,
+    mode_of,
+)
 
 T = TRANSITION
 # the loop weights in buffer order, the order of ``LoopW`` in
@@ -60,7 +77,7 @@ OUT_NAMES = ("m", "D", "GD", "TA", "TR", "HID", "CNT")
 # kernel launches on the main path, per kernel and mode
 # (a CUDA graph's capture takes its counts back and each replay adds them:
 # utils/graphs.py)
-LAUNCHES = {"fwd_fp32": 0, "fwd_bf16": 0, "bwd_fp32": 0, "bwd_bf16": 0}
+LAUNCHES = {f"{kind}_{mode}": 0 for kind in ("fwd", "bwd") for mode in MODE_IDS}
 
 
 def reset_launches() -> None:
@@ -105,16 +122,20 @@ def loop_views(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def egnn_loop_plain(w: torch.Tensor, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask,
-                    bf16: bool = False):
+                    bf16=False):
     """The loop kernel's function written densely over [B, N, NP, T]:
     ``(m, D, GD, TA, TR, HID, CNT)`` per query row. ``m`` is the running
     max the kernel ends with (detached: the accumulators' users divide it
     out); ``HID`` sums relu(pre) over all NP slots, masked included."""
     v = loop_views(w)
-    r = _bf16_round if bf16 else (lambda x: x)
+    mode = mode_of(bf16)
+    r = _bf16_round if mode == "bf16" else (lambda x: x)
 
     def mm(x, wt):  # x [..., in] @ wt[out, in].T
         return torch.matmul(r(x), r(wt).T)
+
+    def mmk(x, wt):  # the kernels' tensor-core products: split in high mode
+        return _split_mm(x, wt) if mode == "high" else mm(x, wt)
 
     hid = torch.relu(a_i[:, :, None] + a_j[:, None] + edge[None])      # [B, N, NP, T]
     qi_b, qj_b = q_i[:, :, None], q_j[:, None]
@@ -125,7 +146,7 @@ def egnn_loop_plain(w: torch.Tensor, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edg
     inv_qj = quat_conjugate(qj_b) / torch.clamp(torch.sum(qj_b * qj_b, -1, keepdim=True), min=1e-30)
     local_q = quat_multiply(inv_qj, quat_multiply(qi_b, qj_b))
 
-    heads = mm(hid, v["whm"])                                           # [B, N, NP, 4T]
+    heads = mmk(hid, v["whm"])                                          # [B, N, NP, 4T]
     att = heads[..., :T] + (v["wad"] * (-d2)[..., None] + v["waq"] * qdot2[..., None] + v["ba1"])
     rot = heads[..., T:2 * T] + (mm(local_q, v["wrq"]) + v["br1"])
     tor = heads[..., 2 * T:3 * T] + (tor_node[:, :, None] + v["bt1"])
@@ -133,7 +154,7 @@ def egnn_loop_plain(w: torch.Tensor, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edg
 
     def lin2(act, name):
         lo, hi = LIN2_ROWS[name]
-        return mm(torch.relu(act), v["w2"][lo:hi]) + v["b2"][lo:hi]
+        return mmk(torch.relu(act), v["w2"][lo:hi]) + v["b2"][lo:hi]
 
     logit = lin2(att, "att")[..., 0] - (1.0 - msg_mask) * INFINITY     # [B, N, NP]
     m = torch.clamp(logit.detach().amax(dim=-1), min=-1e30)
@@ -170,7 +191,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def launch_fwd(lib, w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask, bf16: bool,
+def launch_fwd(lib, w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask, bf16,
                stream: int = 0):
     """One launch of the forward kernel on checked inputs; returns the seven
     accumulators. ``stream`` is the CUDA stream handle (0: the default)."""
@@ -179,14 +200,14 @@ def launch_fwd(lib, w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask, b
     outs = (new(), new(), new(4), new(N_TORSIONS), new(3), new(T), new())
     err = lib.egnn_loop_fwd_launch(
         *(x.data_ptr() for x in (w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask) + outs),
-        B, N, NP, int(bf16), stream)
+        B, N, NP, MODE_IDS[mode_of(bf16)], stream)
     if err != 0:
         raise RuntimeError(f"egnn_loop forward kernel launch failed: CUDA error {err}")
     return outs
 
 
 def launch_bwd(lib, w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask, m, cts,
-               bf16: bool, stream: int = 0):
+               bf16, stream: int = 0):
     """One launch of the backward kernel (and its weight-gradient
     reduction) on checked inputs. ``cts``: the cotangents of (D, GD, TA,
     TR, HID), contiguous. Returns (dw, da_i, dtor_node, dq_i, dt_i, da_j,
@@ -204,7 +225,7 @@ def launch_bwd(lib, w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask, m
     err = lib.egnn_loop_bwd_launch(
         *(x.data_ptr() for x in (w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask, m)
           + tuple(cts) + grads + (dw, partial)),
-        B, N, NP, int(bf16), blocks, stream)
+        B, N, NP, MODE_IDS[mode_of(bf16)], blocks, stream)
     if err != 0:
         raise RuntimeError(f"egnn_loop backward kernel launch failed: CUDA error {err}")
     return (dw,) + grads
@@ -228,7 +249,8 @@ class EGNNLoopFn(torch.autograd.Function):
     loop weights, ``a_i``, ``tor_node`` [B, N, T], ``q_i`` [B, N, 4],
     ``t_i`` [B, N, 3], ``a_j`` [B, NP, T], ``q_j`` [B, NP, 4], ``t_j``
     [B, NP, 3], ``edge`` [N, NP, T], ``msg_mask`` [B, N, NP] (no
-    gradient), ``bf16``. ``m`` and ``CNT`` carry no gradient: the finalize
+    gradient), ``bf16`` (False, True or ``"high"``). ``m`` and ``CNT``
+    carry no gradient: the finalize
     uses only ratios of the accumulators and a test of CNT."""
 
     @staticmethod
@@ -242,7 +264,7 @@ class EGNNLoopFn(torch.autograd.Function):
             with device_ctx(a_i.device):
                 outs = launch_fwd(_lib(), *args, bf16=bf16,
                                   stream=torch.cuda.current_stream(a_i.device).cuda_stream)
-            LAUNCHES["fwd_bf16" if bf16 else "fwd_fp32"] += 1
+            LAUNCHES["fwd_" + mode_of(bf16)] += 1
         ctx.save_for_backward(*args, outs[0])
         ctx.bf16 = bf16
         ctx.mark_non_differentiable(outs[0], outs[6])
@@ -264,19 +286,20 @@ class EGNNLoopFn(torch.autograd.Function):
             with device_ctx(m.device):
                 grads = launch_bwd(_lib(), *args, m, cts, bf16=ctx.bf16,
                                    stream=torch.cuda.current_stream(m.device).cuda_stream)
-            LAUNCHES["bwd_bf16" if ctx.bf16 else "bwd_fp32"] += 1
+            LAUNCHES["bwd_" + mode_of(ctx.bf16)] += 1
         return (*grads, None, None)
 
 
-def egnn_loop(w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask, bf16: bool = False):
+def egnn_loop(w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask, bf16=False):
     """``EGNNLoopFn.apply``: the seven accumulators, differentiable in
     everything but ``msg_mask``."""
-    return EGNNLoopFn.apply(w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask, bool(bf16))
+    return EGNNLoopFn.apply(w, a_i, tor_node, q_i, t_i, a_j, q_j, t_j, edge, msg_mask,
+                            FLAGS[mode_of(bf16)])
 
 
 def egnn_forward_loop(layer: EGNNLayer, peptide_frames: RigidArray, peptide_torsions,
                       peptide_features, edge_pre, peptide_mask, pocket_features,
-                      pocket_frames: RigidArray, pocket_mask, bf16: bool = False):
+                      pocket_frames: RigidArray, pocket_mask, bf16=False):
     """Differentiable drop-in for ``models.egnn.egnn_forward``: the
     pre-projections, the neighbour loop and the finalize. Returns
     ``(frames, torsions, node features)``."""

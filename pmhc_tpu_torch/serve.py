@@ -156,9 +156,10 @@ class SamplerService:
     layer — its CUDA kernel on the card, its plain version on the CPU;
     ``"pallas"`` the round-1 fused layer (``ops/egnn_pallas.py``), the same
     way; ``"dense"`` (also ``"xla"``) the oracle layer. ``bf16`` selects the
-    fused kernel's bf16 mode; the ``pallas`` and ``dense`` backends run
-    fp32 whatever it asks (``precision`` says what runs). ``fast_f32`` runs
-    the fp32 mode: the port has no 3-pass mode yet. ``graphs`` (default:
+    fused kernel's bf16 mode, ``fast_f32`` its high mode (products split
+    into bf16 halves, ~1.5e-5 relative; ``bf16`` wins if both are asked,
+    as in the JAX package); the ``pallas`` and ``dense`` backends run fp32
+    whatever they ask (``precision`` says what runs). ``graphs`` (default:
     on a CUDA device) runs the chain from CUDA graphs
     (``sampler.STEPS_PER_GRAPH`` steps a graph); ``False`` runs it eagerly
     (debugging, A/B).
@@ -191,7 +192,9 @@ class SamplerService:
         self.diffusion_config = DiffusionConfig(noise_step_count=noise_step_count)
         self.tables = ScheduleTables(self.diffusion_config)
         self.bf16 = bool(bf16)
-        self.fast_f32 = bool(fast_f32)  # runs as fp32
+        self.fast_f32 = bool(fast_f32)
+        # the kernel mode in the JAX package's convention (mode_of)
+        self.mode = True if self.bf16 else "high" if self.fast_f32 else False
         if isinstance(params, ScoreNetwork):
             model = params
         else:
@@ -204,9 +207,12 @@ class SamplerService:
 
     @property
     def precision(self) -> str:
-        """The precision the layers run at: ``"bf16"`` only for the fused
-        backend asked for bf16, else ``"f32"``."""
-        return "bf16" if self.bf16 and self.backend == "fused" else "f32"
+        """The precision the layers run at, named as the JAX server's
+        ``/healthz`` names it: ``"bf16"`` or ``"fast-f32"`` only for the
+        fused backend asked for it, else ``"f32"``."""
+        if self.backend != "fused":
+            return "f32"
+        return {True: "bf16", "high": "fast-f32", False: "f32"}[self.mode]
 
     def batch_generator(self, counter: int) -> torch.Generator:
         """The generator of dispatched batch ``counter`` (``batch_seed``)."""
@@ -235,7 +241,7 @@ class SamplerService:
         generator = self.generator if generator is None else generator
         model_batch, protein = self.build_model_batch(entries, generator)
         pred = sample(self.model, model_batch, self.diffusion_config, self.model_config,
-                      self.tables, generator=generator, bf16=self.bf16,
+                      self.tables, generator=generator, bf16=self.mode,
                       num_steps=self.num_steps, graphs=self.graphs,
                       graph_cache=self.graph_cache)
         pred.update(protein)

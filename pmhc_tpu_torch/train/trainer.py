@@ -50,7 +50,12 @@ import torch
 from pmhc_tpu_torch.data.synthetic import prepare_batch
 from pmhc_tpu_torch.diffusion import DiffusionConfig, ScheduleTables, add_noise, diffusion_loss, gen_noise
 from pmhc_tpu_torch.diffusion.loss import LOSS_NAMES
-from pmhc_tpu_torch.models.score import ScoreNetwork, ScoreNetworkConfig, score_network_forward
+from pmhc_tpu_torch.models.score import (
+    ScoreNetwork,
+    ScoreNetworkConfig,
+    resolve_backend,
+    score_network_forward,
+)
 from pmhc_tpu_torch.serve import resolve_device
 from pmhc_tpu_torch.train.ema import ema_init, ema_update_
 from pmhc_tpu_torch.utils.graphs import GraphCache, Step, batch_tensors, own_batch, use_graphs
@@ -321,7 +326,10 @@ class Trainer:
     loader batch (numpy, tensor-7 frames). Runs on the card unless given
     ``device="cpu"``; with no card it raises. ``params``: a ``ScoreNetwork``
     or its ``state_dict``; by default the weights are drawn from
-    ``train_config.seed``. ``bf16`` selects the loop kernels' bf16 mode.
+    ``train_config.seed``. ``bf16`` selects the loop kernels' bf16 mode,
+    ``fast_f32`` their high mode (``--fast-f32``: products split into bf16
+    halves; ``bf16`` wins if both are asked, as in the JAX package; the
+    ``pallas`` backend runs fp32 whatever is asked).
     ``graphs`` (default: on a CUDA device) runs the steps from CUDA graphs
     kept in ``graph_cache``; ``False`` runs them eagerly (debugging, A/B).
     ``eval_batch`` runs eagerly."""
@@ -330,7 +338,8 @@ class Trainer:
                  diffusion_config: DiffusionConfig = DiffusionConfig(),
                  train_config: TrainConfig = TrainConfig(),
                  params: ScoreNetwork | Mapping[str, torch.Tensor] | None = None,
-                 bf16: bool = False, device=None, graphs: bool | None = None):
+                 bf16: bool = False, fast_f32: bool = False, device=None,
+                 graphs: bool | None = None):
         self.device = resolve_device(device)
         self.graphs = use_graphs(graphs, self.device)
         self.graph_cache = GraphCache()
@@ -340,7 +349,8 @@ class Trainer:
         self.model_config = model_config
         self.diffusion_config = diffusion_config
         self.train_config = train_config
-        self.bf16 = bool(bf16)
+        # the loop kernels' mode in the JAX package's convention (mode_of)
+        self.mode = True if bf16 else "high" if fast_f32 else False
         seed = train_config.seed
         if isinstance(params, ScoreNetwork):
             model = params
@@ -371,6 +381,14 @@ class Trainer:
         with ``seed + 1``."""
         self.t_generator.manual_seed(seed)
         self.noise_generator.manual_seed(seed + 1)
+
+    @property
+    def precision(self) -> str:
+        """The precision the layers run at: ``"bf16"`` or ``"fast-f32"``
+        only on the fused backend asked for it, else ``"f32"``."""
+        if resolve_backend(self.model_config.backend) != "fused":
+            return "f32"
+        return {True: "bf16", "high": "fast-f32", False: "f32"}[self.mode]
 
     @property
     def ema_params(self) -> Optional[Dict[str, torch.Tensor]]:
@@ -404,7 +422,7 @@ class Trainer:
         B, N = batch["mask"].shape
         epsilon = gen_noise(self.noise_generator, (B, N), self.diffusion_config)
         sums = _train_sums(self.model, self.optimizer, batch, t, epsilon, update,
-                           self.model_config, self.diffusion_config, self.tables, self.bf16)
+                           self.model_config, self.diffusion_config, self.tables, self.mode)
         self._nan |= torch.isnan(sums["total loss"])
         return sums
 
@@ -520,7 +538,7 @@ class Trainer:
             self._eval_model.load_state_dict(params, strict=True)
             model = self._eval_model
         sums = eval_step(model, model_batch, t, epsilon, model_config=self.model_config,
-                         diffusion_config=self.diffusion_config, tables=self.tables, bf16=self.bf16)
+                         diffusion_config=self.diffusion_config, tables=self.tables, bf16=self.mode)
         if metrics is not None:
             metrics.add_batch(sums, B)
         return sums

@@ -33,6 +33,7 @@ tests run the same bodies eagerly there).
 
 from __future__ import annotations
 
+import gc
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Hashable, List, Sequence
 
@@ -107,18 +108,29 @@ def warm_up(body: Callable[[], None]) -> None:
 
 def capture(body: Callable[[], None], generators: Sequence[torch.Generator] = ()) -> Graph:
     """Capture one call of ``body`` (run eagerly before, see ``warm_up``)
-    with ``generators`` registered; raises if the capture fails."""
+    with ``generators`` registered; raises if the capture fails.
+
+    Python's cyclic garbage collector is run before the capture and kept
+    off during it: a collection inside the capture frees the memory of
+    dead reference cycles, and on the card that invalidated a capture at
+    its next allocation (``torch.cuda.graph`` no longer collects on entry
+    unless ``torch.compiler.config.force_cudagraph_gc`` is set)."""
     g = torch.cuda.CUDAGraph()
     for gen in generators:
         g.register_generator_state(gen)
     counters = _counters()
     before = [dict(c) for c in counters]
+    collecting = gc.isenabled()
+    gc.collect()
+    gc.disable()
     try:
         # thread_local: a server thread may fetch results while another
         # thread captures
         with torch.cuda.graph(g, capture_error_mode="thread_local"):
             body()
     finally:
+        if collecting:
+            gc.enable()
         launches = [{k: c[k] - b[k] for k in c} for c, b in zip(counters, before)]
         for c, b in zip(counters, before):
             c.update(b)  # the capture launched nothing

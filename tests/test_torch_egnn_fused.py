@@ -146,7 +146,8 @@ def test_wrapper_checks_and_cpu_route():
     args = list(ef.layer_inputs(model.gnn1, *t_args))
     ef.reset_launches()
     ef.egnn_fused(*args)
-    assert ef.LAUNCHES == {"fp32": 0, "bf16": 0}  # CPU tensors take the plain version
+    ef.egnn_fused(*args, bf16="high")
+    assert ef.LAUNCHES == {"fp32": 0, "bf16": 0, "high": 0}  # CPU tensors take the plain version
     bad = list(args)
     bad[5] = bad[5][:, :-1].contiguous()  # a_j with NP-1 neighbours
     with pytest.raises(ValueError):

@@ -324,7 +324,9 @@ def test_wrapper_checks_and_cpu_route():
     args, _ = _loop_inputs(model.gnn1, t_args)
     el.reset_launches()
     el.egnn_loop(*args)
-    assert el.LAUNCHES == {"fwd_fp32": 0, "fwd_bf16": 0, "bwd_fp32": 0, "bwd_bf16": 0}
+    el.egnn_loop(*args, bf16="high")
+    assert el.LAUNCHES == {"fwd_fp32": 0, "fwd_bf16": 0, "fwd_high": 0, "bwd_fp32": 0, "bwd_bf16": 0,
+                           "bwd_high": 0}
     bad = list(args)
     bad[5] = bad[5][:, :-1].contiguous()  # a_j with NP - 1 neighbours
     with pytest.raises(ValueError):

@@ -25,7 +25,11 @@ quats and torsions 5e-5, translations and features 2e-4 (sum order
 only); bf16 one bf16 ulp of slack on top: quats and torsions 2e-3,
 translations 2e-2, features 1e-2. Loop kernels, as a share of each
 tensor's largest magnitude: fp32 forward 2e-5, gradients 2e-4; bf16
-forward 2e-3, gradients 3e-2 (``LOOP_TOL``). Round-1 fused layer: the
+forward 2e-3, gradients 3e-2 (``LOOP_TOL``). The high (``--fast-f32``)
+modes of both: the fp32 tolerances (the kernel and the plain version
+split the same operands into the same bf16 halves), the loop forward 5e-5
+(the tensor cores' own summation order, amplified by the softmax's exp).
+Round-1 fused layer: the
 fused layer's fp32 tolerances (``PALLAS_TOL``); its sampler against the
 dense one: ``TRAJ_TOL``.
 """
@@ -81,15 +85,15 @@ def _card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 @pytest.mark.parametrize("batch_size", [5, 64])
 def test_cuda_kernel_matches_plain(mode, batch_size):
     dev = _card()
     model = random_model(seed=0).to(dev)
     for seed, layer in enumerate(("gnn1", "gnn2")):
         args = layer_case(model, layer, seed=seed + 1, device=dev, batch_size=batch_size)
-        got = ef.egnn_fused(*args, bf16=mode == "bf16")
-        want = ef.egnn_fused_plain(*args, bf16=mode == "bf16")
+        got = ef.egnn_fused(*args, bf16=ef.FLAGS[mode])
+        want = ef.egnn_fused_plain(*args, bf16=ef.FLAGS[mode])
         torch.cuda.synchronize()
         for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=TOL[mode][name],
@@ -97,37 +101,39 @@ def test_cuda_kernel_matches_plain(mode, batch_size):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 def test_cuda_kernel_ragged_tile_matches_plain(mode):
     """NP = 90, the neighbours cut along their axis: the kernel's last mma
     row tile is partly zero padding, masked out of the fold."""
     dev = _card()
     args = ragged_case(layer_case(random_model(seed=0).to(dev), "gnn2", seed=2, device=dev))
-    got = ef.egnn_fused(*args, bf16=mode == "bf16")
-    want = ef.egnn_fused_plain(*args, bf16=mode == "bf16")
+    got = ef.egnn_fused(*args, bf16=ef.FLAGS[mode])
+    want = ef.egnn_fused_plain(*args, bf16=ef.FLAGS[mode])
     torch.cuda.synchronize()
     for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=TOL[mode][name], err_msg=name)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("bf16", [False, True, "high"])
 def test_service_launches_the_kernel_twice_per_step(bf16):
+    """``bf16`` "high": ``fast_f32=True``."""
     dev = _card()
-    svc = SamplerService(random_model(seed=0), batch_size=4, noise_step_count=5, bf16=bf16)
+    svc = SamplerService(random_model(seed=0), batch_size=4, noise_step_count=5, bf16=bf16 is True,
+                         fast_f32=bf16 == "high")
     assert svc.device.type == dev.type
     ef.reset_launches()
     handle = svc.dispatch([dummy_entry(seed=i) for i in range(3)],
                           torch.Generator(device=dev).manual_seed(0))
     handle.wait()
-    assert ef.LAUNCHES == {"fp32": 0 if bf16 else 10, "bf16": 10 if bf16 else 0}
+    assert ef.LAUNCHES == {m: 10 if m == ef.mode_of(bf16) else 0 for m in ef.LAUNCHES}
     q = handle.conv["quats"][:handle.n]
     assert torch.isfinite(q).all()
     torch.testing.assert_close(q.norm(dim=-1), torch.ones(q.shape[:-1]), atol=1e-5, rtol=0)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 def test_cuda_kernel_takes_unaligned_inputs(mode):
     """Every input but the packed weights a view that starts 4 bytes into
     its storage: a_j, q_j and edge go by the kernel's 4-byte copies."""
@@ -135,15 +141,15 @@ def test_cuda_kernel_takes_unaligned_inputs(mode):
     args = layer_case(random_model(seed=0).to(dev), "gnn1", seed=3, device=dev, batch_size=5)
     offset = [torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x) for x in args[1:]]
     assert all(x.data_ptr() % 16 for x in offset)
-    got = ef.egnn_fused(args[0], *offset, bf16=mode == "bf16")
-    want = ef.egnn_fused_plain(*args, bf16=mode == "bf16")
+    got = ef.egnn_fused(args[0], *offset, bf16=ef.FLAGS[mode])
+    want = ef.egnn_fused_plain(*args, bf16=ef.FLAGS[mode])
     torch.cuda.synchronize()
     for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=TOL[mode][name], err_msg=name)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 @pytest.mark.parametrize("batch_size,n_neighbours", [(3, None), (64, None), (64, 90)])
 def test_loop_kernels_match_plain(mode, batch_size, n_neighbours):
     """Forward outputs and every gradient of the loop kernels against the
@@ -155,15 +161,15 @@ def test_loop_kernels_match_plain(mode, batch_size, n_neighbours):
         args, cts = loop_case(model, layer, seed=seed + 1, device=dev, batch_size=batch_size)
         if n_neighbours is not None:
             args = loop_ragged(args, n_neighbours)
-        got = loop_run(args, cts, mode == "bf16", kernel=True)
-        want = loop_run(args, cts, mode == "bf16", kernel=False)
+        got = loop_run(args, cts, ef.FLAGS[mode], kernel=True)
+        want = loop_run(args, cts, ef.FLAGS[mode], kernel=False)
         torch.cuda.synchronize()
         bad = {n: r for n, r in loop_errors(got, want, LOOP_TOL[mode]).items() if not r[3]}
         assert not bad, f"{layer}: {bad}"
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 def test_loop_forward_two_tiles_matches_plain(mode):
     """The loop forward at NP = 136 (``loop_two_tiles``: two 96-neighbour
     tiles per query row, the second ragged, merged online), batch 64,
@@ -171,13 +177,13 @@ def test_loop_forward_two_tiles_matches_plain(mode):
     dev = _card()
     args, _ = loop_case(random_model(seed=0).to(dev), "gnn2", seed=2, device=dev)
     args = loop_two_tiles(args)
-    bad = {n: r for n, r in loop_forward_errors(args, mode == "bf16", LOOP_TOL[mode]).items()
+    bad = {n: r for n, r in loop_forward_errors(args, ef.FLAGS[mode], LOOP_TOL[mode]).items()
            if not r[3]}
     assert not bad, bad
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 def test_loop_kernels_take_unaligned_inputs(mode):
     """Every input of both loop kernels a view that starts 4 bytes into its
     storage (a misaligned 16-byte ``cp.async`` faults): the kernels' 4-byte
@@ -187,7 +193,7 @@ def test_loop_kernels_take_unaligned_inputs(mode):
     off = lambda x: torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
     o_args = tuple(off(x) for x in args)
     assert all(x.data_ptr() % 16 for x in o_args)
-    bf16 = mode == "bf16"
+    bf16 = ef.FLAGS[mode]
     lib = el._lib()
     outs = el.launch_fwd(lib, *o_args, bf16=bf16)
     got = loop_named(outs, el.launch_bwd(lib, *o_args, off(outs[0]), [off(c) for c in cts], bf16=bf16))
@@ -198,16 +204,17 @@ def test_loop_kernels_take_unaligned_inputs(mode):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("bf16", [False, True, "high"])
 def test_trainer_launches_two_loop_kernels_each_way_per_step(bf16):
+    """``bf16`` "high": ``fast_f32=True``."""
     dev = _card()
-    tr = Trainer(train_config=TrainConfig(seed=1), bf16=bf16)
+    tr = Trainer(train_config=TrainConfig(seed=1), bf16=bf16 is True, fast_f32=bf16 == "high")
     assert tr.device.type == dev.type
     el.reset_launches()
     for k in range(2):
         sums = tr.train_batch(synthetic_batch(batch_size=4, seed=k))
     torch.cuda.synchronize()
-    mode = "bf16" if bf16 else "fp32"
+    mode = ef.mode_of(bf16)
     assert el.LAUNCHES == {k: (4 if k.endswith(mode) else 0) for k in el.LAUNCHES}
     assert all(torch.isfinite(v) for v in sums.values())
 
@@ -315,7 +322,7 @@ def _noised_batch(dev, B: int, seed: int):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("backend,bf16", [("fused", False), ("fused", True), ("pallas", False),
-                                          ("dense", False)])
+                                          ("dense", False), ("fused", "high")])
 def test_graphed_sampler_matches_eager(backend, bf16, monkeypatch):
     """The chain from CUDA graphs against the eager chain with the same
     generator seed: T = 12 (twice: the second batch goes through the cached
@@ -328,7 +335,7 @@ def test_graphed_sampler_matches_eager(backend, bf16, monkeypatch):
     cfg = DiffusionConfig(noise_step_count=12)
     mc = ScoreNetworkConfig(noise_step_count=12, backend=backend)
     counter = {"fused": ef.LAUNCHES, "pallas": ep.LAUNCHES, "dense": None}[backend]
-    mode = "bf16" if bf16 else "fp32"
+    mode = ef.mode_of(bf16)
     cache = GraphCache()
     for seed, K, S in ((1, None, 1), (2, None, 1), (3, 5, 1), (4, None, 4)):
         mb = _noised_batch(dev, 6, seed)
@@ -391,7 +398,8 @@ def _assert_trainers_close(start, a: Trainer, b: Trainer, losses_a, losses_b):
     ({"ema_decay": 0.99, "grad_clip_norm": 0.5, "lr_warmup_steps": 2, "lr_decay_steps": 6,
       "lr_final": 1e-4}, False, False),
     ({"grad_accum": 2, "ema_decay": 0.9}, True, False),
-], ids=["adam", "adam_bf16", "ema_clip_schedule", "accum2_per_sample_t"])
+    ({}, False, "high"),
+], ids=["adam", "adam_bf16", "ema_clip_schedule", "accum2_per_sample_t", "adam_fast_f32"])
 def test_graphed_trainer_matches_eager(kw, per_sample_t, bf16):
     """``Trainer`` from CUDA graphs (its default on the card) against
     ``graphs=False`` from the same seed, on 5 batches of 8 and a partial
@@ -400,7 +408,8 @@ def test_graphed_trainer_matches_eager(kw, per_sample_t, bf16):
     dev = _card()
     trainers = {g: Trainer(ScoreNetworkConfig(backend="auto"),
                            DiffusionConfig(t_per_batch=not per_sample_t),
-                           TrainConfig(seed=4, nan_check_every=3, **kw), bf16=bf16, graphs=g)
+                           TrainConfig(seed=4, nan_check_every=3, **kw), bf16=bf16 is True,
+                           fast_f32=bf16 == "high", graphs=g)
                 for g in (None, False)}
     assert trainers[None].graphs and trainers[None].device == dev
     batches = [synthetic_batch(batch_size=8, seed=40 + k) for k in range(5)]
@@ -409,7 +418,7 @@ def test_graphed_trainer_matches_eager(kw, per_sample_t, bf16):
     el.reset_launches()
     losses = {g: [float(tr.train_batch(b)["total loss"]) for b in batches]
               for g, tr in trainers.items()}
-    mode = "bf16" if bf16 else "fp32"
+    mode = ef.mode_of(bf16)
     assert el.LAUNCHES == {k: (2 * 2 * len(batches) if k.endswith(mode) else 0) for k in el.LAUNCHES}
     _assert_trainers_close(start, trainers[None], trainers[False], losses[None], losses[False])
 

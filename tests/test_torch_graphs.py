@@ -23,7 +23,11 @@ package, and the switch that keeps graphs off the CPU.
   for the same generator state.
 - ``graphs=True`` on a CPU device raises, for the sampler, the service and
   the trainer; ``GraphCache`` drops its least recently used entry.
+- ``capture`` keeps the cyclic garbage collector out of a capture.
 """
+
+import contextlib
+import gc
 
 import jax.numpy as jnp
 from chip_smoke import change_close, change_errors, trainer_state
@@ -45,7 +49,7 @@ from pmhc_tpu_torch.diffusion.schedule import step_tables
 from pmhc_tpu_torch.models import ScoreNetworkConfig
 from pmhc_tpu_torch.serve import SamplerService
 from pmhc_tpu_torch.train import Adam, MetricsRecord, TrainConfig, Trainer, make_learning_rate
-from pmhc_tpu_torch.utils.graphs import GraphCache, use_graphs
+from pmhc_tpu_torch.utils.graphs import GraphCache, capture, use_graphs
 from tests.test_torch_egnn import params_pair, torch_model_batch
 from tests.test_torch_sampler import _inputs
 from tests.test_torch_train import SCHEDULES, _j_config
@@ -257,3 +261,24 @@ def test_graph_cache_drops_the_least_recently_used():
     assert len(cache) == 2
     cache.clear()
     assert len(cache) == 0
+
+
+def test_capture_keeps_the_garbage_collector_out(monkeypatch):
+    """``utils/graphs.capture`` collects before a capture and keeps the
+    cyclic collector off while the body is captured (a collection there
+    freed dead cycles' memory and invalidated a capture on the card), then
+    restores it, also when the capture fails. The capture itself is faked:
+    the CPU has no CUDA graphs."""
+    class FakeGraph:
+        def register_generator_state(self, gen):
+            pass
+
+    seen = []
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, **kw: contextlib.nullcontext())
+    assert gc.isenabled()
+    capture(lambda: seen.append(gc.isenabled()))
+    assert seen == [False] and gc.isenabled()
+    with pytest.raises(RuntimeError):
+        capture(lambda: (_ for _ in ()).throw(RuntimeError("capture failed")))
+    assert gc.isenabled()

@@ -7,6 +7,9 @@ kernels' indexing, barriers, online softmax, adjoints and reductions
 card has 3 SMs) without a card. The card's compiler, timing and races are
 ``chip_smoke.py``'s and ``test_torch_gpu.py``'s to show.
 
+Every case of the fused and loop kernels runs in each of their modes:
+fp32, bf16 and high (``--fast-f32``: the products split into bf16
+halves; the split has its own emulated body in ``csrc/mma_bf16.cuh``).
 Tolerances are ``chip_smoke.py``'s: loop kernels ``LOOP_TOL`` (a share of
 each tensor's largest magnitude), fused kernel ``TOL``, kernel #3
 ``PALLAS_TOL``. Batch 1 (batch 2-3 for kernel #3, whose batch holds
@@ -71,7 +74,7 @@ def _loop_matches_plain(args, cts, mode, bwd_inputs=None, fwd_inputs=None):
     forward's args if not ``args``; ``bwd_inputs``: the backward's (args,
     m, cts) if not those of the forward."""
     lib = _lib("egnn_loop", el.bind)
-    bf16 = mode == "bf16"
+    bf16 = ef.FLAGS[mode]
     outs = el.launch_fwd(lib, *(fwd_inputs or args), bf16=bf16)
     b_args, m, b_cts = bwd_inputs(args, outs[0], cts) if bwd_inputs else (args, outs[0], cts)
     got = loop_named(outs, el.launch_bwd(lib, *b_args, m, b_cts, bf16=bf16))
@@ -80,7 +83,7 @@ def _loop_matches_plain(args, cts, mode, bwd_inputs=None, fwd_inputs=None):
     assert not bad, bad
 
 
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 @pytest.mark.parametrize("batch_size,n_neighbours", [(1, None), (1, 90), (2, None)])
 def test_loop_kernels_emulated_match_plain(mode, batch_size, n_neighbours):
     """NP = 96: two full 48-neighbour tiles per query row. ``n_neighbours``
@@ -95,7 +98,7 @@ def test_loop_kernels_emulated_match_plain(mode, batch_size, n_neighbours):
     _loop_matches_plain(args, cts, mode)
 
 
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 def test_loop_kernels_emulated_take_unaligned_inputs(mode):
     """Every input of both kernels a view that starts 4 bytes into its
     storage: the forward's copies and the backward's weight staging and hid
@@ -106,7 +109,7 @@ def test_loop_kernels_emulated_take_unaligned_inputs(mode):
         off, _offset(m), [_offset(x) for x in c]))
 
 
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 def test_loop_forward_emulated_two_tiles(mode):
     """NP = 136 at batch 2: the forward merges two neighbour tiles per query
     row (the second ragged, over rows the first wrote), HID sums over both,
@@ -116,7 +119,7 @@ def test_loop_forward_emulated_two_tiles(mode):
     args, _ = loop_case(random_model(seed=0), "gnn2", seed=12, device=CPU, batch_size=2)
     args = loop_two_tiles(args)
     assert args[-1].shape[-1] == 136
-    bf16 = mode == "bf16"
+    bf16 = ef.FLAGS[mode]
     got = {f"out {n}": o for n, o in zip(el.OUT_NAMES, el.launch_fwd(lib, *args, bf16=bf16))}
     want = {f"out {n}": o for n, o in zip(el.OUT_NAMES, el.egnn_loop_plain(*args, bf16=bf16))}
     bad = {n: r for n, r in loop_errors(got, want, LOOP_TOL[mode]).items() if not r[3]}
@@ -124,13 +127,13 @@ def test_loop_forward_emulated_two_tiles(mode):
 
 
 def _fused_matches_plain(lib, args, mode):
-    got = ef.launch(lib, *args, bf16=mode == "bf16")
-    want = ef.egnn_fused_plain(*args, bf16=mode == "bf16")
+    got = ef.launch(lib, *args, bf16=ef.FLAGS[mode])
+    want = ef.egnn_fused_plain(*args, bf16=ef.FLAGS[mode])
     for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=TOL[mode][name], err_msg=name)
 
 
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 def test_fused_kernel_emulated_matches_plain(mode):
     lib = _lib("egnn_fused", ef.bind)
     args = layer_case(random_model(seed=0), "gnn1", seed=2, device=CPU, batch_size=1)
@@ -138,7 +141,7 @@ def test_fused_kernel_emulated_matches_plain(mode):
     _fused_matches_plain(lib, args, mode)
 
 
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 def test_fused_kernel_emulated_ragged_tile(mode):
     """NP = 90, not a multiple of 16: the last mma row tile is padded with
     zero rows and its neighbours masked out of the fold."""
@@ -146,7 +149,7 @@ def test_fused_kernel_emulated_ragged_tile(mode):
     _fused_matches_plain(_lib("egnn_fused", ef.bind), args, mode)
 
 
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 def test_fused_kernel_emulated_takes_unaligned_inputs(mode):
     """a_j, q_j and edge (and every other input) as views that start 4 bytes
     into their storage: the kernel's 4-byte copy path."""
@@ -169,7 +172,7 @@ def _two_tiles(args, extra: int = 40):
     return w, h, q_i, t_i, tors, more(a_j, 1), more(q_j, 1), more(t_j, 1), more(edge, 1), mask
 
 
-@pytest.mark.parametrize("mode", ["fp32", "bf16"])
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
 def test_fused_kernel_emulated_two_tiles(mode):
     """NP = 136: the online fold merges two neighbour tiles per query row,
     the second tile's padding rows hold the first tile's data (and must be
