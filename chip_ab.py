@@ -22,8 +22,8 @@ into ``.chip_scratch/build/`` and bound with the wrapper's ``bind``. Kernel
 each layer shape timed. The loop: forward and backward of both builds
 checked against the plain version and its autograd
 (``chip_smoke.loop_run(..., kernel=False)``) at ``chip_smoke.LOOP_TOL`` on
-``chip_smoke.loop_case``'s batch-64 inputs, both layer shapes and both
-modes, then the forward and the backward timed per layer and mode. Times
+``chip_smoke.loop_case``'s batch-64 inputs, both layer shapes and every
+mode (fp32, bf16, high), then the forward and the backward timed per layer and mode. Times
 are ``chip_smoke.time_ms`` (``ITERS`` launches captured in a CUDA graph,
 its replay timed between CUDA events: the card's time, not the host's
 launch work) in the order old, new, new, old. ``--ablate`` also builds copies of the current
@@ -73,9 +73,13 @@ ABLATIONS = {"pallas": {
     "heads_x_hoisted": [("x[q] = ld4(hrow + 4 * q * LD + k0);", "x[q] = ld4(hrow + 4 * q * LD);")],
 }, "loop": {
     # the three products of d(pre_heads) / hid tiles, one at a time
+    # (each names its fp32, bf16 and high form; texts shared by the modes,
+    # as the high backward's build, staging, E and d(hid) loop, once)
     "no_head_product": [("for (int k0 = 0; k0 < T; k0 += 4) {", "for (int k0 = 0; k0 < 0; k0 += 4) {"),
-                        ("        mma_bf16_16816(cc[nn], a[ks], b);\n", "")],
-    "no_dwhm_product": [("p3_bf16(sm, warp, lane);", ""), ("p3_fp32(sm, warp, lane);", "")],
+                        ("        mma_bf16_16816(cc[nn], a[ks], b);\n", ""),
+                        ("        mma_split_16816(cc[nn], ah, al, bh, bl);\n", "")],
+    "no_dwhm_product": [("p3_bf16(sm, warp, lane);", ""), ("p3_fp32(sm, warp, lane);", ""),
+                        ("p3_high(sm, warp, lane);", "")],
     "no_dhid_product": [("for (int k0 = 0; k0 < HEADS; k0 += 4) {", "for (int k0 = 0; k0 < 0; k0 += 4) {"),
                         ("for (int ks = 0; ks < HEADS / 16; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {")],
     # d(a_j), d(edge) (2 per pair and column) and phase F's d(q_j), d(t_j)
@@ -98,12 +102,12 @@ ABLATIONS = {"pallas": {
                           ("for (int e = tid; e < HEADS * T / 4; e += THREADS) {\n      const int u",
                            "for (int e = tid; e < 0; e += THREADS) {\n      const int u")],
     # the forward (egnn_tile.cuh's phases, called from the forward kernel)
-    "fwd_no_product": [("    tile_product<BF16>(sm, nj, warp, lane);\n", "")],
-    "fwd_no_fold": [("      fold_tile<BF16>(sm, nj, warp, lane);\n", "")],
+    "fwd_no_product": [("    tile_product<MODE>(sm, nj, warp, lane);\n", "")],
+    "fwd_no_fold": [("      fold_tile<MODE>(sm, nj, warp, lane);\n", "")],
     "fwd_no_prefetch": [("      prefetch(it + 1, nrow / N != b || ntl != tl);\n", "")],
-    "fwd_no_build": [("    build_tile<BF16>(sm, sm + S::NR + L_AI, sm + S::NR + L_QI, sm + S::NR + L_TI, nj, tid, warp, lane);\n",
+    "fwd_no_build": [("    build_tile<MODE>(sm, sm + S::NR + L_AI, sm + S::NR + L_QI, sm + S::NR + L_TI, nj, tid, warp, lane);\n",
                       "")],
-    "fwd_no_weight_staging": [("  stage_weights<BF16>(sm, loop_w(in.w), tid);\n", "")],
+    "fwd_no_weight_staging": [("  stage_weights<MODE>(sm, loop_w(in.w), tid);\n", "")],
 }}
 
 
@@ -165,11 +169,12 @@ def pallas_ab(libs, card, dev, run_ms) -> None:
 
 
 def loop_ab(libs, card, dev, run_ms) -> None:
-    """The loop kernels: both builds' forward and backward checked in both
-    modes, then the forward and the backward timed per layer shape and
-    mode."""
-    from chip_smoke import LOOP_TOL, loop_case, loop_errors, loop_named, loop_run, random_model
+    """The loop kernels: both builds' forward and backward checked in every
+    mode (fp32, bf16, high), then the forward and the backward timed per
+    layer shape and mode. An OLD.cu without the high mode fails its check."""
+    from chip_smoke import LOOP_TOL, MODES, loop_case, loop_errors, loop_named, loop_run, random_model
     from pmhc_tpu_torch.ops import egnn_loop as el
+    from pmhc_tpu_torch.ops.egnn_fused import FLAGS
 
     import torch
 
@@ -178,8 +183,8 @@ def loop_ab(libs, card, dev, run_ms) -> None:
     cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     for k, layer in enumerate(("gnn1", "gnn2")):
         args, cts = loop_case(model, layer, seed=10 + k, device=dev)
-        for mode in ("fp32", "bf16"):
-            bf16 = mode == "bf16"
+        for mode in MODES:
+            bf16 = FLAGS[mode]
             want = loop_run(args, cts, bf16, kernel=False)
             for name in ("old", "new"):
                 outs = el.launch_fwd(libs[name], *args, bf16=bf16, stream=cur())

@@ -80,6 +80,19 @@ Phases (any failure exits non-zero):
    PDB passes ``check_pdb``. Logged: seconds and examples/s per epoch, the
    seconds the step loop waited on the loader, the sample CLI's whole-call
    wall and PDBs/s, and per batch its sampling and PDB-writing seconds;
+4c. the tool twins (``pmhc_tpu_torch/tools/``) through ``main([...])`` on
+   4b's fp32 ``.pth`` (3 epochs) and its 67-entry test file, every kernel
+   counter reset before each and its counts checked exactly:
+   ``eval_rmsd`` at T=1000 in fp32, bf16, fast-f32 and ``--backend pallas``
+   (67 finite RMSDs and pure-noise RMSDs; 2 launches a step and batch of
+   #1/#2 in the mode, or of #3), ``rmsd_backends`` at T=200 on 16
+   realistic entries (its five default configs; the verdict is logged,
+   not required: its outcome is stochastic), ``bench_sampler`` (one T=1000
+   batch of 64 after the first call; fused and pallas in fp32, fused in
+   bf16 and fast-f32), ``bench_train`` (20 batch-64 steps per mode; fused
+   and pallas in fp32), ``bench_serve`` (8 warm-up requests, then 64 at
+   concurrency 64, every response a PDB) and ``flops`` on the rates they
+   measured (achieved TFLOP/s and share of the H100's peak);
 5. times: each kernel and its plain version per launch (``time_ms``:
    N launches captured in a CUDA graph, its replay timed between CUDA
    events, so no wrapper's host work is in it), beside the bound reckoned
@@ -103,6 +116,8 @@ line before that is ``nvidia-smi``'s name and power limit of the card.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -112,11 +127,6 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM published peaks (dense): fp32 CUDA cores, bf16 tensor cores, HBM3
-PEAK_FP32 = 67e12
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
 
 B, STEPS = 64, 1000
 # kernel vs plain version: fp32 sums in another order (~1e-6); in bf16
@@ -193,6 +203,7 @@ GRAPH_TRAIN_TOL = {"loss_rtol": 1e-4, "change_rtol": 2e-2}
 # validation batch, a test set of a full batch and a short batch of 3
 OFFLINE_SETS = {"train": (1024, 0), "val": (64, 1), "test": (67, 2)}
 OFFLINE_SAMPLE_STEPS = 100  # the strided sampling run's jumps
+RMSD_BACKENDS_T = 200  # phase 4c's rmsd_backends run (the JAX tool's default T)
 
 
 def log(msg: str) -> None:
@@ -200,10 +211,10 @@ def log(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    """nvidia-smi's name and power limit of the card (``tools.card_line``)."""
+    from pmhc_tpu_torch.tools import card_line as line
+
+    return line("cuda")
 
 
 def random_model(seed: int):
@@ -293,7 +304,10 @@ def bound_of(split_flops: float, other_flops: float, nbytes: float, mode: str):
     ``split_flops`` and the rest ``other_flops``: the larger of the bytes
     over 3.35 TB/s and the operations over the mode's peaks (fp32: all at
     the fp32 peak; bf16: all at the bf16 peak; high: the split products
-    three times at the bf16 peak, the rest at the fp32 peak)."""
+    three times at the bf16 peak, the rest at the fp32 peak; the H100's
+    peaks, ``tools/flops.py``)."""
+    from pmhc_tpu_torch.tools.flops import PEAK_BF16, PEAK_BYTES, PEAK_FP32
+
     if mode == "high":
         t_ops = 3 * split_flops / PEAK_BF16 + other_flops / PEAK_FP32
     else:
@@ -362,6 +376,8 @@ def work_of_pallas(args):
     its projection h_j H x T (the kernel repeats it for every query row,
     as the TPU kernel does; the function needs it once). Each MAC is 2
     operations; each input is read once and each output written once."""
+    from pmhc_tpu_torch.tools.flops import PEAK_BYTES, PEAK_FP32
+
     w, h, h_all, q_i, t_i, q_j, t_j, tors, mask, edge = args
     Bn, N, NP = mask.shape
     H, T, M = h.shape[-1], edge.shape[-1], edge.shape[-1]
@@ -1437,100 +1453,210 @@ def offline_sample(args: list, ds, out: str, mode: str, n_files: int, want: int,
     return stats
 
 
-def offline_main_path(card: str) -> None:
+def offline_main_path(card: str, work: str) -> dict:
     """Phase 4b: the offline entry points through ``main([...])`` of each CLI
     on the card, at batch 64, T = 1000 and the published width, on packed
-    files of realistic entries built here (no HDF5)."""
+    files of realistic entries built here (no HDF5) in ``work``. Returns
+    the fp32 ``train_cli`` run's ``.pth`` and the 67-entry test file."""
     import math
-    import shutil
 
     from pmhc_tpu_torch.data import PackedDataset
     from pmhc_tpu_torch.train import CheckpointManager
 
     t_phase = time.monotonic()
-    work = os.path.join(REPO, ".chip_scratch", "offline")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    try:
-        paths = {}
-        t0 = time.monotonic()
-        for name, (n, seed) in OFFLINE_SETS.items():
-            paths[name] = os.path.join(work, f"{name}.npz")
-            size = pack_realistic(paths[name], n, seed)
-            log(f"offline data {name}.npz: {n} realistic entries (seed {seed}), {size} bytes "
-                f"({size / n / 1e3:.1f} KB an entry)")
-        log(f"offline data built in {time.monotonic() - t0:.1f} s")
-        steps = OFFLINE_SETS["train"][0] // B  # per epoch
-        val_batches = -(-OFFLINE_SETS["val"][0] // B)
+    paths = {}
+    t0 = time.monotonic()
+    for name, (n, seed) in OFFLINE_SETS.items():
+        paths[name] = os.path.join(work, f"{name}.npz")
+        size = pack_realistic(paths[name], n, seed)
+        log(f"offline data {name}.npz: {n} realistic entries (seed {seed}), {size} bytes "
+            f"({size / n / 1e3:.1f} KB an entry)")
+    log(f"offline data built in {time.monotonic() - t0:.1f} s")
+    steps = OFFLINE_SETS["train"][0] // B  # per epoch
+    val_batches = -(-OFFLINE_SETS["val"][0] // B)
 
-        # -- fp32: 2 epochs with validation (raw and EMA weights), then a resume
-        model = os.path.join(work, "model.pth")
-        ckdir = os.path.join(work, "ck")
-        cmd = [paths["train"], "2", model, "--batch-size", str(B), "--val-hdf5", paths["val"],
-               "--ema-decay", "0.999", "--orbax-dir", ckdir]
-        fwd = 2 * steps * 2 + 2 * 2 * val_batches * 2  # layers x steps + layers x epochs x batches x weights
-        stats = {"fp32": offline_train(cmd, {"fwd_fp32": fwd, "bwd_fp32": 2 * 2 * steps,
-                                             "fwd_bf16": 0, "bwd_bf16": 0}, card, "fp32")}
-        for suffix, rows in ((".pth", None), (".ema.pth", None), (".csv", 2), (".val.csv", 2),
-                             (".val.ema.csv", 2)):
-            path = model.replace(".pth", suffix)
-            if not os.path.isfile(path):
-                raise AssertionError(f"offline train: {path} missing")
-            if rows is not None:
-                got = csv_rows(path)
-                bad = [r for r in got for k, v in r.items() if k != "epoch" and not math.isfinite(float(v))]
-                log(f"offline train {os.path.basename(path)}: {len(got)} rows, last {got[-1]}")
-                if len(got) != rows or bad:
-                    raise AssertionError(f"{path}: {len(got)} rows (expected {rows}), non-finite {bad}")
-        offline_train(cmd[:1] + ["1"] + cmd[2:], {"fwd_fp32": 2 * steps + 2 * val_batches * 2,
-                                                  "bwd_fp32": 2 * steps, "fwd_bf16": 0,
-                                                  "bwd_bf16": 0}, card, "fp32 resume")
-        latest = CheckpointManager(ckdir).latest_step()
-        rows = len(csv_rows(model.replace(".pth", ".csv")))
-        log(f"offline train resume: CSV {rows} rows, latest checkpoint step {latest} "
-            f"(restored at {2 * steps}, then {steps} steps)")
-        if rows != 3 or latest != 3 * steps:
-            raise AssertionError(f"offline resume: CSV {rows} rows, checkpoint step {latest}")
+    # -- fp32: 2 epochs with validation (raw and EMA weights), then a resume
+    model = os.path.join(work, "model.pth")
+    ckdir = os.path.join(work, "ck")
+    cmd = [paths["train"], "2", model, "--batch-size", str(B), "--val-hdf5", paths["val"],
+           "--ema-decay", "0.999", "--orbax-dir", ckdir]
+    fwd = 2 * steps * 2 + 2 * 2 * val_batches * 2  # layers x steps + layers x epochs x batches x weights
+    stats = {"fp32": offline_train(cmd, {"fwd_fp32": fwd, "bwd_fp32": 2 * 2 * steps,
+                                         "fwd_bf16": 0, "bwd_bf16": 0}, card, "fp32")}
+    for suffix, rows in ((".pth", None), (".ema.pth", None), (".csv", 2), (".val.csv", 2),
+                         (".val.ema.csv", 2)):
+        path = model.replace(".pth", suffix)
+        if not os.path.isfile(path):
+            raise AssertionError(f"offline train: {path} missing")
+        if rows is not None:
+            got = csv_rows(path)
+            bad = [r for r in got for k, v in r.items() if k != "epoch" and not math.isfinite(float(v))]
+            log(f"offline train {os.path.basename(path)}: {len(got)} rows, last {got[-1]}")
+            if len(got) != rows or bad:
+                raise AssertionError(f"{path}: {len(got)} rows (expected {rows}), non-finite {bad}")
+    offline_train(cmd[:1] + ["1"] + cmd[2:], {"fwd_fp32": 2 * steps + 2 * val_batches * 2,
+                                              "bwd_fp32": 2 * steps, "fwd_bf16": 0,
+                                              "bwd_bf16": 0}, card, "fp32 resume")
+    latest = CheckpointManager(ckdir).latest_step()
+    rows = len(csv_rows(model.replace(".pth", ".csv")))
+    log(f"offline train resume: CSV {rows} rows, latest checkpoint step {latest} "
+        f"(restored at {2 * steps}, then {steps} steps)")
+    if rows != 3 or latest != 3 * steps:
+        raise AssertionError(f"offline resume: CSV {rows} rows, checkpoint step {latest}")
 
-        # -- bf16, the dataset resident on the card, 4 steps per call
-        # 2 epochs: the first captures the step's graph, the second only replays
-        bf16_cmd = [paths["train"], "2", os.path.join(work, "model_bf16.pth"), "--batch-size",
-                    str(B), "--bf16", "--device-data", "--steps-per-dispatch", "4"]
-        bf16_want = {"fwd_fp32": 0, "bwd_fp32": 0, "fwd_bf16": 2 * 2 * steps,
-                     "bwd_bf16": 2 * 2 * steps}
-        stats["bf16"] = offline_train(bf16_cmd, bf16_want, card, "bf16")
-        # the same epoch eager (a fresh model: the output file is removed)
-        os.remove(bf16_cmd[2])
-        stats["bf16 eager"] = offline_train(bf16_cmd + ["--eager"], bf16_want, card, "bf16 eager")
-        # -- fast-f32: one epoch of the default path (the loader, graphs)
-        stats["fast-f32"] = offline_train(
-            [paths["train"], "1", os.path.join(work, "model_high.pth"), "--batch-size", str(B),
-             "--fast-f32"], {"fwd_high": 2 * steps, "bwd_high": 2 * steps}, card, "fast-f32")
-        if stats["fast-f32"]["precision"] != "fast-f32":
-            raise AssertionError(f"offline train --fast-f32 ran {stats['fast-f32']['precision']}")
-        for mode in ("fp32", "bf16", "bf16 eager", "fast-f32"):
-            log(json.dumps({"metric": "train_cli", "mode": mode, "batch": B,
-                            "epoch_s": [e["seconds"] for e in stats[mode]["epochs"]],
-                            "examples_per_s": [e["examples_per_s"] for e in stats[mode]["epochs"]],
-                            "loader_wait_s": [e["loader_wait_s"] for e in stats[mode]["epochs"]],
-                            "card": card}))
+    # -- bf16, the dataset resident on the card, 4 steps per call
+    # 2 epochs: the first captures the step's graph, the second only replays
+    bf16_cmd = [paths["train"], "2", os.path.join(work, "model_bf16.pth"), "--batch-size",
+                str(B), "--bf16", "--device-data", "--steps-per-dispatch", "4"]
+    bf16_want = {"fwd_fp32": 0, "bwd_fp32": 0, "fwd_bf16": 2 * 2 * steps,
+                 "bwd_bf16": 2 * 2 * steps}
+    stats["bf16"] = offline_train(bf16_cmd, bf16_want, card, "bf16")
+    # the same epoch eager (a fresh model: the output file is removed)
+    os.remove(bf16_cmd[2])
+    stats["bf16 eager"] = offline_train(bf16_cmd + ["--eager"], bf16_want, card, "bf16 eager")
+    # -- fast-f32: one epoch of the default path (the loader, graphs)
+    stats["fast-f32"] = offline_train(
+        [paths["train"], "1", os.path.join(work, "model_high.pth"), "--batch-size", str(B),
+         "--fast-f32"], {"fwd_high": 2 * steps, "bwd_high": 2 * steps}, card, "fast-f32")
+    if stats["fast-f32"]["precision"] != "fast-f32":
+        raise AssertionError(f"offline train --fast-f32 ran {stats['fast-f32']['precision']}")
+    for mode in ("fp32", "bf16", "bf16 eager", "fast-f32"):
+        log(json.dumps({"metric": "train_cli", "mode": mode, "batch": B,
+                        "epoch_s": [e["seconds"] for e in stats[mode]["epochs"]],
+                        "examples_per_s": [e["examples_per_s"] for e in stats[mode]["epochs"]],
+                        "loader_wait_s": [e["loader_wait_s"] for e in stats[mode]["epochs"]],
+                        "card": card}))
 
-        # -- sampling: 67 entries = a full batch and a short batch of 3
-        test = PackedDataset.load(paths["test"])
-        n_test = len(test)
-        n_batches = -(-n_test // B)
-        for mode, extra in (("fp32", []), ("bf16", ["--bf16"]), ("high", ["--fast-f32"]),
-                            ("fp32", ["--eager"])):
-            offline_sample([model, paths["test"], "-b", str(B)] + extra, test,
-                           os.path.join(work, f"sampled_{mode}{''.join(extra)}"), mode, n_test,
-                           n_batches * STEPS * 2, card)
-        k = OFFLINE_SAMPLE_STEPS
-        offline_sample([model, paths["test"], "-b", str(B), "--bf16", "--num-samples", "2",
-                        "--sample-steps", str(k)], test, os.path.join(work, f"sampled_k{k}"),
-                       "bf16", 2 * n_test, n_batches * k * 2 * 2, card)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    # -- sampling: 67 entries = a full batch and a short batch of 3
+    test = PackedDataset.load(paths["test"])
+    n_test = len(test)
+    n_batches = -(-n_test // B)
+    for mode, extra in (("fp32", []), ("bf16", ["--bf16"]), ("high", ["--fast-f32"]),
+                        ("fp32", ["--eager"])):
+        offline_sample([model, paths["test"], "-b", str(B)] + extra, test,
+                       os.path.join(work, f"sampled_{mode}{''.join(extra)}"), mode, n_test,
+                       n_batches * STEPS * 2, card)
+    k = OFFLINE_SAMPLE_STEPS
+    offline_sample([model, paths["test"], "-b", str(B), "--bf16", "--num-samples", "2",
+                    "--sample-steps", str(k)], test, os.path.join(work, f"sampled_k{k}"),
+                   "bf16", 2 * n_test, n_batches * k * 2 * 2, card)
     log(json.dumps({"metric": "offline_phase_s", "seconds": time.monotonic() - t_phase,
+                    "card": card}))
+    return {"model": model, "test": paths["test"]}
+
+
+def tool_launches(run, label: str, want):
+    """``run()`` (a tool's ``main``) with every kernel counter reset just
+    before; the counts after must equal ``want`` ({"fused": {mode: n},
+    "pallas": n, "loop": {key: n}}; a counter left out: 0), or what
+    ``want(out)`` gives for ``run``'s output ``out``. Returns ``out``."""
+    import torch
+
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import egnn_loop as el
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+
+    torch.cuda.synchronize()
+    for mod in (ef, el, ep):
+        mod.reset_launches()
+    t0 = time.monotonic()
+    printed = io.StringIO()  # the tool's own lines; logged below as metrics
+    try:
+        with contextlib.redirect_stdout(printed):
+            out = run()
+    except BaseException:
+        print(printed.getvalue(), flush=True)
+        raise
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    want = want(out) if callable(want) else want
+    got = {"fused": dict(ef.LAUNCHES), "pallas": sum(ep.LAUNCHES.values()), "loop": dict(el.LAUNCHES)}
+    expect = {"fused": {k: want.get("fused", {}).get(k, 0) for k in ef.LAUNCHES},
+              "pallas": want.get("pallas", 0),
+              "loop": {k: want.get("loop", {}).get(k, 0) for k in el.LAUNCHES}}
+    log(f"tools {label}: {wall:.1f} s, launches {got}")
+    if got != expect:
+        raise AssertionError(f"tools {label}: launches {got}, expected {expect}")
+    return out
+
+
+def tools_main_path(card: str, model: str, test: str) -> None:
+    """Phase 4c: the tool twins (``pmhc_tpu_torch/tools/``) through their
+    ``main([...])`` on the card, on phase 4b's trained ``.pth`` and 67-entry
+    test file, each with its kernel launches checked exactly."""
+    import math
+
+    from pmhc_tpu_torch.tools import bench_sampler, bench_serve, bench_train, eval_rmsd, flops
+    from pmhc_tpu_torch.tools import rmsd_backends
+
+    t_phase = time.monotonic()
+    n_test = OFFLINE_SETS["test"][0]
+    batches = -(-n_test // B)
+    # eval_rmsd: 2 launches a step and batch, in the mode asked for
+    for mode, extra in (("fp32", []), ("bf16", ["--bf16"]), ("high", ["--fast-f32"]),
+                        ("pallas", ["--backend", "pallas"])):
+        want = ({"pallas": 2 * STEPS * batches} if mode == "pallas"
+                else {"fused": {mode: 2 * STEPS * batches}})
+        rep = tool_launches(lambda: eval_rmsd.main([model, test, "-T", str(STEPS), "-b", str(B),
+                                                    "--device", "cuda"] + extra),
+                            f"eval_rmsd {mode}", want)
+        bad = [n for n, r in rep["per_entry"].items() if not math.isfinite(r)]
+        if rep["entries"] != n_test or bad or not math.isfinite(rep["mean_pure_noise_rmsd"]):
+            raise AssertionError(f"eval_rmsd {mode}: {rep['entries']} entries, non-finite {bad}")
+        if rep["precision"] != PRECISION["fp32" if mode == "pallas" else mode]:
+            raise AssertionError(f"eval_rmsd {mode} ran {rep['precision']}")
+        log(json.dumps({"metric": "eval_rmsd", "mode": mode, "backend": rep["backend"],
+                        "entries": rep["entries"], "T": rep["T"],
+                        "mean_backbone_rmsd": rep["mean_backbone_rmsd"],
+                        "mean_pure_noise_rmsd": rep["mean_pure_noise_rmsd"],
+                        "seconds": rep["seconds"], "card": card}))
+    # rmsd_backends: T = 200 on 16 entries, every default config; the verdict is logged
+    t_rb = RMSD_BACKENDS_T
+    out = tool_launches(lambda: rmsd_backends.main(
+        [model, "-T", str(t_rb), "--entries", "16", "--data", "realistic", "--device", "cuda"]),
+        "rmsd_backends", {"fused": {m: 2 * t_rb for m in MODES}, "pallas": 2 * t_rb})
+    log(json.dumps({"metric": "rmsd_backends", "T": t_rb, "entries": 16,
+                    "verdict": out["verdict"], "failures": out["failures"],
+                    "rmsd_mean": {f"{r['backend']}:{r['precision']}": r["rmsd_mean"]
+                                  for r in out["rows"]}, "card": card}))
+    # bench_sampler: one T=1000 batch of 64 after the first call, per mode
+    rates = []
+    for mode, backends, extra in (("fp32", "fused,pallas", []), ("bf16", "fused", ["--bf16"]),
+                                  ("high", "fused", ["--fast-f32"])):
+        n = 2 * 2 * STEPS  # the first call and one timed call
+        want = {"fused": {mode: n}, "pallas": n if "pallas" in backends else 0}
+        rows = tool_launches(lambda: bench_sampler.main(
+            ["-b", str(B), "-T", str(STEPS), "--iters", "1", "--backends", backends,
+             "--device", "cuda"] + extra), f"bench_sampler {mode}", want)
+        for row in rows:
+            log(json.dumps({"metric": "bench_sampler", **row}))
+        rates += rows
+    # bench_train: 20 steps per mode (a warm-up dispatch and 3 timed ones of 5 steps)
+    for mode, backends, extra in (("fp32", "fused,pallas", []), ("bf16", "fused", ["--bf16"]),
+                                  ("high", "fused", ["--fast-f32"])):
+        want = {"loop": {f"fwd_{mode}": 2 * TRAIN_STEPS, f"bwd_{mode}": 2 * TRAIN_STEPS},
+                "pallas": 2 * TRAIN_STEPS if "pallas" in backends else 0}
+        rows = tool_launches(lambda: bench_train.main(
+            ["--batches", str(B), "--backends", backends, "--steps-per-dispatch", "5",
+             "--iters", "1", "--repeats", "3", "--device", "cuda"] + extra),
+            f"bench_train {mode}", want)
+        for row in rows:
+            log(json.dumps({"metric": "bench_train", **row}))
+        rates += rows
+    # bench_serve: 64 concurrent requests; the service's warm-up batch, then
+    # each batch the server dispatched, 2 x T launches
+    rows = tool_launches(lambda: bench_serve.main(
+        ["-b", str(B), "-T", str(STEPS), "--requests", "64", "--concurrency", "64",
+         "--warmup-requests", "8", "--device", "cuda"]), "bench_serve",
+        lambda rows: {"fused": {"fp32": 2 * STEPS * (1 + sum(r["batches"] for r in rows))}})
+    for row in rows:
+        log(json.dumps({"metric": "bench_serve", **row}))
+        if row["ok"] != row["requests"] or row["errors"]:
+            raise AssertionError(f"bench_serve: {row['ok']} of {row['requests']} ok, {row['errors']}")
+    # flops: what the measured rates achieve of the H100's peaks
+    for row in flops.from_bench_lines(json.dumps(r) for r in rates):
+        log(json.dumps({"metric": "flops_achieved", **row}))
+    log(json.dumps({"metric": "tools_phase_s", "seconds": time.monotonic() - t_phase,
                     "card": card}))
 
 
@@ -1748,8 +1874,17 @@ def main() -> int:
     pallas_launches, _ = http_main_path(model, card)
     trainer_pallas_check(dev, card)
 
-    # -- 4b. the offline CLIs -------------------------------------------------------
-    offline_main_path(card)
+    # -- 4b. the offline CLIs; 4c. the tools, on 4b's trained weights -------------------
+    import shutil
+
+    work = os.path.join(REPO, ".chip_scratch", "offline")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        offline = offline_main_path(card, work)
+        tools_main_path(card, offline["model"], offline["test"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # -- 5. times -------------------------------------------------------------------
     kernels = []

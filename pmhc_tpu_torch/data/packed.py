@@ -109,6 +109,7 @@ class PackedDataset:
     def _set(self, data: Dict[str, np.ndarray], proteins) -> None:
         self._data = data
         self._proteins = proteins  # anything with get_protein_positions
+        self._index = {n: i for i, n in enumerate(self.entry_names)}
         self.nbytes = sum(v.nbytes for v in self._data.values())
 
     @classmethod
@@ -148,6 +149,10 @@ class PackedDataset:
         out = {k: v[index] for k, v in self._data.items()}
         out["name"] = self.entry_names[index]
         return out
+
+    def get_entry(self, entry_name: str) -> Dict[str, np.ndarray]:
+        """The padded entry named ``entry_name`` (``PmhcDataset.get_entry``'s keys)."""
+        return self[self._index[entry_name]]
 
     def get_batch(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
         """Collated batch by fancy indexing: no per-entry work."""

@@ -9,7 +9,6 @@ composition is a Hamilton product. Randomness comes from an explicit
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict
 
 import torch
@@ -23,7 +22,8 @@ from pmhc_tpu_torch.geometry import (
     partial_sin_cos,
     quat_invert,
     quat_multiply,
-    shoemake_quat,
+    random_quat,
+    random_sin_cos,
 )
 
 Noise = Dict[str, Any]  # {"frames": RigidArray, "torsions": [..., 7, 2]}
@@ -34,11 +34,10 @@ def gen_noise(generator: torch.Generator, shape, config: DiffusionConfig) -> Noi
     translations ~ N(0, 5^2), rotations uniform on SO(3) (Shoemake),
     torsions uniform angles as (sin, cos)."""
     shape = tuple(shape)
-    kw = {"generator": generator, "device": generator.device, "dtype": torch.float32}
-    trans = torch.randn(shape + (3,), **kw) * config.position_noise_scale
-    quats = shoemake_quat(torch.rand(shape + (3,), **kw))
-    angles = torch.rand(shape + (7,), **kw) * (2.0 * math.pi)
-    torsions = torch.stack((torch.sin(angles), torch.cos(angles)), dim=-1)
+    trans = torch.randn(shape + (3,), generator=generator, device=generator.device,
+                        dtype=torch.float32) * config.position_noise_scale
+    quats = random_quat(generator, shape)
+    torsions = random_sin_cos(generator, shape + (7,))
     return {"frames": RigidArray(quats, trans), "torsions": torsions}
 
 

@@ -3,7 +3,10 @@
 Counterpart of ``pmhc_tpu/geometry/quat.py``: the same conventions and
 reference quirks — ``torch_normalize`` divides by ``max(||x||, eps)``,
 ``quat_invert`` divides by the squared norm, ``partial_rot`` does not
-renormalize its output. Everything is float32.
+renormalize its output, ``rot_to_quat`` is the branchless Shepperd form
+with the sign fixed to w >= 0 (as ``data/synthetic.py::rot_to_quat_np``).
+Everything is float32. ``random_quat`` draws from a ``torch.Generator``
+where the JAX function takes a key.
 """
 
 from __future__ import annotations
@@ -42,6 +45,21 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_multiply_by_vec(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Multiply quaternions ``[..., 4]`` by pure-vector quaternions ``[..., 3]``."""
+    w1, x1, y1, z1 = q.unbind(-1)
+    x2, y2, z2 = v.unbind(-1)
+    return torch.stack(
+        (
+            -x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2,
+        ),
+        dim=-1,
+    )
+
+
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
     return torch.cat((q[..., :1], -q[..., 1:]), dim=-1)
 
@@ -64,6 +82,32 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     return torch.stack((row0, row1, row2), dim=-2)
 
 
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors ``[..., 3]`` by quaternions ``[..., 4]`` (as R(q) @ v),
+    an elementwise contraction kept in fp32 whatever matmul precision is set."""
+    return torch.sum(quat_to_rot(q) * v[..., None, :], dim=-1)
+
+
+def rot_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix ``[..., 3, 3]`` -> unit quaternion ``[..., 4]``: all four
+    Shepperd candidates, the best-conditioned one picked with ``where`` (no
+    branch, no eigh), the sign canonicalized to w >= 0."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack((1.0 + tr, m21 - m12, m02 - m20, m10 - m01), dim=-1)
+    qx = torch.stack((m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20), dim=-1)
+    qy = torch.stack((m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21), dim=-1)
+    qz = torch.stack((m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22), dim=-1)
+    cands = torch.stack((1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                         1.0 - m00 - m11 + m22), dim=-1)
+    best = torch.argmax(cands, dim=-1)[..., None]  # the first of equal maxima, as jnp.argmax
+    q = torch.where(best == 0, qw, torch.where(best == 1, qx, torch.where(best == 2, qy, qz)))
+    q = torch_normalize(q)
+    return torch.where(q[..., :1] < 0.0, -q, q)
+
+
 def shoemake_quat(x: torch.Tensor) -> torch.Tensor:
     """Shoemake coordinates ``[..., 3]`` in [0, 1] -> uniform unit quaternion."""
     x = torch.clamp(x, 0.0, 1.0)
@@ -80,6 +124,29 @@ def shoemake_quat(x: torch.Tensor) -> torch.Tensor:
         ),
         dim=-1,
     )
+
+
+def random_quat(generator: torch.Generator, shape) -> torch.Tensor:
+    """Uniform random unit quaternions of batch shape ``shape`` on the
+    generator's device: Shoemake of three uniforms."""
+    x = torch.rand(tuple(shape) + (3,), generator=generator, device=generator.device,
+                   dtype=torch.float32)
+    return shoemake_quat(x)
+
+
+def spherical_to_quat(axis_phi: torch.Tensor, axis_theta: torch.Tensor,
+                      alpha: torch.Tensor) -> torch.Tensor:
+    """Axis in spherical coordinates and a rotation angle -> unit quaternion."""
+    xy = torch.stack((torch.cos(axis_phi), torch.sin(axis_phi)), dim=-1)
+    xyz = torch.cat((xy * torch.sin(axis_theta)[..., None], torch.cos(axis_theta)[..., None]), dim=-1)
+    a2 = alpha / 2.0
+    return torch.cat((torch.cos(a2)[..., None], xyz * torch.sin(a2)[..., None]), dim=-1)
+
+
+def get_quat_angle(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """The angle between two quaternions: arccos |<q1, q2>| of the normalized pair."""
+    dot = torch.clamp(torch.sum(torch_normalize(q1) * torch_normalize(q2), dim=-1), -1.0, 1.0)
+    return torch.arccos(torch.abs(dot))
 
 
 def partial_rot(q: torch.Tensor, amount) -> torch.Tensor:

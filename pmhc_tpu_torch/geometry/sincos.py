@@ -6,9 +6,25 @@ angles and multiplies magnitudes; nothing is renormalized unless stated.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from pmhc_tpu_torch.geometry.quat import torch_normalize
+
+PI = math.pi
+
+
+def angle_to_sin_cos(angle: torch.Tensor) -> torch.Tensor:
+    """``[...]`` angles -> ``[..., 2]`` (sin, cos)."""
+    return torch.stack((torch.sin(angle), torch.cos(angle)), dim=-1)
+
+
+def random_sin_cos(generator: torch.Generator, shape) -> torch.Tensor:
+    """Uniform random angles in [0, 2pi) as (sin, cos), on the generator's device."""
+    a = torch.rand(tuple(shape), generator=generator, device=generator.device,
+                   dtype=torch.float32)
+    return angle_to_sin_cos(a * (2.0 * PI))
 
 
 def multiply_sin_cos(sc1: torch.Tensor, sc2: torch.Tensor) -> torch.Tensor:
@@ -30,3 +46,9 @@ def partial_sin_cos(sc: torch.Tensor, amount) -> torch.Tensor:
     a = torch.arccos(torch.clamp(sc[..., 1:], -1.0, 1.0))
     a = torch.where(sc[..., :1] < 0.0, -a, a)
     return torch.cat((torch.sin(a * amount), torch.cos(a * amount)), dim=-1)
+
+
+def get_sin_cos_angle(sc1: torch.Tensor, sc2: torch.Tensor) -> torch.Tensor:
+    """The angle between two (sin, cos) vectors, in [0, pi]."""
+    dot = torch.sum(torch_normalize(sc1) * torch_normalize(sc2), dim=-1)
+    return torch.arccos(torch.clamp(dot, -1.0, 1.0))

@@ -20,6 +20,7 @@ Counterpart of ``pmhc_tpu/serve.py``:
   waits for the previous batch's arrays and serializes its PDBs while the
   device runs the next. ``max_queue`` bounds the undispatched backlog (``Overloaded``).
 - ``frame_models``: N conformations as one multi-MODEL PDB.
+- ``entry_from_dataset``: a request entry from a dataset entry.
 - The HTTP front end is ``pmhc_tpu_torch.cli.serve_cli``.
 
 The service runs on the card: ``device=None`` means ``"cuda"``, and with
@@ -102,6 +103,19 @@ def validate_entry(entry: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
             raise ValueError(f"{k}: dtype {a.dtype} not allowed (kind {kinds})")
         out[k] = a.astype({"b": np.bool_, "f": np.float32, "iu": np.int32}[kinds])
     return out
+
+
+def entry_from_dataset(dataset, name: str) -> Dict[str, np.ndarray]:
+    """A serving request entry from a dataset entry: a ``PmhcDataset`` (a
+    SwiftMHC HDF5 file) or a ``PackedDataset`` (its ``.npz``). The keys of
+    ``ENTRY_SPECS``, the protein arrays cut to the entry's own length."""
+    e = dict(dataset.get_entry(name))
+    e.pop("name", None)
+    for k in ("pocket_aatype", "pocket_atom14_positions", "pocket_atom14_exists"):
+        e.pop(k, None)
+    for k, v in dataset.get_protein_positions([name]).items():
+        e[k] = v[0]
+    return e
 
 
 def dummy_entry(protein_len: int = 8, seed: int = 0) -> Dict[str, np.ndarray]:
@@ -233,6 +247,17 @@ class SamplerService:
         model_batch["torsions"] = noise["torsions"]
         return model_batch, protein
 
+    def sample_model_batch(self, model_batch: Dict[str, Any], generator: torch.Generator,
+                           injected_noise: Dict[str, Any] | None = None) -> Dict[str, Any]:
+        """The reverse chain on a batch from :meth:`build_model_batch`: from
+        the service's CUDA graphs on the card; ``injected_noise`` (tests)
+        runs it eagerly with that per-step noise."""
+        return sample(self.model, model_batch, self.diffusion_config, self.model_config,
+                      self.tables, generator=generator, bf16=self.mode,
+                      num_steps=self.num_steps,
+                      graphs=self.graphs if injected_noise is None else False,
+                      graph_cache=self.graph_cache, injected_noise=injected_noise)
+
     def dispatch(self, entries: Sequence[Dict[str, np.ndarray]],
                  generator: torch.Generator | None = None) -> Dispatched:
         """Queue sampling, the PDB-prep conversion and, on the card, its
@@ -240,10 +265,7 @@ class SamplerService:
         no wait for the card. Returns a handle for :meth:`finalize`."""
         generator = self.generator if generator is None else generator
         model_batch, protein = self.build_model_batch(entries, generator)
-        pred = sample(self.model, model_batch, self.diffusion_config, self.model_config,
-                      self.tables, generator=generator, bf16=self.mode,
-                      num_steps=self.num_steps, graphs=self.graphs,
-                      graph_cache=self.graph_cache)
+        pred = self.sample_model_batch(model_batch, generator)
         pred.update(protein)
         conv = convert_batch_for_pdb(pred)
         if self.device.type != "cuda":

@@ -1,0 +1,88 @@
+"""``chip_ab.py``'s ablations stay applicable: every (text, replacement)
+of ``ABLATIONS`` occurs in the kernel source it edits, so a later edit of a
+kernel cannot leave ``chip_ab.py --ablate`` raising before it builds
+anything; and every ablated source still compiles (g++ with
+``-fsyntax-only`` against the CUDA runtime emulation of
+``test_torch_kernel_emulation.py``, which instantiates every kernel), so
+the tool's nvcc builds of them do not fail on the card either. The loop's
+backward ablations cover the high mode's products as well as the fp32
+and bf16 ones."""
+
+import os
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+
+import jax  # noqa: F401  (the tier's convention: both frameworks importable)
+import pytest
+import torch
+
+import chip_ab
+from pmhc_tpu_torch.ops import _emulate
+
+torch.set_num_threads(1)
+CSRC = os.path.join(chip_ab.REPO, "pmhc_tpu_torch", "csrc")
+SOURCES = {"pallas": "egnn_pallas.cu", "loop": "egnn_loop.cu"}
+CASES = [(k, n) for k, edits in sorted(chip_ab.ABLATIONS.items()) for n in sorted(edits)]
+
+
+def _source(kernel: str) -> str:
+    """What ``chip_ab`` ablates: the kernel's ``.cu`` (the loop forward's
+    phases are called there, from ``egnn_tile.cuh``)."""
+    with open(os.path.join(CSRC, SOURCES[kernel])) as f:
+        return f.read()
+
+
+def _syntax_check(gxx: str, path: str) -> subprocess.CompletedProcess:
+    """g++ -fsyntax-only of ``path`` (an ablated source) as the emulated
+    build compiles it, the headers from ``csrc/``."""
+    tu = f"{path}.cpp"
+    with open(tu, "w") as f:
+        f.write(f'#include "cuda_runtime.h"\n#include "{path}"\n')
+    return subprocess.run([gxx, "-std=c++20", "-fsyntax-only", "-pthread", "-I", _emulate.EMU_DIR,
+                           "-I", CSRC, tu], capture_output=True, text=True, timeout=300)
+
+
+@pytest.fixture(scope="module")
+def compiled(tmp_path_factory):
+    """Every ablated source compiled once, four g++ at a time."""
+    gxx = _emulate.gxx_path()
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernels for the CPU")
+    out = tmp_path_factory.mktemp("ablated")
+    paths = {}
+    for kernel, name in CASES:
+        paths[kernel, name] = str(out / f"{kernel}_{name}.cu")
+        with open(paths[kernel, name], "w") as f:
+            f.write(chip_ab.ablated(_source(kernel), chip_ab.ABLATIONS[kernel][name]))
+    with ThreadPoolExecutor(4) as pool:
+        return dict(zip(paths, pool.map(lambda p: _syntax_check(gxx, p), paths.values())))
+
+
+@pytest.mark.parametrize("kernel,name", CASES)
+def test_ablation_text_occurs_in_its_source(kernel, name):
+    src = _source(kernel)
+    assert chip_ab.ablated(src, chip_ab.ABLATIONS[kernel][name]) != src
+
+
+@pytest.mark.parametrize("kernel,name", CASES)
+def test_ablated_source_compiles(compiled, kernel, name):
+    proc = compiled[kernel, name]
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+def test_loop_ablations_name_every_mode():
+    """The backward's per-mode products are each removed in high too."""
+    texts = {n: "".join(f for f, _ in e) for n, e in chip_ab.ABLATIONS["loop"].items()}
+    assert "mma_split_16816(cc[nn]" in texts["no_head_product"]
+    assert "p3_high(" in texts["no_dwhm_product"]
+    src = _source("loop")
+    for mode_fn in ("s1_high", "s3_high", "p2_high", "p3_high"):
+        assert mode_fn in src
+    # the forward's phases are templates on MODE, one text for all three modes
+    for name in ("fwd_no_product", "fwd_no_fold", "fwd_no_build", "fwd_no_weight_staging"):
+        assert "<MODE>" in texts[name]
+
+
+def test_missing_text_raises():
+    with pytest.raises(AssertionError, match="ablation text not in the source"):
+        chip_ab.ablated("int main() {}", [("no such text", "")])

@@ -1,9 +1,10 @@
-"""The port stands alone: no file of ``pmhc_tpu_torch/`` (nor the card's
-scripts ``chip_smoke.py``, ``chip_ab.py``, ``chip_studies.py``) imports
-JAX or the JAX package, importing the port
-(its data package and offline CLIs included) leaves JAX, the JAX package
-and h5py unloaded, its entry points (``SamplerService``, ``Trainer``, the
-HTTP server's ``create_server``, the train and sample CLIs) refuse to fall
+"""The port stands alone: no file of ``pmhc_tpu_torch/`` (its tool twins
+in ``pmhc_tpu_torch/tools/`` included; nor the card's scripts
+``chip_smoke.py``, ``chip_ab.py``, ``chip_studies.py``) imports JAX, the
+JAX package or the JAX package's ``tools/`` scripts, importing the port
+(its data package, offline CLIs and tools included) leaves JAX, the JAX
+package, ``tools`` and h5py unloaded, its entry points (``SamplerService``, ``Trainer``, the
+HTTP server's ``create_server``, the train and sample CLIs, the tool twins) refuse to fall
 back to the CPU by themselves, and nothing in it turns on TF32."""
 
 import ast
@@ -34,12 +35,17 @@ def _trees():
 
 
 def test_port_imports_neither_jax_nor_pmhc_tpu():
-    banned = ("jax", "jaxlib", "pmhc_tpu")
+    # "tools": the JAX package's tool scripts at the repo root; the port's
+    # twins are pmhc_tpu_torch.tools
+    banned = ("jax", "jaxlib", "pmhc_tpu", "tools")
+    tool_twins = [p for p in _port_sources() if os.sep + "tools" + os.sep in p]
+    assert len(tool_twins) >= 7, tool_twins
     for path, tree in _trees():
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
+                assert node.level == 0, f"{path}:{node.lineno}: a relative import"
                 names = [node.module or ""]
             else:
                 continue
@@ -54,8 +60,12 @@ def test_importing_the_port_leaves_jax_unloaded():
             "pmhc_tpu_torch.ops.egnn_loop, pmhc_tpu_torch.train, pmhc_tpu_torch.ops.egnn_pallas, "
             "pmhc_tpu_torch.cli.serve_cli, pmhc_tpu_torch.data, pmhc_tpu_torch.data.validate, "
             "pmhc_tpu_torch.cli.train_cli, pmhc_tpu_torch.cli.sample_cli, pmhc_tpu_torch.io, "
-            "pmhc_tpu_torch.utils.profiling; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pmhc_tpu', 'h5py')]; "
+            "pmhc_tpu_torch.utils.profiling, pmhc_tpu_torch.tools.eval_rmsd, "
+            "pmhc_tpu_torch.tools.rmsd_backends, pmhc_tpu_torch.tools.bench_sampler, "
+            "pmhc_tpu_torch.tools.bench_train, pmhc_tpu_torch.tools.bench_serve, "
+            "pmhc_tpu_torch.tools.flops; "
+            "bad = [m for m in sys.modules "
+            "       if m.split('.')[0] in ('jax', 'pmhc_tpu', 'h5py', 'tools')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -129,6 +139,28 @@ def test_offline_clis_without_device_need_the_card(tmp_path, cli):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(args)
+
+
+@pytest.mark.parametrize("tool", ["eval_rmsd", "rmsd_backends", "bench_sampler", "bench_train",
+                                  "bench_serve"])
+def test_tools_without_device_need_the_card(tmp_path, tool):
+    """The tool twins default to ``--device cuda`` and raise without a card."""
+    import importlib
+
+    from pmhc_tpu_torch.data.realistic import realistic_packed
+    from pmhc_tpu_torch.models import ScoreNetwork
+
+    mod = importlib.import_module(f"pmhc_tpu_torch.tools.{tool}")
+    data, model = str(tmp_path / "d.npz"), str(tmp_path / "model.pth")
+    torch.save(ScoreNetwork().state_dict(), model)
+    args = {"eval_rmsd": [model, data], "rmsd_backends": [model]}.get(tool, [])
+    if tool == "eval_rmsd":
+        realistic_packed(2, 0).save(data)
+    args += ["-T", "2"]
+    assert mod.build_parser().parse_args(args).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(args)
 
 
 def test_no_tf32_switched_on():
