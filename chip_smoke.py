@@ -93,6 +93,21 @@ Phases (any failure exits non-zero):
    and pallas in fp32), ``bench_serve`` (8 warm-up requests, then 64 at
    concurrency 64, every response a PDB) and ``flops`` on the rates they
    measured (achieved TFLOP/s and share of the H100's peak);
+4d. the last single-card modules: the AOT artifact (``aot_main_path``:
+   ``tools/bench_aot.py`` exports batch-64 strided services' executable
+   artifacts here, fused fp32, fused bf16 and pallas; a fresh process on a
+   copy of the package with an empty build directory and no reachable
+   nvcc loads each and samples the exported PDB arrays and bytes bit for
+   bit, launching 2 x ``OFFLINE_SAMPLE_STEPS`` of #1, #2 or #3 and nothing
+   else; its first-result time beside a cold process (nvcc builds) and a
+   warm one (libraries copied in), and a doctored ``device_name`` refused
+   before sampling); the ``blockwise`` backend (a batch-64 strided chain
+   and 5 optimizer steps that launch no kernel, the layer against the
+   dense one per neighbour block, ``BLOCKWISE_TOL``, and the peak memory
+   of a batch-64 layer forward, dense and blockwise at 16, 32 and 96
+   neighbours a block); the native PDB formatter (``finalize`` of a batch
+   of 64 takes it, 2 calls an entry, with the Python path's bytes; both
+   timed); the HDF5 decoder logged as skipped without a libhdf5;
 5. times: each kernel and its plain version per launch (``time_ms``:
    N launches captured in a CUDA graph, its replay timed between CUDA
    events, so no wrapper's host work is in it), beside the bound reckoned
@@ -204,6 +219,9 @@ GRAPH_TRAIN_TOL = {"loss_rtol": 1e-4, "change_rtol": 2e-2}
 OFFLINE_SETS = {"train": (1024, 0), "val": (64, 1), "test": (67, 2)}
 OFFLINE_SAMPLE_STEPS = 100  # the strided sampling run's jumps
 RMSD_BACKENDS_T = 200  # phase 4c's rmsd_backends run (the JAX tool's default T)
+# phase 4d: the blockwise layer against the dense one (tests/unit/test_blockwise.py's)
+BLOCKWISE_TOL = {"q": 5e-5, "t": 2e-4, "tors": 2e-4, "feat": 2e-4}
+NEIGHBOUR_BLOCKS = (16, 32, 96)
 
 
 def log(msg: str) -> None:
@@ -1660,6 +1678,185 @@ def tools_main_path(card: str, model: str, test: str) -> None:
                     "card": card}))
 
 
+def aot_main_path(card: str) -> None:
+    """Phase 4d, the AOT artifact: ``tools/bench_aot.py`` exports a batch-64
+    strided service's executable artifact here (fused fp32, fused bf16,
+    pallas), and fresh processes on copies of the package sample the same
+    batch: the artifact with an empty build directory and nvcc out of
+    reach, bit for bit the exported PDB arrays and bytes, with exactly 2
+    launches a step of the backend's kernel in its mode and none else;
+    for fp32 also a cold (nvcc builds) and a warm (built libraries copied
+    in) process without the artifact, and a doctored ``device_name`` that
+    the load must refuse before any sampling."""
+    from pmhc_tpu_torch.tools import bench_aot
+
+    k = OFFLINE_SAMPLE_STEPS
+    base = ["-b", str(B), "-T", str(STEPS), "--sample-steps", str(k), "--device", "cuda"]
+    for label, extra, arms, (kind, mode) in (
+            ("fp32", [], "cold,warm,aot,mismatch", ("fused", "fp32")),
+            ("bf16", ["--bf16"], "aot", ("fused", "bf16")),
+            ("pallas", ["--backend", "pallas"], "aot", ("pallas", "fp32"))):
+        rows = bench_aot.main(base + extra + ["--arms", arms])
+        for row in rows[1:]:
+            if row["arm"] == "mismatch":
+                log(f"aot {label}: a doctored device_name was refused before sampling: "
+                    f"{row['refused'][-120:]}")
+                continue
+            got = row["launches"]
+            want = {"fused": {m: 0 for m in got["fused"]}, "pallas": {"fp32": 0},
+                    "loop": {m: 0 for m in got["loop"]}, "pdb_native": {"format_atoms": 2 * B}}
+            want[kind][mode] = 2 * k
+            if got != want or not row["bit_identical"]:
+                raise AssertionError(f"aot {label} {row['arm']}: launches {got}, expected {want}")
+            log(json.dumps({"metric": "aot_first_result_s", "backend": label, "arm": row["arm"],
+                            "first_result_s": row["first_result_s"], "process_s": row["process_s"],
+                            "batch": B, "steps": k, "nvcc": row["nvcc"], "card": card}))
+
+
+def blockwise_main_path(model, entries, card: str) -> None:
+    """Phase 4d, the ``blockwise`` backend (plain PyTorch: the JAX function
+    reaches no Pallas kernel): a batch-64 strided chain and 5 optimizer
+    steps with every kernel counter reset just before and still 0 after;
+    the layer against the dense one at batch 64 per neighbour block
+    (``BLOCKWISE_TOL``); the peak memory of one batch-64 layer forward,
+    dense and blockwise."""
+    import math
+
+    import torch
+
+    from pmhc_tpu_torch.data.synthetic import synthetic_batch
+    from pmhc_tpu_torch.models import ScoreNetworkConfig, egnn_forward
+    from pmhc_tpu_torch.models.egnn_blockwise import egnn_forward_blockwise
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import egnn_loop as el
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+    from pmhc_tpu_torch.serve import SamplerService
+    from pmhc_tpu_torch.train import TrainConfig, Trainer
+
+    dev = torch.device("cuda")
+    k = OFFLINE_SAMPLE_STEPS
+    svc = SamplerService(model, batch_size=B, noise_step_count=STEPS, num_steps=k,
+                         backend="blockwise", bf16=True, seed=7)
+    if svc.precision != "f32":
+        raise AssertionError(f"blockwise reports precision {svc.precision}")
+    trainer = Trainer(ScoreNetworkConfig(backend="blockwise"),
+                      train_config=TrainConfig(seed=11, nan_check_every=0))
+    batches = [synthetic_batch(batch_size=B, seed=700 + i) for i in range(5)]
+    torch.cuda.synchronize()
+    for mod in (ef, el, ep):
+        mod.reset_launches()
+    t0 = time.monotonic()
+    pdbs = svc.sample_entries(entries, torch.Generator(device=dev).manual_seed(5))
+    sample_s = time.monotonic() - t0
+    walls, losses = [], []
+    for b in batches:
+        t0 = time.monotonic()
+        losses.append(float(trainer.train_batch(b)["total loss"]))  # float() syncs
+        walls.append(time.monotonic() - t0)
+    moved = {n: dict(mod.LAUNCHES) for n, mod in (("fused", ef), ("loop", el), ("pallas", ep))}
+    log(f"main path blockwise: {len(pdbs)} PDBs in {sample_s:.2f} s ({k} steps), 5 train steps, "
+        f"kernel launches {moved}")
+    if any(v for c in moved.values() for v in c.values()):
+        raise AssertionError(f"blockwise launched a kernel: {moved}")
+    for pdb, e in zip(pdbs, entries):
+        check_pdb(pdb, e)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"blockwise training: non-finite losses {losses}")
+    log(json.dumps({"metric": "blockwise_main_path", "batch": B, "sample_steps": k,
+                    "sample_s": sample_s, "train_step_s": walls, "losses": losses, "card": card}))
+
+    layer, args = egnn_case(model, "gnn1", seed=31, device=dev)
+    with torch.no_grad():
+        df, dt, dh = egnn_forward(layer, *args)
+        for nb in NEIGHBOUR_BLOCKS:
+            bf, bt, bh = egnn_forward_blockwise(layer, *args, neighbour_block=nb)
+            errs = {n: float((g - w).abs().max()) for n, g, w in (
+                ("q", bf.quats, df.quats), ("t", bf.trans, df.trans), ("tors", bt, dt),
+                ("feat", bh, dh))}
+            log(f"check blockwise neighbour_block={nb} against dense: {errs} (tol {BLOCKWISE_TOL})")
+            if not all(errs[n] <= BLOCKWISE_TOL[n] for n in errs):
+                raise AssertionError(f"blockwise {nb} disagrees with the dense layer: {errs}")
+
+    def peak_mib(fn) -> float:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+
+    memory = {"dense": peak_mib(lambda: egnn_forward(layer, *args))}
+    for nb in NEIGHBOUR_BLOCKS:
+        memory[f"blockwise_{nb}"] = peak_mib(
+            lambda: egnn_forward_blockwise(layer, *args, neighbour_block=nb))
+    log(json.dumps({"metric": "layer_forward_peak_mib", "layer": "gnn1", "batch": B,
+                    **memory, "card": card}))
+
+
+def pdb_text_main_path(model, entries, card: str) -> None:
+    """Phase 4d, the native PDB formatter on the serving path: ``finalize``
+    of a batch of 64 takes it (its calls counted: 2 an entry, chains P and
+    M), and writes the Python formatter's bytes; both timed. The HDF5
+    decoder is logged as skipped where no libhdf5 exists (the card's
+    machine has no h5py; the CPU tests hold the decoder), else held against
+    ``PmhcDataset.get_entry`` on a file written here."""
+    import statistics
+
+    import torch
+
+    from pmhc_tpu_torch.data import native
+    from pmhc_tpu_torch.io import pdb_native
+    from pmhc_tpu_torch.serve import SamplerService
+
+    if not pdb_native.is_available():
+        raise AssertionError("the native PDB formatter is not available")
+    svc = SamplerService(model, batch_size=B, noise_step_count=STEPS,
+                         num_steps=OFFLINE_SAMPLE_STEPS, seed=7)
+    handle = svc.dispatch(entries, torch.Generator(device="cuda").manual_seed(9))
+    handle.wait()
+    times = {"native": [], "python": []}
+    out = {}
+    for _ in range(3):
+        for path in ("native", "python"):
+            if path == "python":
+                os.environ["PMHC_PDB_FORMATTER"] = "python"
+            pdb_native.reset_calls()
+            try:
+                t0 = time.monotonic()
+                out[path] = svc.finalize(handle)
+                times[path].append(time.monotonic() - t0)
+            finally:
+                os.environ.pop("PMHC_PDB_FORMATTER", None)
+            want = 2 * len(entries) if path == "native" else 0
+            if pdb_native.CALLS["format_atoms"] != want:
+                raise AssertionError(f"pdb {path}: {pdb_native.CALLS} native calls, expected {want}")
+    if out["native"] != out["python"]:
+        raise AssertionError("the native formatter's PDB bytes differ from the Python path's")
+    log(json.dumps({"metric": "pdb_text_s", "batch": len(entries), "native_s": times["native"],
+                    "python_s": times["python"],
+                    "speedup": statistics.median(times["python"]) / statistics.median(times["native"]),
+                    "bytes": sum(len(p) for p in out["native"]), "card": card}))
+    if not native.is_available():
+        log("hdf5 decoder: skipped, no libhdf5 (h5py) on this machine; the CPU tests hold it "
+            "(tests/test_torch_native_decoder.py)")
+        return
+    import tempfile
+
+    import numpy as np
+
+    from pmhc_tpu_torch.data import PmhcDataset, write_synthetic_hdf5
+
+    with tempfile.TemporaryDirectory() as d:
+        h5 = os.path.join(d, "t.hdf5")
+        write_synthetic_hdf5(h5, n_entries=8, seed=0)
+        ds = PmhcDataset(h5)
+        got = native.decode_packed(h5, ds.entry_names)
+        for key, v in got.items():
+            np.testing.assert_array_equal(v, np.stack([ds.get_entry(n)[key] for n in ds.entry_names]))
+    log("hdf5 decoder: 8 entries bit-exact against PmhcDataset.get_entry")
+
+
 def pallas_times(cases, launches: int, err: float, card: str) -> dict:
     """Phase 5, kernel #3: ms per launch (CUDA events) beside its plain
     version and its bound, averaged over the two layer shapes; returns its
@@ -1885,6 +2082,13 @@ def main() -> int:
         tools_main_path(card, offline["model"], offline["test"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # -- 4d. the AOT artifact, the blockwise backend, the native PDB formatter ---------
+    t_phase = time.monotonic()
+    aot_main_path(card)
+    blockwise_main_path(model, entries64, card)
+    pdb_text_main_path(model, entries64, card)
+    log(json.dumps({"metric": "phase_4d_s", "seconds": time.monotonic() - t_phase, "card": card}))
 
     # -- 5. times -------------------------------------------------------------------
     kernels = []

@@ -114,7 +114,7 @@ def _run(args):
     _log.info("backend %r -> %s, %s, on %s", args.backend, service.backend, service.precision,
               service.device)
 
-    dataset = open_dataset(args.test_hdf5, num_workers=args.num_workers)
+    dataset = open_dataset(args.test_hdf5)
     loader = PrefetchLoader(dataset, batch_size=args.batch_size, num_workers=args.num_workers)
 
     output_path = args.output_dir or os.path.splitext(args.test_hdf5)[0] + "-sampled"

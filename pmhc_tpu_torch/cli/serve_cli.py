@@ -7,8 +7,8 @@ shape:
 
 - ``GET /healthz``: JSON service status and configuration (the JAX
   server's keys; ``precision`` is what the layers run at: ``"bf16"``,
-  ``"fast-f32"`` or ``"f32"``; the ``pallas`` and ``xla`` backends run
-  fp32 whatever ``--bf16`` / ``--fast-f32`` ask).
+  ``"fast-f32"`` or ``"f32"``; the ``pallas``, ``blockwise`` and ``xla``
+  backends run fp32 whatever ``--bf16`` / ``--fast-f32`` ask).
 - ``POST /sample``: body, an ``.npz`` archive with the single-complex entry
   arrays (``pmhc_tpu_torch.serve.ENTRY_SPECS``). Response: the sampled
   complex as PDB text (chains P and M). ``?samples=N`` returns N
@@ -18,9 +18,20 @@ shape:
   503 with ``Retry-After: 1`` when ``--max-queue`` is reached, 500 when
   sampling fails.
 
+Backends (``--backend``): ``auto`` / ``pallas_lane`` / ``g8``, the fused
+kernel; ``pallas``, the round-1 fused kernel; ``blockwise``, the
+online-softmax layer over neighbour blocks (plain PyTorch); ``xla``, the
+dense layer.
+
+``--aot FILE``: load the sampler artifact FILE (``pmhc_tpu_torch/aot.py``:
+its kernel libraries and weights) before the warm-up if it exists, its
+configuration checked against the flags; else save one after the warm-up,
+so the next start loads it and builds nothing.
+
 Run it (``--device cpu`` for a run without a card):
 
     python -m pmhc_tpu_torch.cli.serve_cli model.pth --backend pallas
+    python -m pmhc_tpu_torch.cli.serve_cli model.pth --aot sampler.aot
 
 Client example::
 
@@ -35,6 +46,7 @@ from __future__ import annotations
 import io
 import json
 import logging
+import os
 import sys
 from argparse import ArgumentParser
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -67,9 +79,10 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--sample-steps", type=int, default=None,
                    help="strided few-step sampling")
     p.add_argument("--backend", default="auto",
-                   choices=("auto", "xla", "pallas", "pallas_lane", "g8"),
+                   choices=("auto", "xla", "pallas", "pallas_lane", "g8", "blockwise"),
                    help="auto / pallas_lane / g8: the fused kernel; pallas: the "
-                        "round-1 fused kernel (fp32 only); xla: the dense layer")
+                        "round-1 fused kernel (fp32 only); blockwise: the online-softmax "
+                        "layer over neighbour blocks (fp32); xla: the dense layer")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mode of the fused kernel (auto / pallas_lane / g8 only)")
     p.add_argument("--fast-f32", action="store_true",
@@ -87,6 +100,10 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--listen-backlog", type=int, default=128,
                    help="TCP listen(2) backlog. The http.server default "
                         "of 5 drops connections under bursty concurrent load")
+    p.add_argument("--aot", default=None, metavar="FILE",
+                   help="AOT sampler artifact (pmhc_tpu_torch.aot): load FILE if it exists "
+                        "(its kernel libraries and weights, no build; the configuration must "
+                        "match), else save it after warm-up so the next start loads it")
     p.add_argument("--device", default="cuda",
                    help="torch device of the sampler (default: the card; "
                         "cpu runs the kernels' plain versions)")
@@ -110,9 +127,18 @@ def create_server(args) -> ThreadingHTTPServer:
         seed=args.seed,
         device=args.device,
     )
+    if args.aot and os.path.exists(args.aot):
+        from pmhc_tpu_torch.aot import load_sampler
+
+        load_sampler(args.aot, service)
+        _log.info("loaded AOT sampler artifact %s", args.aot)
     _log.info("backend %s, batch %d on %s: warming up (builds the kernels on first use)...",
               service.backend, service.batch_size, service.device)
     _log.info("warmup done in %.1fs", service.warmup())
+    if args.aot and not os.path.exists(args.aot):
+        from pmhc_tpu_torch.aot import save_sampler
+
+        save_sampler(service, args.aot)
     max_queue = (8 * service.batch_size if args.max_queue is None
                  else args.max_queue or None)
     batcher = BatchingSampler(service, max_wait_ms=args.max_wait_ms, max_queue=max_queue)

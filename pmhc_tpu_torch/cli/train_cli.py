@@ -197,8 +197,7 @@ def _run(args):
                     "through the .pth).") from e
             _log.info("restored checkpoint at step %d", trainer.global_step)
 
-    dataset = open_dataset(args.train_hdf5, pack=args.pack or args.device_data,
-                           num_workers=args.num_workers)
+    dataset = open_dataset(args.train_hdf5, pack=args.pack or args.device_data)
     if isinstance(dataset, PackedDataset):
         _log.info("packed %d entries (%.0f MB RAM)", len(dataset), dataset.nbytes / 1e6)
     if args.device_data:
@@ -222,7 +221,7 @@ def _run(args):
 
     val_loader = None
     if args.val_hdf5:
-        val_loader = PrefetchLoader(open_dataset(args.val_hdf5, num_workers=args.num_workers),
+        val_loader = PrefetchLoader(open_dataset(args.val_hdf5),
                                     batch_size=args.batch_size, shuffle=False,
                                     num_workers=args.num_workers, device=device)
 

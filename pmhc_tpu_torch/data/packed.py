@@ -4,8 +4,9 @@ Counterpart of ``pmhc_tpu/data/packed.py``:
 
 - ``PackedDataset`` decodes every entry once and keeps each padded field
   stacked in one numpy array; ``get_batch(indices)`` returns a collated
-  batch by fancy indexing (the loader's fast path). The decode is pure
-  Python: a process pool (spawn) above 10,000 entries, else in-process.
+  batch by fancy indexing (the loader's fast path). The decode is one call
+  of the native decoder (``data/native.py``), bit for bit
+  ``PmhcDataset.get_entry``.
 - ``DeviceDataset``: the packed arrays resident on a torch device, batches
   gathered there with ``index_select``; only the index vector crosses to
   the device per batch.
@@ -49,12 +50,6 @@ def _stack(entries: Sequence[Mapping]) -> Dict[str, np.ndarray]:
     return {k: np.stack([e[k] for e in entries]) for k in _BATCH_KEYS}
 
 
-def _decode_shard(args):
-    path, names = args
-    ds = PmhcDataset(path)
-    return [ds.get_entry(n) for n in names]
-
-
 class _PackedProteins:
     """The full proteins of a packed file: padded to the file's longest,
     cut back to the longest of the names asked for."""
@@ -85,26 +80,13 @@ class PackedDataset:
     peptide_maxlen = PEPTIDE_MAXLEN
     pocket_maxlen = POCKET_MAXLEN
 
-    def __init__(self, hdf5_path: str, num_workers: int = 8):
+    def __init__(self, hdf5_path: str):
+        from pmhc_tpu_torch.data import native
+
         base = PmhcDataset(hdf5_path)
         self.entry_names: List[str] = list(base.entry_names)
-        n = len(self.entry_names)
-        if num_workers > 1 and n >= 10_000:
-            # one HDF5 handle per process: decode scales past libhdf5's
-            # in-process global lock; the child start-up only pays off on
-            # large files, hence the threshold
-            import multiprocessing as mp
-            from concurrent.futures import ProcessPoolExecutor
-
-            shards = [(hdf5_path, self.entry_names[i::num_workers]) for i in range(num_workers)]
-            with ProcessPoolExecutor(num_workers, mp_context=mp.get_context("spawn")) as pool:
-                results = list(pool.map(_decode_shard, shards))
-            entries: List[Dict] = [None] * n
-            for i, shard in enumerate(results):
-                entries[i::num_workers] = shard
-        else:
-            entries = [base.get_entry(name) for name in self.entry_names]
-        self._set(_stack(entries), base)
+        # the C++ twin of get_entry: one call decodes the whole file
+        self._set(native.decode_packed(hdf5_path, self.entry_names), base)
 
     def _set(self, data: Dict[str, np.ndarray], proteins) -> None:
         self._data = data
@@ -211,7 +193,7 @@ class DeviceDataset:
         return self._packed.get_protein_positions(entry_names)
 
 
-def open_dataset(path: str, pack: bool = False, num_workers: int = 4):
+def open_dataset(path: str, pack: bool = False):
     """An entry point's dataset: a path ending in ``.npz`` is a packed file
     (``PackedDataset.load``); any other path is HDF5, read entry by entry
     (``PmhcDataset``) or decoded once (``pack``). HDF5 without h5py raises
@@ -224,7 +206,7 @@ def open_dataset(path: str, pack: bool = False, num_workers: int = 4):
         raise SystemExit(
             f"{path}: reading HDF5 needs h5py, which this machine lacks. Pack the file "
             f"where h5py exists (`{PACK_COMMAND}`) and pass the .npz") from None
-    return PackedDataset(path, num_workers=num_workers) if pack else PmhcDataset(path)
+    return PackedDataset(path) if pack else PmhcDataset(path)
 
 
 def main(argv=None) -> None:
@@ -233,9 +215,8 @@ def main(argv=None) -> None:
     p = ArgumentParser(description="Pack a SwiftMHC HDF5 file into the port's .npz form.")
     p.add_argument("hdf5", help="input SwiftMHC HDF5 file")
     p.add_argument("npz", help="output packed file (.npz)")
-    p.add_argument("--num-workers", "-w", type=int, default=8)
     args = p.parse_args(argv)
-    ds = PackedDataset(args.hdf5, num_workers=args.num_workers)
+    ds = PackedDataset(args.hdf5)
     ds.save(args.npz)
     print(f"packed {len(ds)} entries of {args.hdf5} into {args.npz}", file=sys.stderr)
 

@@ -14,11 +14,19 @@ package's for the same arrays.
 Records follow BioPython PDBIO's layout: sequential renumbering in file
 order, segid = chain id, a TER per chain whose serial is shared with the
 next chain's first atom, and END.
+
+Each chain's ATOM records are written at once from packed field arrays
+(``_emit_atoms``), as the JAX package's writer does: by the native
+formatter (``io/pdb_native.py``, a g++ build of ``csrc/pdb_formatter.cc``;
+a failed build raises), or by Python's formatter when
+``PMHC_PDB_FORMATTER=python`` asks for it. Both write the same bytes.
+Chain M's record fields come from per-(residue type, atom14 slot) tables.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -43,17 +51,67 @@ def _ter_record(serial, resname, chain, resseq) -> str:
     return f"TER   {serial:>5}      {resname:>3} {chain}{resseq:>4} ".ljust(80) + "\n"
 
 
+@functools.lru_cache(maxsize=None)
 def _name_fields(name: str):
-    """(4-char name field, 2-char element field), PDBIO padding rules."""
+    """(4-byte name field, 2-byte element field) as uint8 arrays, PDBIO's
+    padding rules: a short name gets a leading space and is left-justified
+    to 4; the element is the name's first letter, right-justified to 2."""
     field = (" " + name).ljust(4)[:4] if len(name) < 4 else name[:4]
-    return field, f"{name[0]:>2}"
+    return (np.frombuffer(field.encode(), np.uint8),
+            np.frombuffer(f"{name[0]:>2}".encode(), np.uint8))
 
 
-def _atom_record(serial: int, name: str, resname: str, chain: str, resseq: int, xyz) -> str:
-    nm, el = _name_fields(name)
-    return (f"ATOM  {serial:>5} {nm} {resname:>3} {chain}{resseq:>4}    "
-            f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}"
-            f"  1.00  0.00      {chain:>4}{el}  \n")
+def _res3(aa_name: str) -> np.ndarray:
+    return np.frombuffer(f"{aa_name:>3}".encode(), np.uint8)
+
+
+def _build_atom14_tables():
+    """Chain M's static record fields per (residue type, atom14 slot): the
+    name and element fields, whether the slot holds an atom, and the
+    residue name per type."""
+    R = len(rc.restypes)
+    names4 = np.full((R, 14, 4), ord(" "), np.uint8)
+    elems2 = np.full((R, 14, 2), ord(" "), np.uint8)
+    valid = np.zeros((R, 14), bool)
+    res3 = np.zeros((R, 3), np.uint8)
+    for r, rt in enumerate(rc.restypes):
+        aa = rc.restype_1to3[rt]
+        res3[r] = _res3(aa)
+        for s, name in enumerate(rc.restype_name_to_atom14_names[aa]):
+            if name.strip():
+                names4[r, s], elems2[r, s] = _name_fields(name)
+                valid[r, s] = True
+    return names4, elems2, valid, res3
+
+
+_A14_NAMES4, _A14_ELEMS2, _A14_VALID, _RES3 = _build_atom14_tables()
+
+
+def _emit_atoms(serial_start: int, chain: str, names4, resnames3, elements2, resseqs,
+                xyz) -> bytes:
+    """All ATOM records of one chain, numbered from ``serial_start + 1``,
+    from packed field arrays: ``names4`` uint8 [n, 4], ``resnames3`` uint8
+    [n, 3], ``elements2`` uint8 [n, 2], ``resseqs`` int [n], ``xyz``
+    float64 [n, 3]. The native formatter unless ``PMHC_PDB_FORMATTER=python``."""
+    n = len(resseqs)
+    xyz = np.asarray(xyz, np.float64)
+    if os.environ.get("PMHC_PDB_FORMATTER") != "python":
+        from pmhc_tpu_torch.io import pdb_native
+
+        serials = np.arange(serial_start + 1, serial_start + n + 1, dtype=np.int32)
+        return pdb_native.format_atoms(serials, np.asarray(resseqs, np.int32), chain,
+                                       np.asarray(names4), np.asarray(resnames3),
+                                       np.asarray(elements2), xyz)
+    nm = np.asarray(names4).tobytes().decode()
+    rs = np.asarray(resnames3).tobytes().decode()
+    el = np.asarray(elements2).tobytes().decode()
+    sq = np.asarray(resseqs).tolist()
+    ch4 = f"{chain:>4}"
+    return "".join(
+        f"ATOM  {k:>5} {nm[4*j:4*j+4]} {rs[3*j:3*j+3]} {chain}{sq[j]:>4}    "
+        f"{xyz[j, 0]:8.3f}{xyz[j, 1]:8.3f}{xyz[j, 2]:8.3f}"
+        f"  1.00  0.00      {ch4}{el[2*j:2*j+2]}  \n"
+        for j, k in enumerate(range(serial_start + 1, serial_start + n + 1))).encode()
 
 
 @functools.lru_cache(maxsize=4)
@@ -179,30 +237,36 @@ def pdb_bytes(batch: Dict[str, Any] | None, batch_index: int,
                     co_proj = cac * np.sum(co * cac)
                     add_atom(i, "OXT", c + co_proj - (co - co_proj))
 
-    lines = []
-    serial = 0
+    # chain P in residue order, renumbered in file order
+    parts = []
+    fields = []  # (name4, element2, res3, resseq, xyz) per atom
     last = None
     for i in sorted(residue_atoms):
         aa_name = rc.restype_1to3[rc.restypes[int(aatype[i])]]
         for name, pos in residue_atoms[i]:
-            serial += 1
-            lines.append(_atom_record(serial, name, aa_name, "P", i + 1, pos))
+            fields.append((*_name_fields(name), _res3(aa_name), i + 1, pos))
         last = (aa_name, i + 1)
+    serial = len(fields)
+    if fields:
+        names4, elems2, res3, resseq, xyz = zip(*fields)
+        parts.append(_emit_atoms(0, "P", np.stack(names4), np.stack(res3), np.stack(elems2),
+                                 np.asarray(resseq, np.int32), np.stack(xyz)))
     if last is not None:
         # the TER serial (last atom + 1) is shared with chain M's first atom
-        lines.append(_ter_record(serial + 1, last[0], "P", last[1]))
+        parts.append(_ter_record(serial + 1, last[0], "P", last[1]).encode())
 
+    # chain M: np.nonzero's row-major order is the per-residue, per-slot order
     p_aatype = pc["protein_aatype"][b].astype(np.int64)
-    p_pos = pc["protein_atom14_positions"][b].astype(np.float64)
+    p_pos = pc["protein_atom14_positions"][b]
     p_exists = pc["protein_atom14_exists"][b]
     if p_aatype.shape[0]:
-        for r, rt in enumerate(p_aatype):
-            aa_name = rc.restype_1to3[rc.restypes[int(rt)]]
-            for s, name in enumerate(rc.restype_name_to_atom14_names[aa_name]):
-                if p_exists[r, s] and name.strip():
-                    serial += 1
-                    lines.append(_atom_record(serial, name, aa_name, "M", r + 1, p_pos[r, s]))
+        ri, ai = np.nonzero(p_exists & _A14_VALID[p_aatype])
+        if ri.size:
+            parts.append(_emit_atoms(serial, "M", _A14_NAMES4[p_aatype[ri], ai],
+                                     _RES3[p_aatype[ri]], _A14_ELEMS2[p_aatype[ri], ai],
+                                     (ri + 1).astype(np.int32), p_pos[ri, ai].astype(np.float64)))
+            serial += int(ri.size)
         last_m = rc.restype_1to3[rc.restypes[int(p_aatype[-1])]]
-        lines.append(_ter_record(serial + 1, last_m, "M", p_aatype.shape[0]))
-    lines.append("END\n")
-    return "".join(lines).encode()
+        parts.append(_ter_record(serial + 1, last_m, "M", p_aatype.shape[0]).encode())
+    parts.append(b"END\n")
+    return b"".join(parts)

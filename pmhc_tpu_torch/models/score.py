@@ -20,7 +20,9 @@ JAX package's names are accepted):
   their hand-written backward), and ``diffusion/sampler.py`` runs the
   forward-only fused layer of ``ops/egnn_fused.py``;
 - ``"pallas"``: the round-1 fused layer of ``ops/egnn_pallas.py`` (its
-  kernel forward, the dense layer's autograd backward), fp32 only.
+  kernel forward, the dense layer's autograd backward), fp32 only;
+- ``"blockwise"``: the online-softmax layer over neighbour blocks of
+  ``models/egnn_blockwise.py`` (plain PyTorch, autograd backward), fp32.
 """
 
 from __future__ import annotations
@@ -36,16 +38,15 @@ from pmhc_tpu_torch.models.egnn import EGNNLayer, egnn_forward
 from pmhc_tpu_torch.models.nn import init_uniform_
 
 BACKENDS = {"dense": "dense", "xla": "dense", "fused": "fused", "auto": "fused",
-            "pallas_lane": "fused", "g8": "fused", "pallas": "pallas"}
+            "pallas_lane": "fused", "g8": "fused", "pallas": "pallas", "blockwise": "blockwise"}
 # the JAX package's backends that the port has not ported yet
-NOT_PORTED = {"blockwise": "ROADMAP Queue 1, the remaining modules (models/egnn_blockwise.py)",
-              "cp": "ROADMAP Queue 1, multi-GPU (context parallelism)",
-              "ring": "ROADMAP Queue 1, multi-GPU (context parallelism)"}
+NOT_PORTED = {name: "the multi-GPU slice (ROADMAP Queue 1: context parallelism, "
+                    "pmhc_tpu/parallel/context.py)" for name in ("cp", "ring")}
 
 
 def resolve_backend(name: str) -> str:
-    """``"dense"``, ``"fused"`` or ``"pallas"`` for a backend name (the JAX
-    package's names accepted)."""
+    """``"dense"``, ``"fused"``, ``"pallas"`` or ``"blockwise"`` for a
+    backend name (the JAX package's names accepted)."""
     if name in BACKENDS:
         return BACKENDS[name]
     if name in NOT_PORTED:
@@ -63,6 +64,7 @@ class ScoreNetworkConfig:
     inner_size: int = 64  # features between the two layers
     message_size: int = 64  # M
     backend: str = "dense"
+    neighbour_block: int = 32  # the blockwise backend's block of neighbours
 
     @property
     def relposenc_depth(self) -> int:
@@ -115,8 +117,8 @@ def score_network_forward(
     the loop kernels' mode in the JAX package's convention
     (``pmhc_tpu/models/score.py``'s ``mm_mode``): True bf16, ``"high"``
     the ``--fast-f32`` split products, False fp32 (``"fused"`` backend
-    only: ``"pallas"`` and ``"dense"`` run fp32 whatever it asks, as in
-    the JAX package).
+    only: ``"pallas"``, ``"blockwise"`` and ``"dense"`` run fp32 whatever
+    it asks).
     Returns ``{"frames": RigidArray, "torsions": [B, N, 7, 2]}``.
     """
     backend = resolve_backend(config.backend)
@@ -127,6 +129,11 @@ def score_network_forward(
             return egnn_forward_loop(*args, bf16=bf16)
     elif backend == "pallas":
         from pmhc_tpu_torch.ops.egnn_pallas import egnn_forward_pallas_trainable as layer
+    elif backend == "blockwise":
+        from pmhc_tpu_torch.models.egnn_blockwise import egnn_forward_blockwise
+
+        def layer(*args):
+            return egnn_forward_blockwise(*args, neighbour_block=config.neighbour_block)
     else:
         layer = egnn_forward
     frames: RigidArray = batch["frames"]

@@ -169,11 +169,14 @@ class SamplerService:
     ``"auto"`` (also ``"pallas_lane"``/``"g8"``/``"fused"``) takes the fused
     layer — its CUDA kernel on the card, its plain version on the CPU;
     ``"pallas"`` the round-1 fused layer (``ops/egnn_pallas.py``), the same
-    way; ``"dense"`` (also ``"xla"``) the oracle layer. ``bf16`` selects the
-    fused kernel's bf16 mode, ``fast_f32`` its high mode (products split
-    into bf16 halves, ~1.5e-5 relative; ``bf16`` wins if both are asked,
-    as in the JAX package); the ``pallas`` and ``dense`` backends run fp32
-    whatever they ask (``precision`` says what runs). ``graphs`` (default:
+    way; ``"blockwise"`` the online-softmax layer over neighbour blocks
+    (``models/egnn_blockwise.py``); ``"dense"`` (also ``"xla"``) the oracle
+    layer. ``bf16`` selects the fused kernel's bf16 mode, ``fast_f32`` its
+    high mode (products split into bf16 halves, ~1.5e-5 relative; ``bf16``
+    wins if both are asked, as in the JAX package); the ``pallas``,
+    ``blockwise`` and ``dense`` backends run fp32 whatever they ask
+    (``precision`` says what runs). ``pmhc_tpu_torch/aot.py`` saves a
+    service's libraries and weights, and loads them into one. ``graphs`` (default:
     on a CUDA device) runs the chain from CUDA graphs
     (``sampler.STEPS_PER_GRAPH`` steps a graph); ``False`` runs it eagerly
     (debugging, A/B).

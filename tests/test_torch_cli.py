@@ -39,7 +39,7 @@ def data_dir(tmp_path_factory):
     write_synthetic_hdf5(str(d / "train.hdf5"), n_entries=6, peptide_lengths=(9, 10), seed=0)
     write_synthetic_hdf5(str(d / "test.hdf5"), n_entries=3, peptide_lengths=(9, 16), seed=1)
     for name in ("train", "test"):
-        PackedDataset(str(d / f"{name}.hdf5"), num_workers=1).save(str(d / f"{name}.npz"))
+        PackedDataset(str(d / f"{name}.hdf5")).save(str(d / f"{name}.npz"))
     return d
 
 
@@ -285,7 +285,7 @@ def test_validate_data_and_unported_options(data_dir, tmp_path):
             train_cli.main(train + flags)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, multi-GPU"):
         sample_cli.main([model, str(data_dir / "test.hdf5"), "--mesh-context", "2"] + CPU)
-    for backend in ("blockwise", "cp", "ring"):
+    for backend in ("cp", "ring"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             train_cli.main(train + ["--backend", backend])
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):

@@ -138,7 +138,7 @@ def test_loader_matches_jax(files, packed, drop_last, process_index, process_cou
     """Two shuffled epochs: the same entries in the same order, the same
     batch arrays (the thread-pool path and the packed fast path)."""
     path = files["realistic"]
-    ours = PackedDataset(path, num_workers=1) if packed else PmhcDataset(path)
+    ours = PackedDataset(path) if packed else PmhcDataset(path)
     theirs = JPacked(path, num_workers=1) if packed else JDataset(path)
     kw = dict(batch_size=2, shuffle=True, seed=11, num_workers=2, drop_last=drop_last,
               process_index=process_index, process_count=process_count)
@@ -179,7 +179,7 @@ def test_loader_error_surfaces_and_loader_is_reusable():
 def test_loader_to_device_and_device_dataset(files):
     """With a device, arrays become tensors there (names stay a list); a
     DeviceDataset batch is gathered there and passed on uncopied."""
-    packed = PackedDataset(files["realistic"], num_workers=1)
+    packed = PackedDataset(files["realistic"])
     cpu = torch.device("cpu")
     want = list(PrefetchLoader(packed, batch_size=3, shuffle=True, seed=2))
     got = list(PrefetchLoader(packed, batch_size=3, shuffle=True, seed=2, device=cpu))
@@ -276,7 +276,7 @@ def test_save_pdb_bytes_match_jax(tmp_path, index):
 def test_open_dataset_without_h5py_reads_npz_and_names_the_pack_command(files, tmp_path,
                                                                          monkeypatch):
     path = str(tmp_path / "p.npz")
-    PackedDataset(files["synthetic"], num_workers=1).save(path)
+    PackedDataset(files["synthetic"]).save(path)
     monkeypatch.setitem(sys.modules, "h5py", None)  # import h5py now raises ImportError
     ds = packed_mod.open_dataset(path)
     assert len(ds) == SYNTHETIC["n_entries"]

@@ -194,7 +194,7 @@ def test_trainer_pallas_tracks_dense():
 @pytest.mark.parametrize("name,resolved", [
     ("dense", "dense"), ("xla", "dense"), ("fused", "fused"), ("auto", "fused"),
     ("pallas_lane", "fused"), ("g8", "fused"), ("pallas", "pallas"),
-    ("blockwise", NotImplementedError), ("cp", NotImplementedError), ("ring", NotImplementedError),
+    ("blockwise", "blockwise"), ("cp", NotImplementedError), ("ring", NotImplementedError),
     ("mosaic", ValueError)])
 def test_resolve_backend_names(name, resolved):
     if isinstance(resolved, str):

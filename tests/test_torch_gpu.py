@@ -58,6 +58,7 @@ from chip_smoke import (
     pallas_ragged,
     ragged_case,
     random_model,
+    request_entry,
     trainer_state,
     trajectory_check,
 )
@@ -489,3 +490,82 @@ def test_a_capture_that_cannot_succeed_raises():
     assert step.graph is None and not any(ef.LAUNCHES.values())
     torch.cuda.synchronize()
     assert float(x.sum()) == 20.0  # the eager warm-up ran once
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,bf16", [("fused", False), ("fused", True), ("pallas", False)])
+@pytest.mark.parametrize("fmt", ["executable", "stablehlo"])
+def test_aot_roundtrip_on_card(tmp_path, backend, bf16, fmt):
+    """An artifact of a service on the card (its kernel library and the PDB
+    formatter, or their sources) loads into a service with other weights,
+    which then samples the exporter's bytes."""
+    from pmhc_tpu_torch.aot import load_sampler, read_artifact, save_sampler
+    from pmhc_tpu_torch.ops import _build
+
+    _card()
+    kw = dict(batch_size=4, noise_step_count=6, backend=backend, bf16=bf16, seed=3)
+    svc = SamplerService(random_model(seed=0), **kw)
+    entries = [dummy_entry(seed=i) for i in range(3)]
+    want = svc.sample_entries(entries, svc.batch_generator(0))
+    path = str(tmp_path / "sampler.aot")
+    save_sampler(svc, path, fmt=fmt)
+    _, meta, _ = read_artifact(path)
+    kernel = "egnn_fused" if backend == "fused" else "egnn_pallas"
+    assert meta["platform"] == "cuda" and meta["device_name"] == torch.cuda.get_device_name(0)
+    if fmt == "executable":
+        assert {lib["name"] for lib in meta["libraries"]} == {kernel, "pdb_formatter"}
+        assert {lib["digest"] for lib in meta["libraries"]} == {
+            _build.loaded(n).digest for n in (kernel, "pdb_formatter")}
+    fresh = SamplerService(random_model(seed=5), **kw)
+    load_sampler(path, fresh)
+    assert fresh.sample_entries(entries, fresh.batch_generator(0)) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("neighbour_block", [16, 32, 96])
+def test_blockwise_matches_dense_on_card(neighbour_block):
+    """The blockwise layer against the dense one at batch 64 on the card
+    (``tests/unit/test_blockwise.py``'s tolerances: quats 5e-5, the rest
+    2e-4), and a blockwise chain launches none of the kernels."""
+    from pmhc_tpu_torch.models import egnn_forward
+    from pmhc_tpu_torch.models.egnn_blockwise import egnn_forward_blockwise
+    from pmhc_tpu_torch.models.score import relpos_edge_pre
+
+    dev = _card()
+    model = random_model(seed=0).to(dev)
+    b = prepare_batch(synthetic_batch(batch_size=64, seed=17), dev)
+    B, N = b["mask"].shape
+    P = b["pocket_mask"].shape[-1]
+    h = torch.cat((b["features"], torch.full((B, N, 1), 0.3, device=dev)), -1)
+    ph = torch.cat((b["pocket_features"], torch.zeros((B, P, 1), device=dev)), -1)
+    with torch.no_grad():
+        args = (b["frames"], b["torsions"], h, relpos_edge_pre(model.gnn1, N), b["mask"].float(),
+                ph, b["pocket_frames"], b["pocket_mask"].float())
+        dense = egnn_forward(model.gnn1, *args)
+        blk = egnn_forward_blockwise(model.gnn1, *args, neighbour_block=neighbour_block)
+    (df, dt, dh), (bf, bt, bh) = dense, blk
+    for name, g, w, tol in (("quats", bf.quats, df.quats, 5e-5), ("trans", bf.trans, df.trans, 2e-4),
+                            ("torsions", bt, dt, 2e-4), ("features", bh, dh, 2e-4)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=tol, err_msg=name)
+    for mod in (ef, el, ep):
+        mod.reset_launches()
+    svc = SamplerService(model, batch_size=4, noise_step_count=6, backend="blockwise", bf16=True)
+    assert svc.precision == "f32"
+    pdbs = svc.sample_entries([dummy_entry()], svc.batch_generator(0))
+    assert pdbs[0].endswith(b"END\n")
+    assert not any(v for mod in (ef, el, ep) for v in mod.LAUNCHES.values())
+
+
+@pytest.mark.gpu
+def test_native_formatter_taken_by_finalize_on_card(monkeypatch):
+    from pmhc_tpu_torch.io import pdb_native
+
+    _card()
+    svc = SamplerService(random_model(seed=0), batch_size=4, noise_step_count=6, seed=3)
+    entries = [request_entry(seed=i) for i in range(4)]  # proteins with atoms: chains P and M
+    handle = svc.dispatch(entries, svc.batch_generator(0))
+    pdb_native.reset_calls()
+    native = svc.finalize(handle)
+    assert pdb_native.CALLS["format_atoms"] == 2 * len(entries)
+    monkeypatch.setenv("PMHC_PDB_FORMATTER", "python")
+    assert svc.finalize(handle) == native

@@ -5,7 +5,10 @@ JAX package or the JAX package's ``tools/`` scripts, importing the port
 (its data package, offline CLIs and tools included) leaves JAX, the JAX
 package, ``tools`` and h5py unloaded, its entry points (``SamplerService``, ``Trainer``, the
 HTTP server's ``create_server``, the train and sample CLIs, the tool twins) refuse to fall
-back to the CPU by themselves, and nothing in it turns on TF32."""
+back to the CPU by themselves, nothing in it turns on TF32, and it builds its
+native libraries (the PDB formatter, the HDF5 decoder, the kernels of an
+AOT artifact) from its own ``pmhc_tpu_torch/csrc/``, never from the repo's
+top-level ``csrc/``."""
 
 import ast
 import os
@@ -63,7 +66,9 @@ def test_importing_the_port_leaves_jax_unloaded():
             "pmhc_tpu_torch.utils.profiling, pmhc_tpu_torch.tools.eval_rmsd, "
             "pmhc_tpu_torch.tools.rmsd_backends, pmhc_tpu_torch.tools.bench_sampler, "
             "pmhc_tpu_torch.tools.bench_train, pmhc_tpu_torch.tools.bench_serve, "
-            "pmhc_tpu_torch.tools.flops; "
+            "pmhc_tpu_torch.tools.flops, pmhc_tpu_torch.tools.bench_aot, pmhc_tpu_torch.aot, "
+            "pmhc_tpu_torch.models.egnn_blockwise, pmhc_tpu_torch.io.pdb_native, "
+            "pmhc_tpu_torch.data.native; "
             "bad = [m for m in sys.modules "
             "       if m.split('.')[0] in ('jax', 'pmhc_tpu', 'h5py', 'tools')]; "
             "assert not bad, bad")
@@ -127,7 +132,7 @@ def test_offline_clis_without_device_need_the_card(tmp_path, cli):
 
     data, model = str(tmp_path / "d.npz"), str(tmp_path / "model.pth")
     write_synthetic_hdf5(str(tmp_path / "d.hdf5"), n_entries=2, seed=0)
-    PackedDataset(str(tmp_path / "d.hdf5"), num_workers=1).save(data)
+    PackedDataset(str(tmp_path / "d.hdf5")).save(data)
     torch.save(ScoreNetwork().state_dict(), model)
     main, args = ((train_cli.main, [data, "1", model]) if cli == "train"
                   else (sample_cli.main, [model, data]))
@@ -142,7 +147,7 @@ def test_offline_clis_without_device_need_the_card(tmp_path, cli):
 
 
 @pytest.mark.parametrize("tool", ["eval_rmsd", "rmsd_backends", "bench_sampler", "bench_train",
-                                  "bench_serve"])
+                                  "bench_serve", "bench_aot"])
 def test_tools_without_device_need_the_card(tmp_path, tool):
     """The tool twins default to ``--device cuda`` and raise without a card."""
     import importlib
@@ -189,3 +194,47 @@ def test_card_scripts_refuse_to_run_without_a_card(script, args):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 2, proc.stderr
     assert '"ok"' not in proc.stdout
+
+
+def test_native_libraries_come_from_the_ports_own_sources(tmp_path):
+    """A copy of ``pmhc_tpu_torch`` alone, outside the repo (no top-level
+    ``csrc/`` beside it), builds and runs the PDB formatter and the HDF5
+    decoder from its own ``csrc/`` (with JAX unloaded), and an AOT artifact
+    round-trips there; no port source names the top-level directory."""
+    import shutil
+
+    shutil.copytree(PORT, tmp_path / "pmhc_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    code = (
+        "import os, sys, tempfile, torch\n"
+        "from pmhc_tpu_torch.ops import _build\n"
+        "from pmhc_tpu_torch.io import pdb_native\n"
+        "from pmhc_tpu_torch.data import native, write_synthetic_hdf5, PackedDataset\n"
+        "from pmhc_tpu_torch.aot import save_sampler, load_sampler\n"
+        "from pmhc_tpu_torch.models import ScoreNetwork\n"
+        "from pmhc_tpu_torch.serve import SamplerService, dummy_entry\n"
+        "here = os.path.dirname(os.path.dirname(os.path.abspath(_build.__file__)))\n"
+        "assert _build.CSRC == os.path.join(here, 'csrc') and here.startswith(sys.argv[1]), here\n"
+        "assert pdb_native.is_available() and native.is_available()\n"
+        "d = tempfile.mkdtemp(dir=sys.argv[1]); h5 = os.path.join(d, 'd.hdf5')\n"
+        "write_synthetic_hdf5(h5, n_entries=2, seed=0)\n"
+        "assert len(PackedDataset(h5)) == 2\n"
+        "svc = SamplerService(ScoreNetwork(), batch_size=1, noise_step_count=2, device='cpu')\n"
+        "want = svc.sample_entries([dummy_entry()], torch.Generator().manual_seed(1))\n"
+        "save_sampler(svc, os.path.join(d, 's.aot'))\n"
+        "run = load_sampler(os.path.join(d, 's.aot'))\n"
+        "assert run.__self__.sample_entries([dummy_entry()], torch.Generator().manual_seed(1)) == want\n"
+        "assert sorted(os.path.basename(v.path).split('-')[0] for v in _build._LIBS.values()) == "
+        "['libhdf5_decoder', 'libpdb_formatter']\n"
+        "assert all(v.path.startswith(here) for v in _build._LIBS.values())\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pmhc_tpu', 'tools')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    top = os.path.join(REPO, "csrc")
+    for path in _port_sources():
+        with open(path) as f:
+            text = f.read()
+        assert top not in text and "REPO, \"csrc\"" not in text, path

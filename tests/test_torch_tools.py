@@ -63,7 +63,7 @@ def files(tmp_path_factory):
     d = tmp_path_factory.mktemp("tools")
     h5, npz, pth = str(d / "test.hdf5"), str(d / "test.npz"), str(d / "model.pth")
     write_realistic_hdf5(h5, n_entries=6, seed=4)
-    PackedDataset(h5, num_workers=1).save(npz)
+    PackedDataset(h5).save(npz)
     params = init_score_network(jax.random.key(3), JConfig(noise_step_count=T_STEPS))
     export_torch_checkpoint(params, pth)
     return {"h5": h5, "npz": npz, "pth": pth, "params": params, "dir": str(d)}
@@ -230,7 +230,7 @@ def test_bench_train_rows_and_failure():
         assert len(r["windows_steps_per_sec"]) == 2 and np.isfinite(r["last_loss"])
     # a config that fails is reported and the run exits non-zero
     with pytest.raises(SystemExit) as exc:
-        bench_train.main(args + ["--backends", "fused,blockwise"])
+        bench_train.main(args + ["--backends", "fused,cp"])
     assert exc.value.code != 0
 
 
