@@ -124,6 +124,25 @@ Phases (any failure exits non-zero):
    sample CLI's overlap loop over 3 T=1000 batches from graphs.
    (``chip_studies.py`` measures the choices behind the defaults: steps
    per sampler graph, and ``train_indices`` against one-step dispatch.)
+6. the mesh paths (``multi_gpu_main_path``), on min(cards, 4) ranks, one
+   process a card over NCCL (one card: every path on a mesh of one, logged
+   as ``multi_gpu_world`` 1): DP training at batch 64 a rank, 20 graphed
+   steps per mode with finite losses and exactly 2 forward and 2 backward
+   loop launches a step on every rank, and 5 steps per mode held against a
+   one-card ``Trainer`` on the same global batches and seed
+   (``GRAPH_TRAIN_TOL``); CP (data x context 2) and ring (context = all)
+   sampling: a 4-step injected-noise trajectory against the one-card dense
+   sampler (``TRAJ_TOL``) and a batch-64 T=1000 chain whose PDBs pass
+   ``check_pdb``, and CP and ring training, 5 steps each against one
+   card; TP (model 2: the loop kernels on gathered weights, and
+   the dense layer Megatron-style) and DP x TP x CP (model 2 x context 2,
+   the cp layer with Megatron MLPs), 5 steps each against one card;
+   ``train_cli --mesh-data`` (rank 0's ``.pth`` loads strict) and
+   ``sample_cli --backend cp --mesh-context`` (every PDB once) on the
+   group; then DP steps at 1, 2 and 4 ranks (64 a rank and 64 in all), the
+   gradient all-reduce alone, and the CP and ring T=1000 chains beside the
+   one-card dense one; last, ``train_cli --mesh-data`` on ranks started
+   by ``torchrun``, every one ending its process within ``TORCHRUN_S``.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each ported kernel with its launches, error and times, and the
 line before that is ``nvidia-smi``'s name and power limit of the card.
@@ -222,6 +241,14 @@ RMSD_BACKENDS_T = 200  # phase 4c's rmsd_backends run (the JAX tool's default T)
 # phase 4d: the blockwise layer against the dense one (tests/unit/test_blockwise.py's)
 BLOCKWISE_TOL = {"q": 5e-5, "t": 2e-4, "tors": 2e-4, "feat": 2e-4}
 NEIGHBOUR_BLOCKS = (16, 32, 96)
+# phase 6: steps held against one card; the timed DP steps per world; the
+# gradient all-reduce's repeats; the CLIs' packed files (entries, seed)
+MESH_STEPS = 5
+MESH_TIMED_STEPS = 20
+ALLREDUCE_ITERS = 200
+MESH_SETS = {"train": (256, 3), "test": (67, 2)}
+MESH_SAMPLE_STEPS = 100  # the sample CLI's strided jumps on the mesh
+TORCHRUN_S = 240  # the train CLI under torchrun, start to the last rank's exit
 
 
 def log(msg: str) -> None:
@@ -1890,6 +1917,429 @@ def pallas_times(cases, launches: int, err: float, card: str) -> dict:
             "library_ms": None}  # no single PyTorch call computes this layer
 
 
+# -- 6. multi-GPU -------------------------------------------------------------------
+
+
+def mesh_layouts(world: int) -> dict:
+    """Phase 6's meshes (data, model, context) for ``world`` ranks; at one
+    rank every path runs on a mesh of one."""
+    m = min(2, world)
+    return {"dp": (world, 1, 1), "cp": (world // m, 1, m), "ring": (1, 1, world),
+            "tp": (world // m, m, 1), "dp_tp_cp": (1, m, world // m)}
+
+
+def mesh_say(msg: str) -> None:
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:
+        log(msg)
+
+
+def mesh_counts(mode: str, steps: int) -> dict:
+    """Every rank's loop-kernel counts (all_gather_object) against
+    ``steps`` x 2 forward and 2 backward launches in ``mode``, none of #1-#3."""
+    import torch.distributed as dist
+
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import egnn_loop as el
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+
+    mine = {**el.LAUNCHES, "other": sum(ef.LAUNCHES.values()) + sum(ep.LAUNCHES.values())}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    want = {k: (2 * steps if k.endswith(mode) else 0) for k in mine}
+    for rank, counts in enumerate(every):
+        if counts != want:
+            raise AssertionError(f"rank {rank}: launches {counts}, expected {want}")
+    return every[0]
+
+
+def mesh_state(trainer) -> list:
+    """A trainer's whole parameters (gathered over ``model``; every rank calls it)."""
+    return [t.detach().clone() for t in trainer.state_dict().values()]
+
+
+def mesh_vs_single(label: str, mesh, card: str, mode: str = "fp32", backend: str = "auto",
+                   tensor_parallel: bool = False, context_parallel: bool = False) -> None:
+    """``MESH_STEPS`` graphed steps of a mesh ``Trainer`` on global batches
+    of 64 per data rank, held on rank 0 against a one-card ``Trainer`` from
+    the same seed on the same batches (``GRAPH_TRAIN_TOL``: losses, and the
+    parameters' change from their start)."""
+    import torch
+    import torch.distributed as dist
+
+    from pmhc_tpu_torch.data.synthetic import synthetic_batch
+    from pmhc_tpu_torch.models import ScoreNetworkConfig
+    from pmhc_tpu_torch.train import TrainConfig, Trainer
+
+    kw = dict(train_config=TrainConfig(seed=12, learning_rate=TRAIN_LR, nan_check_every=0),
+              bf16=mode == "bf16", fast_f32=mode == "high")
+    batches = [synthetic_batch(batch_size=B * mesh.size(0), seed=700 + k) for k in range(MESH_STEPS)]
+    tr = Trainer(ScoreNetworkConfig(backend=backend), mesh=mesh, tensor_parallel=tensor_parallel,
+                 context_parallel=context_parallel, **kw)
+    start = mesh_state(tr)
+    losses = [float(tr.train_batch(b)["total loss"]) for b in batches]
+    got = mesh_state(tr)
+    if dist.get_rank() == 0:
+        single = "dense" if backend in ("xla", "cp", "ring") else backend
+        ref = Trainer(ScoreNetworkConfig(backend=single), **kw)
+        want_l = [float(ref.train_batch(b)["total loss"]) for b in batches]
+        want = [p.detach().clone() for p in ref.model.parameters()]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want_l))
+        change = change_errors(start, got, want)
+        log(json.dumps({"metric": "mesh_vs_one_card", "path": label, "mesh": list(mesh.shape),
+                        "backend": backend, "mode": mode, "batch": B * mesh.size(0),
+                        "steps": MESH_STEPS, "losses": losses, "one_card_losses": want_l,
+                        "loss_max_rel_diff": rel, "param_change": change,
+                        "tol": GRAPH_TRAIN_TOL, "card": card}))
+        if not (rel <= GRAPH_TRAIN_TOL["loss_rtol"] and change_close(change)):
+            raise AssertionError(f"{label} on {tuple(mesh.shape)} disagrees with one card: "
+                                 f"rel {rel:.2e}, change {change}")
+    torch.cuda.synchronize()
+    dist.barrier()
+
+
+def mesh_dp_main_path(world: int, card: str) -> dict:
+    """DP on ``world`` ranks: ``TRAIN_STEPS`` graphed steps per mode at
+    batch 64 a rank, with every counter zeroed just before; finite losses
+    and exactly 2 forward and 2 backward loop launches a step on every
+    rank in the mode. Returns rank 0's counts by mode."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from pmhc_tpu_torch.data.synthetic import synthetic_batch
+    from pmhc_tpu_torch.models import ScoreNetworkConfig
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import egnn_loop as el
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+    from pmhc_tpu_torch.parallel import make_mesh
+    from pmhc_tpu_torch.train import MetricsRecord, TrainConfig, Trainer
+
+    mesh = make_mesh(*mesh_layouts(world)["dp"])
+    batches = [synthetic_batch(batch_size=B * world, seed=900 + k) for k in range(TRAIN_STEPS)]
+    launches = {}
+    for mode in MODES:
+        tr = Trainer(ScoreNetworkConfig(backend="auto"), train_config=TrainConfig(
+            seed=5, nan_check_every=TRAIN_STEPS), bf16=mode == "bf16", fast_f32=mode == "high",
+            mesh=mesh)
+        metrics = MetricsRecord()
+        torch.cuda.synchronize()
+        dist.barrier()
+        el.reset_launches()
+        ef.reset_launches()
+        ep.reset_launches()
+        walls = []
+        for b in batches:
+            t0 = time.monotonic()
+            tr.train_batch(b, metrics)
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+        counts = mesh_counts(mode, TRAIN_STEPS)
+        mean = metrics.mean()
+        if not all(math.isfinite(v) for v in mean.values()):
+            raise AssertionError(f"mesh DP {mode}: non-finite losses {mean}")
+        mesh_say(f"mesh DP {mode}: {world} ranks x batch {B}, {TRAIN_STEPS} steps, launches per "
+                 f"rank {counts}, mean losses {json.dumps({k: round(v, 4) for k, v in mean.items()})}")
+        mesh_say(json.dumps({"metric": "mesh_dp_step_s", "mode": mode, "world": world,
+                             "batch_per_rank": B, "seconds": walls, "card": card}))
+        launches[mode] = {k: v for k, v in counts.items() if k != "other"}
+    for mode in MODES:
+        mesh_vs_single("dp", mesh, card, mode)
+    return launches
+
+
+def mesh_sampling(world: int, card: str, model, backend: str) -> float:
+    """CP or ring sampling: a 4-step batch-4 trajectory with injected noise
+    held against the one-card dense sampler (``TRAJ_TOL``), then a batch-64
+    T=1000 chain through ``sample_cli.sharded_service`` (from CUDA graphs;
+    the first batch captures) whose PDBs pass ``check_pdb``. Returns the
+    second chain's wall."""
+    import torch
+    import torch.distributed as dist
+
+    from pmhc_tpu_torch.cli.sample_cli import sharded_service
+    from pmhc_tpu_torch.diffusion import gen_noise, sample
+    from pmhc_tpu_torch.diffusion.sampler import sample_sharded
+    from pmhc_tpu_torch.geometry import RigidArray
+    from pmhc_tpu_torch.models import ScoreNetworkConfig
+    from pmhc_tpu_torch.parallel import make_mesh
+    from pmhc_tpu_torch.serve import SamplerService
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = model.to(dev).eval()
+    mesh = make_mesh(*mesh_layouts(world)[backend])
+    one = SamplerService(model, batch_size=4, noise_step_count=4, backend="dense", device=dev)
+    mb, _ = one.build_model_batch([request_entry(seed=300 + i) for i in range(4)],
+                                  torch.Generator(device=dev).manual_seed(11))
+    g = torch.Generator(device=dev).manual_seed(12)
+    inj = [gen_noise(g, (4, 16), one.diffusion_config) for _ in range(4)]
+    inj = {"frames": RigidArray(torch.stack([n["frames"].quats for n in inj]),
+                                torch.stack([n["frames"].trans for n in inj])),
+           "torsions": torch.stack([n["torsions"] for n in inj])}
+    got = sample_sharded(model, mb, one.diffusion_config,
+                         ScoreNetworkConfig(noise_step_count=4, backend=backend), mesh,
+                         injected_noise=inj)
+    if dist.get_rank() == 0:
+        want = sample(model, mb, one.diffusion_config, one.model_config, injected_noise=inj)
+        for name, get in (("q", lambda r: r["frames"].quats), ("t", lambda r: r["frames"].trans),
+                          ("tors", lambda r: r["torsions"])):
+            err = float((get(got) - get(want)).abs().max())
+            log(f"mesh {backend} {tuple(mesh.shape)} 4-step trajectory vs one-card dense {name}: "
+                f"max_abs_err {err:.3e} (tol {TRAJ_TOL[name]:.0e})")
+            if not err <= TRAJ_TOL[name]:
+                raise AssertionError(f"mesh {backend} trajectory {name} disagrees with dense")
+    entries64 = [request_entry(seed=200 + i) for i in range(B)]
+    svc = sharded_service(mesh)(model, batch_size=B, noise_step_count=STEPS, backend=backend,
+                                seed=7, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    svc.sample_entries(entries64, gen)  # the capture
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.monotonic()
+    handle = svc.dispatch(entries64, gen)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    pdbs = svc.finalize(handle)
+    if dist.get_rank() == 0:
+        for pdb, e in zip(pdbs, entries64):
+            check_pdb(pdb, e)
+    mesh_say(f"mesh {backend} {tuple(mesh.shape)}: batch {B}, T={STEPS}, {len(pdbs)} PDBs "
+             f"checked, chain {wall:.3f} s")
+    dist.barrier()
+    return wall
+
+
+def one_card_chain(model) -> float:
+    """The one-card dense sampler's batch-64 T=1000 chain wall (graphed,
+    after a capturing first chain), on rank 0 while the others wait."""
+    import torch
+    import torch.distributed as dist
+
+    from pmhc_tpu_torch.serve import SamplerService
+
+    wall = 0.0
+    if dist.get_rank() == 0:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        entries64 = [request_entry(seed=200 + i) for i in range(B)]
+        one = SamplerService(model.to(dev).eval(), batch_size=B, noise_step_count=STEPS,
+                             backend="dense", seed=7, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1234)
+        one.sample_entries(entries64, gen)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        one.dispatch(entries64, gen)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    dist.barrier()
+    return wall
+
+
+def mesh_timings(world: int, card: str) -> None:
+    """DP steps at every world w <= ``world`` of 1, 2, 4 (64 a rank, and 64
+    in all), fp32, from graphs (median of ``MESH_TIMED_STEPS``, the first
+    step, its capture, left out); the gradient all-reduce alone (79,195
+    fp32 and the 5 loss sums, eager, between CUDA events)."""
+    import torch
+    import torch.distributed as dist
+
+    from pmhc_tpu_torch.data.synthetic import synthetic_batch
+    from pmhc_tpu_torch.models import ScoreNetwork, ScoreNetworkConfig
+    from pmhc_tpu_torch.parallel import make_mesh
+    from pmhc_tpu_torch.train import TrainConfig, Trainer
+
+    for w in (n for n in (1, 2, 4) if n <= world):
+        for scaling, global_batch in (("weak", B * w), ("strong", B)):
+            mesh = make_mesh(w)
+            if mesh.get_coordinate() is not None:
+                tr = Trainer(ScoreNetworkConfig(backend="auto"),
+                             train_config=TrainConfig(seed=5, nan_check_every=0), mesh=mesh)
+                batches = [synthetic_batch(batch_size=global_batch, seed=1000 + k)
+                           for k in range(MESH_TIMED_STEPS)]
+                walls = []
+                for b in batches:
+                    t0 = time.monotonic()
+                    tr.train_batch(b)
+                    torch.cuda.synchronize()
+                    walls.append(time.monotonic() - t0)
+                med = sorted(walls[1:])[len(walls[1:]) // 2]
+                mesh_say(json.dumps({"metric": "mesh_dp_scaling", "scaling": scaling, "world": w,
+                                     "global_batch": global_batch, "median_step_ms": med * 1e3,
+                                     "examples_per_s": global_batch / med,
+                                     "steps_ms": [x * 1e3 for x in walls], "card": card}))
+            dist.barrier()
+    n = sum(p.numel() for p in ScoreNetwork().parameters()) + 5
+    buf = torch.ones(n, device=torch.device("cuda", torch.cuda.current_device()))
+    for _ in range(10):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.monotonic()
+    start.record()
+    for _ in range(ALLREDUCE_ITERS):
+        dist.all_reduce(buf)
+    end.record()
+    torch.cuda.synchronize()
+    mesh_say(json.dumps({"metric": "mesh_grad_allreduce", "world": world, "floats": n,
+                         "bytes": 4 * n, "us": start.elapsed_time(end) / ALLREDUCE_ITERS * 1e3,
+                         "host_us": (time.monotonic() - t0) / ALLREDUCE_ITERS * 1e6,
+                         "card": card}))
+
+
+def mesh_clis(world: int, card: str, work: str) -> None:
+    """The CLIs on the group: ``train_cli --mesh-data world`` one epoch
+    (rank 0's ``.pth`` loads strict; 2 forward and 2 backward fp32 loop
+    launches a step on every rank), and ``sample_cli --backend cp
+    --mesh-context min(2, world)`` (every PDB once, each passing ``check_pdb``)."""
+    import torch
+    import torch.distributed as dist
+
+    from pmhc_tpu_torch.cli import sample_cli, train_cli
+    from pmhc_tpu_torch.data import PackedDataset
+    from pmhc_tpu_torch.models import ScoreNetwork
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import egnn_loop as el
+    from pmhc_tpu_torch.ops import egnn_pallas as ep
+
+    train, test = (os.path.join(work, f"{k}.npz") for k in ("train", "test"))
+    model = os.path.join(work, "mesh.pth")
+    torch.cuda.synchronize()
+    dist.barrier()
+    el.reset_launches()
+    ef.reset_launches()
+    ep.reset_launches()
+    stats = train_cli.main([train, "1", model, "--mesh-data", str(world), "-b", str(B * world),
+                            "--device", "cuda"])
+    steps = -(-MESH_SETS["train"][0] // (B * world))
+    counts = mesh_counts("fp32", steps)
+    if dist.get_rank() == 0:
+        ScoreNetwork().load_state_dict(torch.load(model, map_location="cpu", weights_only=True),
+                                       strict=True)
+        log(json.dumps({"metric": "mesh_train_cli", "world": world, "global_batch": B * world,
+                        "steps": steps, "launches": counts, **stats["epochs"][0], "card": card}))
+    out = os.path.join(work, "sampled")
+    stats = sample_cli.main([model, test, "--backend", "cp", "--mesh-context", str(min(2, world)),
+                             "-b", str(B), "--sample-steps", str(MESH_SAMPLE_STEPS),
+                             "--output-dir", out, "--device", "cuda"])
+    if dist.get_rank() == 0:
+        ds = PackedDataset.load(test)
+        files = sorted(os.listdir(out))
+        if len(files) != len(ds) or stats["pdbs"] != len(ds):
+            raise AssertionError(f"sample CLI on the mesh: {len(files)} PDBs for {len(ds)} entries")
+        index = {n: i for i, n in enumerate(ds.entry_names)}
+        for f in files:
+            name = f.split(".")[0]
+            entry = {"mask": ds[index[name]]["mask"], **ds.get_protein_positions([name])}
+            entry = {k: v[0] if k.startswith("protein_") else v for k, v in entry.items()}
+            with open(os.path.join(out, f), "rb") as fh:
+                check_pdb(fh.read(), entry)
+        log(json.dumps({"metric": "mesh_sample_cli", "world": world,
+                        "mesh_context": min(2, world), "pdbs": stats["pdbs"],
+                        "wall_s": stats["wall_s"], "card": card}))
+    dist.barrier()
+
+
+def torchrun_cli(world: int, card: str, work: str) -> None:
+    """``train_cli --mesh-data world`` on ranks that ``torchrun`` starts,
+    as the README shows: every rank joins the group, trains, and ends its
+    process (``parallel.distributed.leave``) within ``TORCHRUN_S``; rank
+    0's ``.pth`` loads strict. The process group of ``torchrun`` is killed
+    if it outlives the deadline."""
+    import signal
+
+    import torch
+
+    from pmhc_tpu_torch.models import ScoreNetwork
+    from pmhc_tpu_torch.parallel.distributed import free_port
+
+    model = os.path.join(work, "torchrun.pth")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(world),
+           "--master-addr", "localhost", "--master-port", str(free_port()),
+           "-m", "pmhc_tpu_torch.cli.train_cli", os.path.join(work, "train.npz"), "1", model,
+           "--mesh-data", str(world), "-b", str(B * world), "--device", "cuda"]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=TORCHRUN_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun train_cli exit {proc.returncode} after {wall:.1f} s:\n"
+                             f"{out[-4000:]}")
+    ScoreNetwork().load_state_dict(torch.load(model, map_location="cpu", weights_only=True),
+                                   strict=True)
+    log(json.dumps({"metric": "mesh_torchrun_cli", "world": world, "global_batch": B * world,
+                    "wall_s": wall, "card": card}))
+
+
+def mesh_rank(card: str, world: int, work: str) -> dict:
+    """One rank of phase 6 (``multi_gpu_main_path``)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from pmhc_tpu_torch.parallel import make_mesh
+
+    layouts = mesh_layouts(world)
+    mesh_say(f"mesh ranks: {world}, layouts {layouts}, rank 0 on cuda:{torch.cuda.current_device()}")
+    launches = mesh_dp_main_path(world, card)
+    mesh_vs_single("cp", make_mesh(*layouts["cp"]), card, backend="cp", context_parallel=True)
+    for backend in ("auto", "xla"):
+        mesh_vs_single("tp", make_mesh(*layouts["tp"]), card, backend=backend, tensor_parallel=True)
+    mesh_vs_single("dp_tp_cp", make_mesh(*layouts["dp_tp_cp"]), card, backend="xla",
+                   tensor_parallel=True, context_parallel=True)
+    mesh_clis(world, card, work)
+    mesh_timings(world, card)
+    # the ring last: its hops are the only point-to-point sends in a graph
+    model = random_model(seed=0)
+    walls = {"cp": mesh_sampling(world, card, model, "cp")}
+    mesh_vs_single("ring", make_mesh(*layouts["ring"]), card, backend="ring", context_parallel=True)
+    walls["ring"] = mesh_sampling(world, card, model, "ring")
+    walls["one_card_dense"] = one_card_chain(model)
+    mesh_say(json.dumps({"metric": "mesh_sample_chain_s", "world": world, "batch": B,
+                         "steps": STEPS, "meshes": {k: layouts[k] for k in ("cp", "ring")},
+                         **walls, "card": card}))
+    return {"rank": dist.get_rank(), "launches": launches}
+
+
+def multi_gpu_main_path(card: str, world: int) -> dict:
+    """Phase 6: the mesh paths on ``world`` cards, one process each over
+    NCCL (``parallel.distributed.spawn``): DP training with its launch
+    counts exact per rank and against one card, CP and ring sampling and
+    training, TP,
+    DP x TP x CP, both CLIs on the group, and the timings; then the train
+    CLI under ``torchrun``. Returns rank 0's loop-kernel counts of the DP
+    main path by mode."""
+    import shutil
+
+    import torch
+
+    from pmhc_tpu_torch.parallel.distributed import spawn
+
+    log(json.dumps({"metric": "multi_gpu_world", "world": world,
+                    "cards": torch.cuda.device_count(), "card": card}))
+    t_phase = time.monotonic()
+    work = os.path.join(REPO, ".chip_scratch", "mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        for name, (n, seed) in MESH_SETS.items():
+            pack_realistic(os.path.join(work, f"{name}.npz"), n, seed)
+        res = spawn(mesh_rank, world, args=(card, world, work), device="cuda", timeout=600)
+        torchrun_cli(world, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({"metric": "phase_6_s", "world": world, "seconds": time.monotonic() - t_phase,
+                    "card": card}))
+    return res[0]["launches"]
+
+
 def check_pdb(pdb: bytes, entry) -> None:
     """ATOM records parse with finite coordinates; chain P holds one
     residue per peptide position, chain M the entry's existing atoms."""
@@ -2154,6 +2604,10 @@ def main() -> int:
             log(json.dumps({"metric": "device_breakdown", "path": "train", "mode": mode,
                             "graphs": graphs, "batch": B, "steps": 10,
                             **train_breakdown(mode, graphs), "card": card}))
+
+    # -- 6. the mesh paths, one process a card over NCCL ----------------------------
+    torch.cuda.empty_cache()
+    multi_gpu_main_path(card, min(torch.cuda.device_count(), 4))
 
     print(card)
     print(json.dumps({"kernels": kernels}))

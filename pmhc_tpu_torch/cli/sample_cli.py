@@ -19,6 +19,14 @@ runs from CUDA graphs (``--eager`` runs it eagerly), so ``dispatch``
 returns while the card still samples, and ``finalize`` waits only for
 its own batch's arrays. ``--device`` defaults to ``cuda``.
 
+``--mesh-context N`` (or ``--backend cp`` / ``ring``) samples on a
+``("data", "model", "context")`` mesh, one process per device, as the
+JAX CLI's ``sample_sharded`` does: the neighbour axis split over N ranks,
+the batch over the data axis (every card the context axis leaves; one on
+the CPU). Under ``torchrun`` each rank joins the group, else the CLI
+starts the ranks itself; every rank builds the same noised batches, and
+rank 0 writes every PDB.
+
 ``main`` returns the whole call's wall seconds (weights and data loaded,
 every PDB written) and PDBs per second, and per batch the host seconds
 queueing the sampler, the seconds then waited for its arrays (after the
@@ -34,7 +42,7 @@ import sys
 import time
 from argparse import ArgumentParser
 
-from pmhc_tpu_torch.cli import MULTI_GPU
+from pmhc_tpu_torch.cli import mesh_world, run_on_mesh
 
 _log = logging.getLogger(__name__)
 
@@ -57,7 +65,8 @@ def build_parser() -> ArgumentParser:
                    help="EGNN layer: auto / pallas_lane / g8 the fused kernel; pallas the "
                         "round-1 fused kernel (fp32 only); xla the dense layer")
     p.add_argument("--mesh-context", type=int, default=1,
-                   help="devices on the context axis (not ported: only 1)")
+                   help="devices on the context-parallel axis: the EGNN neighbour axis split "
+                        "(backend cp or ring; selects cp if --backend is not one of them)")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mode of the fused kernel (auto / pallas_lane / g8 only)")
     p.add_argument("--fast-f32", action="store_true",
@@ -81,20 +90,46 @@ def build_parser() -> ArgumentParser:
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     logging.basicConfig(stream=sys.stdout, level=logging.DEBUG if args.debug else logging.INFO)
-    if args.mesh_context > 1:
-        raise NotImplementedError(f"--mesh-context: {MULTI_GPU}")
+    if args.mesh_context > 1 or args.backend in ("cp", "ring"):
+        from pmhc_tpu_torch.parallel.distributed import launched
+
+        world = mesh_world(args, args.device)
+        if world > 1 or launched():
+            return run_on_mesh(main, argv, world, args.device, lambda: _main(args, True))
+    return _main(args, False)
+
+
+def _main(args, on_mesh: bool):
     if args.profile_dir:
         from pmhc_tpu_torch.utils.profiling import profile_trace
 
         _log.info("tracing the whole run into %s", args.profile_dir)
         with profile_trace(args.profile_dir):
-            return _run(args)
-    return _run(args)
+            return _run(args, on_mesh)
+    return _run(args, on_mesh)
 
 
-def _run(args):
+def sharded_service(mesh):
+    """``SamplerService`` whose chain is ``make_sample_sharded``'s on ``mesh``."""
+    from pmhc_tpu_torch.diffusion.sampler import make_sample_sharded
+    from pmhc_tpu_torch.serve import SamplerService
+
+    class ShardedService(SamplerService):
+        def __init__(self, params, **kwargs):
+            super().__init__(params, **kwargs)
+            self.sharded = make_sample_sharded(self.diffusion_config, self.model_config, mesh,
+                                               self.tables, self.mode, self.num_steps, self.graphs)
+
+        def sample_model_batch(self, model_batch, generator, injected_noise=None):
+            return self.sharded(self.model, model_batch, generator, injected_noise)
+
+    return ShardedService
+
+
+def _run(args, on_mesh: bool):
     from pmhc_tpu_torch.data import PrefetchLoader
     from pmhc_tpu_torch.data.packed import open_dataset
     from pmhc_tpu_torch.data.validate import validate_or_exit
@@ -106,11 +141,30 @@ def _run(args):
     if args.validate_data:
         validate_or_exit(args.test_hdf5)
 
-    service = SamplerService(load_params(args.model), batch_size=args.batch_size,
-                             noise_step_count=args.T, num_steps=args.sample_steps,
-                             backend=args.backend, bf16=args.bf16, fast_f32=args.fast_f32,
-                             seed=args.seed, device=args.device,
-                             graphs=False if args.eager else None)
+    backend, device, writer, service_class = args.backend, args.device, True, SamplerService
+    if on_mesh:
+        import torch
+        import torch.distributed as dist
+
+        from pmhc_tpu_torch.parallel import make_mesh
+
+        if backend not in ("cp", "ring"):
+            backend = "cp"
+            _log.info("--mesh-context %d: selecting backend 'cp'", args.mesh_context)
+        mesh = make_mesh(n_context=max(1, args.mesh_context))
+        if mesh.get_coordinate() is None:
+            _log.info("this rank is outside the %s mesh: nothing to do", tuple(mesh.shape))
+            return None
+        _log.info("mesh data %d x model %d x context %d", *mesh.shape)
+        if mesh.device_type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        writer = dist.get_rank() == 0
+        service_class = sharded_service(mesh)
+    service = service_class(load_params(args.model), batch_size=args.batch_size,
+                            noise_step_count=args.T, num_steps=args.sample_steps,
+                            backend=backend, bf16=args.bf16, fast_f32=args.fast_f32,
+                            seed=args.seed, device=device,
+                            graphs=False if args.eager else None)
     _log.info("backend %r -> %s, %s, on %s", args.backend, service.backend, service.precision,
               service.device)
 
@@ -118,7 +172,8 @@ def _run(args):
     loader = PrefetchLoader(dataset, batch_size=args.batch_size, num_workers=args.num_workers)
 
     output_path = args.output_dir or os.path.splitext(args.test_hdf5)[0] + "-sampled"
-    os.makedirs(output_path, exist_ok=True)
+    if writer:
+        os.makedirs(output_path, exist_ok=True)
 
     stats = []
 
@@ -128,7 +183,8 @@ def _run(args):
         t0 = time.monotonic()
         handle.wait()
         t1 = time.monotonic()
-        for name, pdb in zip(out_names, SamplerService.finalize(handle)):
+        # on a mesh every rank holds the batch; rank 0 writes it
+        for name, pdb in zip(out_names, SamplerService.finalize(handle) if writer else ()):
             with open(os.path.join(output_path, f"{name}.pdb"), "wb") as f:
                 f.write(pdb)
         stats.append({**stat, "wait_s": t1 - t0, "pdb_s": time.monotonic() - t1})
@@ -154,8 +210,9 @@ def _run(args):
         write(pending)
     wall = time.monotonic() - t_start
     pdbs = sum(b["entries"] for b in stats)
-    _log.info("wrote %d PDB files to %s in %.3f s (%.2f PDBs/s)", pdbs, output_path, wall,
-              pdbs / wall)
+    if writer:
+        _log.info("wrote %d PDB files to %s in %.3f s (%.2f PDBs/s)", pdbs, output_path, wall,
+                  pdbs / wall)
     return {"wall_s": wall, "pdbs": pdbs, "pdbs_per_s": pdbs / wall, "batches": stats,
             "output_dir": output_path, "precision": service.precision}
 

@@ -13,8 +13,18 @@ packed ``.npz`` (``python -m pmhc_tpu_torch.data.packed in.hdf5 out.npz``),
 which is what a machine without h5py reads. ``--device`` (default
 ``cuda``) names the torch device; without a card the run raises unless
 given ``--device cpu``. ``--orbax-dir`` keeps its name and holds the port's
-full-state checkpoints (``train/checkpoints.py``). Multi-device meshes are
-not ported (ROADMAP Queue 1, multi-GPU).
+full-state checkpoints (``train/checkpoints.py``).
+
+``--mesh-data``, ``--mesh-model`` and ``--mesh-context`` train on a
+``("data", "model", "context")`` mesh, one process per device
+(``Trainer(mesh=...)``, the JAX CLI's choices of backend: ``--mesh-context``
+selects ``cp`` unless ``--backend ring``; with ``--mesh-model`` it runs the
+xla backend, here the ``cp`` layer with Megatron MLPs). Under ``torchrun``
+each rank joins the group; otherwise the CLI starts the ranks itself (the
+data axis, when not given, of every card; ``--device cpu`` a gloo group).
+Every rank reads the global batches and trains on its rows; only rank 0
+writes. ``--device-data --steps-per-dispatch K`` stays single-device, as
+in the JAX CLI.
 
 On the card the steps run from CUDA graphs (``Trainer``; ``--eager``
 runs them eagerly). With ``--device-data --steps-per-dispatch K`` an
@@ -37,7 +47,7 @@ import sys
 import time
 from argparse import ArgumentParser
 
-from pmhc_tpu_torch.cli import MULTI_GPU
+from pmhc_tpu_torch.cli import mesh_world, run_on_mesh
 
 _log = logging.getLogger(__name__)
 
@@ -62,11 +72,15 @@ def build_parser() -> ArgumentParser:
                    help="keep the packed dataset resident on the device and gather batches "
                         "there (implies --pack)")
     p.add_argument("--mesh-data", type=int, default=0,
-                   help="devices on the data axis (not ported: only 0)")
+                   help="devices on the data axis (0 = single device; with --mesh-model or "
+                        "--mesh-context: every device the other axes leave)")
     p.add_argument("--mesh-model", type=int, default=1,
-                   help="devices on the model axis (not ported: only 1)")
+                   help="devices on the model (tensor-parallel) axis: every MLP's hidden width "
+                        "split in the Megatron column/row layout")
     p.add_argument("--mesh-context", type=int, default=1,
-                   help="devices on the context axis (not ported: only 1)")
+                   help="devices on the context-parallel axis: the EGNN neighbour axis split "
+                        "(backend cp or ring; selects cp if --backend is not one of them); with "
+                        "--mesh-model, DP x TP x CP on the xla backend")
     p.add_argument("--orbax-dir", default=None,
                    help="directory for full-state checkpoints (weights, optimizer, generators)")
     p.add_argument("--bf16", action="store_true",
@@ -118,10 +132,20 @@ def build_parser() -> ArgumentParser:
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     logging.basicConfig(stream=sys.stdout, level=logging.DEBUG if args.debug else logging.INFO)
-    if args.mesh_data > 0 or args.mesh_model > 1 or args.mesh_context > 1:
-        raise NotImplementedError(f"--mesh-data/--mesh-model/--mesh-context: {MULTI_GPU}")
+    if args.mesh_data > 0 or args.mesh_model > 1 or args.mesh_context > 1 \
+            or args.backend in ("cp", "ring"):
+        from pmhc_tpu_torch.parallel.distributed import launched
+
+        world = mesh_world(args, args.device)
+        if world > 1 or launched():
+            return run_on_mesh(main, argv, world, args.device, lambda: _main(args, True))
+    return _main(args, False)
+
+
+def _main(args, on_mesh: bool):
     if args.debug:
         from pmhc_tpu_torch.utils.profiling import enable_nan_debugging
 
@@ -132,14 +156,14 @@ def main(argv=None):
 
             _log.info("tracing the whole run into %s (keep the run short)", args.profile_dir)
             with profile_trace(args.profile_dir):
-                return _run(args)
-        return _run(args)
+                return _run(args, on_mesh)
+        return _run(args, on_mesh)
     finally:
         if args.debug:
             enable_nan_debugging(False)
 
 
-def _run(args):
+def _run(args, on_mesh: bool):
     import torch
 
     from pmhc_tpu_torch.data import DeviceDataset, PackedDataset, PrefetchLoader
@@ -156,8 +180,30 @@ def _run(args):
     if args.validate_data:
         validate_or_exit(args.train_hdf5)
 
+    backend = args.backend
+    mesh = None
+    context_parallel = args.mesh_context > 1 or backend in ("cp", "ring")
+    if args.mesh_context > 1 and args.mesh_model > 1:
+        # DP x TP x CP: the xla backend, here the cp layer with Megatron MLPs
+        if backend not in ("auto", "xla"):
+            raise SystemExit("--mesh-model with --mesh-context (DP x TP x CP) runs the "
+                             f"GSPMD xla backend; --backend {backend} is incompatible")
+        backend = "xla"
+    elif context_parallel and backend not in ("cp", "ring"):
+        backend = "cp"
+        _log.info("--mesh-context %d: selecting backend 'cp'", args.mesh_context)
+    if on_mesh:
+        from pmhc_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(args.mesh_data or None, args.mesh_model, max(1, args.mesh_context))
+        if mesh.get_coordinate() is None:
+            _log.info("this rank is outside the %s mesh: nothing to do", tuple(mesh.shape))
+            return None
+        _log.info("mesh data %d x model %d x context %d", *mesh.shape)
+    else:
+        context_parallel = False
     device = resolve_device(args.device)
-    backend = resolve_backend(args.backend)
+    backend = resolve_backend(backend)
     _log.info("backend %r -> %s on %s", args.backend, backend, device)
 
     model_config = ScoreNetworkConfig(noise_step_count=args.T, backend=backend)
@@ -178,7 +224,11 @@ def _run(args):
         params = load_checkpoint(args.output_model, model_config).state_dict()
     trainer = Trainer(model_config, diffusion_config, train_config, params=params,
                       bf16=args.bf16, fast_f32=args.fast_f32, device=device,
-                      graphs=False if args.eager else None)
+                      graphs=False if args.eager else None, mesh=mesh,
+                      tensor_parallel=mesh is not None and args.mesh_model > 1,
+                      context_parallel=context_parallel)
+    device = trainer.device
+    writer = trainer.writer
     _log.info("precision %s", trainer.precision)
 
     ckpt_mgr = None
@@ -209,11 +259,16 @@ def _run(args):
     ema_path = args.output_model.replace(".pth", ".ema.pth")
 
     def save_model():
+        # every rank gathers (tensor-parallel parts), rank 0 writes
         trainer.save(args.output_model)
         if args.ema_decay:
-            save_state_dict(trainer.ema_params, ema_path)
+            ema = trainer.ema_params
+            if writer:
+                save_state_dict(ema, ema_path)
         if ckpt_mgr is not None:
-            ckpt_mgr.save(trainer.global_step, trainer.checkpoint_state())
+            state = trainer.checkpoint_state()
+            if writer:
+                ckpt_mgr.save(trainer.global_step, state)
         _log.debug("saved %s", args.output_model)
 
     metrics_path = args.output_model.replace(".pth", ".csv")
@@ -239,10 +294,12 @@ def _run(args):
             if ema_metrics is not None:
                 trainer.eval_batch(batch, val_generator(j), ema_metrics,
                                    params=trainer.ema_params)
-        val_metrics.save(args.output_model.replace(".pth", ".val.csv"), epoch_index)
+        if writer:
+            val_metrics.save(args.output_model.replace(".pth", ".val.csv"), epoch_index)
         _log.info("epoch %d val: %s", epoch_index, val_metrics.mean())
         if ema_metrics is not None:
-            ema_metrics.save(args.output_model.replace(".pth", ".val.ema.csv"), epoch_index)
+            if writer:
+                ema_metrics.save(args.output_model.replace(".pth", ".val.ema.csv"), epoch_index)
             _log.info("epoch %d val (ema): %s", epoch_index, ema_metrics.mean())
 
     nan_state = {"retries": 0}
@@ -260,8 +317,7 @@ def _run(args):
             trainer.load_checkpoint_state(ckpt_mgr.restore())
             src = f"checkpoint step {trainer.global_step}"
         elif os.path.isfile(args.output_model):
-            trainer.model.load_state_dict(
-                load_checkpoint(args.output_model, model_config).state_dict(), strict=True)
+            trainer.load_weights(load_checkpoint(args.output_model, model_config).state_dict())
             trainer.reset_optimizer()
             src = (f"{args.output_model} (weights only; Adam moments, grad-accum accumulator "
                    "and EMA reset)")
@@ -279,7 +335,7 @@ def _run(args):
         metrics = check_nan(metrics)
         save_model()
         seconds = time.monotonic() - t0
-        if len(metrics):  # empty after an epoch-end NaN recovery
+        if len(metrics) and writer:  # empty after an epoch-end NaN recovery
             metrics.save(metrics_path, epoch_index)
             _log.info("epoch %d: %s", epoch_index, metrics.mean())
         _log.info("epoch %d: %d examples in %.3f s (%.1f examples/s), loader wait %s s",
@@ -289,7 +345,7 @@ def _run(args):
         run_validation(epoch_index)
 
     B = args.batch_size
-    if args.device_data and K > 1:
+    if args.device_data and K > 1 and mesh is None:
         # rows of entry indices in the epoch's order: K full rows are one
         # train_indices call, the rest one train_batch each
         def epoch_items():

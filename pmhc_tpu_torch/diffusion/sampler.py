@@ -41,6 +41,13 @@ Semantics match ``sample_lane``: t runs T..1 with the model evaluated at
 t = T first; ``injected_noise`` (a Noise dict with a leading [T] axis,
 index 0 used at t = T, or [K] when strided) bypasses the generator for
 exact trajectory parity in tests.
+
+``make_sample_sharded`` / ``sample_sharded`` (the JAX package's names) run
+the chain on a mesh, one process per GPU: each rank samples its ``data``
+rows of the global batch with the ``cp`` or ``ring`` layer split over
+``context``, draws every step's noise for the global batch from the same
+generator and keeps its rows, so the trajectory is the dense sampler's on
+the global batch; the rows are gathered back onto every rank at the end.
 """
 
 from __future__ import annotations
@@ -63,6 +70,8 @@ from pmhc_tpu_torch.models.score import (
 )
 from pmhc_tpu_torch.ops.egnn_fused import layer_context, mode_of
 from pmhc_tpu_torch.ops.egnn_pallas import pallas_context
+from pmhc_tpu_torch.parallel.comm import all_gather_flat
+from pmhc_tpu_torch.parallel.mesh import data_rows, take_rows
 from pmhc_tpu_torch.utils.graphs import GraphCache, Step, own_batch, use_graphs
 
 
@@ -169,11 +178,13 @@ def pallas_forward(model: ScoreNetwork, batch: Dict[str, Any],
 
 
 def dense_forward(model: ScoreNetwork, batch: Dict[str, Any],
-                  model_config: ScoreNetworkConfig) -> Forward:
-    """``score_network_forward`` per step, reading ``batch``."""
+                  model_config: ScoreNetworkConfig, context_group=None) -> Forward:
+    """``score_network_forward`` per step, reading ``batch`` (the ``cp`` and
+    ``ring`` layers split over ``context_group``)."""
     def forward(q, t, tors, step):
         state = dict(batch, frames=RigidArray(q, t), torsions=tors)
-        pred = score_network_forward(model, state, step, model_config)
+        pred = score_network_forward(model, state, step, model_config,
+                                     context_group=context_group)
         return pred["frames"].quats, pred["frames"].trans, pred["torsions"]
 
     pf = batch["pocket_frames"]
@@ -218,14 +229,23 @@ class Chain:
         self.k += 1
 
 
+def _noise(generator: torch.Generator, shape: Tuple[int, ...], config: DiffusionConfig,
+           rows: Tuple[int, slice] | None) -> Dict[str, Any]:
+    """One step's noise for a batch of ``shape``; with ``rows`` (the global
+    batch size, this rank's slice) the global batch's, cut to the slice."""
+    if rows is None:
+        return gen_noise(generator, shape, config)
+    return take_rows(gen_noise(generator, (rows[0],) + shape[1:], config), rows[1])
+
+
 class _Graphed:
     """A chain with its own static context (``forward.static``) and noise
     generator, and its captured steps by steps per graph."""
 
     def __init__(self, forward: Forward, chain: Chain, shape: Tuple[int, ...],
-                 config: DiffusionConfig):
+                 config: DiffusionConfig, rows: Tuple[int, slice] | None = None):
         self.forward, self.chain = forward, chain
-        self.shape, self.config = shape, config
+        self.shape, self.config, self.rows = shape, config, rows
         self.generator = torch.Generator(device=chain.q.device)
         self.steps: Dict[int, Step] = {}
 
@@ -235,7 +255,8 @@ class _Graphed:
         if step is None:
             def body():
                 for _ in range(n):
-                    self.chain.step(self.forward, gen_noise(self.generator, self.shape, self.config))
+                    self.chain.step(self.forward,
+                                    _noise(self.generator, self.shape, self.config, self.rows))
 
             step = self.steps[n] = Step(body, [self.generator])
         step()
@@ -254,6 +275,7 @@ def sample(
     num_steps: int | None = None,
     graphs: bool | None = None,
     graph_cache: GraphCache | None = None,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Full reverse diffusion from the noised state in ``batch``.
 
@@ -268,6 +290,11 @@ def sample(
     ``STEPS_PER_GRAPH`` steps kept in ``graph_cache`` (a new cache per call
     when None); a failed capture raises. Returns ``batch`` with ``frames``
     and ``torsions`` replaced.
+
+    ``mesh``: ``batch`` (and ``injected_noise``) are this rank's ``data``
+    rows of a global batch split evenly over the mesh; the noise is drawn
+    for the global batch and cut to the rows, and the ``cp`` / ``ring``
+    layers split the neighbours over ``context`` (see ``sample_sharded``).
     """
     if injected_noise is None and generator is None:
         raise ValueError("sample needs a generator or injected_noise")
@@ -284,15 +311,20 @@ def sample(
             return fused_forward(model, b, model_config, bf16)
         if backend == "pallas":
             return pallas_forward(model, b, model_config)
-        return dense_forward(model, b, model_config)
+        return dense_forward(model, b, model_config,
+                             None if mesh is None else mesh.get_group("context"))
 
     shape = tuple(batch["mask"].shape)
+    rows = None
+    if mesh is not None:
+        d = mesh.get_coordinate()[0]
+        rows = (shape[0] * mesh.size(0), slice(d * shape[0], (d + 1) * shape[0]))
     if not graphs:
         forward = build(batch)
         chain = Chain(batch, xs, sched)
         for k in range(len(ts)):
             if injected_noise is None:
-                rand = gen_noise(generator, shape, config)
+                rand = _noise(generator, shape, config, rows)
             else:
                 rf = injected_noise["frames"]
                 rand = {"frames": RigidArray(rf.quats[k], rf.trans[k]),
@@ -302,11 +334,11 @@ def sample(
     else:
         cache = GraphCache() if graph_cache is None else graph_cache
         key = ("sample", id(model), backend, mode_of(bf16) if backend == "fused" else "fp32", config,
-               model_config, shape, tuple(batch["pocket_mask"].shape), ts.tobytes())
+               model_config, shape, tuple(batch["pocket_mask"].shape), ts.tobytes(), id(mesh))
         entry = cache.get(key)
         if entry is None:
             own = own_batch(batch)
-            entry = _Graphed(build(own), Chain(own, xs, sched), shape, config)
+            entry = _Graphed(build(own), Chain(own, xs, sched), shape, config, rows)
             cache.put(key, entry)
         else:
             for dst, src in zip(entry.forward.static, build(batch).static):
@@ -323,3 +355,55 @@ def sample(
     result["frames"] = RigidArray(q, t)
     result["torsions"] = tors
     return result
+
+
+def make_sample_sharded(config: DiffusionConfig, model_config: ScoreNetworkConfig, mesh,
+                        tables: ScheduleTables | None = None, bf16=False,
+                        num_steps: int | None = None, graphs: bool | None = None) -> Callable:
+    """The context-parallel sampler on ``mesh`` (requires the ``cp`` or
+    ``ring`` backend): ``run(model, batch, generator=None,
+    injected_noise=None)`` takes the global batch (and noise) on every
+    rank, samples this rank's ``data`` rows (``sample(..., mesh=mesh)``,
+    its graphs kept between calls) and returns the global batch sampled,
+    on every rank: the dense ``sample`` on the same batch and generator
+    state. The global batch must split evenly over ``data``."""
+    if resolve_backend(model_config.backend) not in ("cp", "ring"):
+        raise ValueError(
+            "sharded sampling requires backend 'cp' or 'ring', got "
+            f"{model_config.backend!r}")
+    cache = GraphCache()
+
+    def run(model: ScoreNetwork, batch: Dict[str, Any], generator: torch.Generator | None = None,
+            injected_noise: Dict[str, Any] | None = None) -> Dict[str, Any]:
+        G, n = batch["mask"].shape[0], mesh.size(0)
+        if G % n:
+            raise ValueError(f"batch {G} not divisible by data={n}")
+        rows = data_rows(mesh, G)
+        if injected_noise is not None:
+            rf = injected_noise["frames"]
+            injected_noise = {"frames": RigidArray(rf.quats[:, rows], rf.trans[:, rows]),
+                              "torsions": injected_noise["torsions"][:, rows]}
+        out = sample(model, take_rows(batch, rows), config, model_config, tables, generator,
+                     bf16, injected_noise, num_steps, graphs, cache, mesh)
+        q, t, tors = out["frames"].quats, out["frames"].trans, out["torsions"]
+        local = torch.cat((q.reshape(-1), t.reshape(-1), tors.reshape(-1)))
+        full = all_gather_flat(local, mesh.get_group("data"))
+        sizes = (q.numel(), t.numel(), tors.numel())
+        parts = [torch.cat([p.view(x.shape) for p in ps]) for x, ps in
+                 zip((q, t, tors), zip(*(torch.split(r, sizes) for r in full)))]
+        result = dict(batch)
+        result["frames"] = RigidArray(parts[0], parts[1])
+        result["torsions"] = parts[2]
+        return result
+
+    return run
+
+
+def sample_sharded(model: ScoreNetwork, batch: Dict[str, Any], config: DiffusionConfig,
+                   model_config: ScoreNetworkConfig, mesh, tables: ScheduleTables | None = None,
+                   generator: torch.Generator | None = None, bf16=False,
+                   num_steps: int | None = None, injected_noise: Dict[str, Any] | None = None,
+                   graphs: bool | None = None) -> Dict[str, Any]:
+    """One-shot ``make_sample_sharded``."""
+    return make_sample_sharded(config, model_config, mesh, tables, bf16, num_steps, graphs)(
+        model, batch, generator, injected_noise)

@@ -26,7 +26,7 @@ from pmhc_tpu_torch.geometry import (
     identity_quat,
     torch_normalize,
 )
-from pmhc_tpu_torch.models.nn import linear_block, mlp, mlp_hidden
+from pmhc_tpu_torch.models.nn import linear_block, linear_column, mlp, mlp_apply, mlp_hidden
 
 INFINITY = 1e9  # softmax mask penalty
 N_TORSIONS = 7
@@ -71,8 +71,11 @@ def egnn_forward(
     pocket_features: torch.Tensor,   # [B, P, H]
     pocket_frames: RigidArray,       # [B, P]
     pocket_mask: torch.Tensor,       # [B, P] float {0, 1}
+    tp_group=None,
 ) -> Tuple[RigidArray, torch.Tensor, torch.Tensor]:
-    """One message-passing round -> (frames, torsions, node features)."""
+    """One message-passing round -> (frames, torsions, node features).
+    ``tp_group``: the ``model`` group the MLP weights are split over
+    (``models/nn.py``; None: whole weights)."""
     B, N = peptide_mask.shape
     P = pocket_mask.shape[-1]
     H = peptide_features.shape[-1]
@@ -87,34 +90,34 @@ def egnn_forward(
 
     # message MLP: cat(h_i, h_j, e) @ W1 as block products
     mp = layer.message_mlp
-    a_i = linear_block(mp[0], peptide_features, 0, H)              # [B, N, T]
+    a_i = linear_block(mp[0], peptide_features, 0, H, tp_group)    # [B, N, T]
     h_j = torch.cat((peptide_features, pocket_features), dim=-2)
-    a_j = linear_block(mp[0], h_j, H, H)                            # [B, N+P, T]
+    a_j = linear_block(mp[0], h_j, H, H, tp_group)                  # [B, N+P, T]
     a_e = nn.functional.pad(edge_pre, (0, 0, 0, P))                 # [N, N+P, T]
     pre = a_i[:, :, None, :] + a_j[:, None, :, :] + a_e[None] + mp[0].bias
-    message = mlp_hidden(mp, pre)                                   # [B, N, N+P, M]
+    message = mlp_hidden(mp, pre, group=tp_group)                   # [B, N, N+P, M]
 
     # attention
     d2 = torch.sum((t_i[:, :, None, :] - t_j[:, None, :, :]) ** 2, dim=-1)
     qdot2 = torch.sum(q_i[:, :, None, :] * q_j[:, None, :, :], dim=-1) ** 2
     ap = layer.attention_mlp
     att_pre = (
-        linear_block(ap[0], message, 0, M)
-        + (-d2)[..., None] * ap[0].weight[:, M]
-        + qdot2[..., None] * ap[0].weight[:, M + 1]
+        linear_block(ap[0], message, 0, M, tp_group)
+        + linear_column(ap[0], -d2, M, tp_group)
+        + linear_column(ap[0], qdot2, M + 1, tp_group)
         + ap[0].bias
     )
-    att_logits = mlp_hidden(ap, att_pre)[..., 0] - (1.0 - msg_mask) * INFINITY
+    att_logits = mlp_hidden(ap, att_pre, group=tp_group)[..., 0] - (1.0 - msg_mask) * INFINITY
     weights = torch.softmax(att_logits, dim=-1)                     # [B, N, N+P]
 
     # feature update: message summed over ALL neighbours
     fp = layer.feature_mlp
     feat_pre = (
-        linear_block(fp[0], peptide_features, 0, H)
-        + linear_block(fp[0], torch.sum(message, dim=-2), H, M)
+        linear_block(fp[0], peptide_features, 0, H, tp_group)
+        + linear_block(fp[0], torch.sum(message, dim=-2), H, M, tp_group)
         + fp[0].bias
     )
-    node_out = mlp_hidden(fp, feat_pre)
+    node_out = mlp_hidden(fp, feat_pre, group=tp_group)
 
     # rotation update (sigmoid output used unnormalized)
     inv_q_j = quat_invert(q_j)[:, None]
@@ -122,11 +125,11 @@ def egnn_forward(
     local_quats = quat_multiply(inv_q_j, quat_multiply(q_i[:, :, None], q_j_b))
     rp = layer.rotation_mlp
     rot_pre = (
-        linear_block(rp[0], message, 0, M)
-        + linear_block(rp[0], local_quats, M, 4)
+        linear_block(rp[0], message, 0, M, tp_group)
+        + linear_block(rp[0], local_quats, M, 4, tp_group)
         + rp[0].bias
     )
-    local_delta = mlp_hidden(rp, rot_pre, final_sigmoid=True)
+    local_delta = mlp_hidden(rp, rot_pre, final_sigmoid=True, group=tp_group)
     global_delta = quat_multiply(q_j_b, quat_multiply(local_delta, inv_q_j))
     gd = torch.sum(global_delta * weights[..., None], dim=-2)
     has_neighbours = torch.sum(msg_mask, dim=-1) > 0.0
@@ -137,16 +140,16 @@ def egnn_forward(
     flat_torsions = peptide_torsions.reshape(B, N, N_TORSIONS * 2)
     tp = layer.torsion_mlp
     tor_pre = (
-        linear_block(tp[0], message, 0, M)
-        + linear_block(tp[0], flat_torsions, M, N_TORSIONS * 2)[:, :, None, :]
+        linear_block(tp[0], message, 0, M, tp_group)
+        + linear_block(tp[0], flat_torsions, M, N_TORSIONS * 2, tp_group)[:, :, None, :]
         + tp[0].bias
     )
-    delta_a = torch.sum(mlp_hidden(tp, tor_pre) * weights[..., None], dim=-2)
+    delta_a = torch.sum(mlp_hidden(tp, tor_pre, group=tp_group) * weights[..., None], dim=-2)
     delta_t = torch.stack((torch.sin(delta_a), torch.cos(delta_a)), dim=-1)
     upd_torsions = multiply_sin_cos(delta_t, peptide_torsions)
 
     # translation update
-    m = layer.translation_mlp(message)                              # [B, N, N+P, 1]
+    m = mlp_apply(layer.translation_mlp, message, tp_group)         # [B, N, N+P, 1]
     r = t_i[:, :, None, :] - t_j[:, None, :, :]
     upd_x = t_i + torch.sum(m * r * weights[..., None], dim=-2)
 

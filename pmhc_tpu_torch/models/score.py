@@ -22,7 +22,16 @@ JAX package's names are accepted):
 - ``"pallas"``: the round-1 fused layer of ``ops/egnn_pallas.py`` (its
   kernel forward, the dense layer's autograd backward), fp32 only;
 - ``"blockwise"``: the online-softmax layer over neighbour blocks of
-  ``models/egnn_blockwise.py`` (plain PyTorch, autograd backward), fp32.
+  ``models/egnn_blockwise.py`` (plain PyTorch, autograd backward), fp32;
+- ``"cp"`` / ``"ring"``: the context-parallel layers of
+  ``parallel/context.py`` (plain PyTorch), their neighbour axis split over
+  the ``context_group`` the caller passes (None: a group of one), fp32.
+
+Under tensor parallelism (``parallel/mesh.py::tp_shard_``) the ``dense``,
+``cp`` and ``ring`` layers compute each MLP Megatron-style on the split
+weights; the kernel backends and ``blockwise`` take the whole weights,
+gathered in one all-gather before the forward (``tp_full_params``), and
+their gradients reach each rank as its part.
 """
 
 from __future__ import annotations
@@ -38,19 +47,17 @@ from pmhc_tpu_torch.models.egnn import EGNNLayer, egnn_forward
 from pmhc_tpu_torch.models.nn import init_uniform_
 
 BACKENDS = {"dense": "dense", "xla": "dense", "fused": "fused", "auto": "fused",
-            "pallas_lane": "fused", "g8": "fused", "pallas": "pallas", "blockwise": "blockwise"}
-# the JAX package's backends that the port has not ported yet
-NOT_PORTED = {name: "the multi-GPU slice (ROADMAP Queue 1: context parallelism, "
-                    "pmhc_tpu/parallel/context.py)" for name in ("cp", "ring")}
+            "pallas_lane": "fused", "g8": "fused", "pallas": "pallas", "blockwise": "blockwise",
+            "cp": "cp", "ring": "ring"}
+# the backends whose layers run Megatron-style on tensor-parallel parts
+MEGATRON = ("dense", "cp", "ring")
 
 
 def resolve_backend(name: str) -> str:
-    """``"dense"``, ``"fused"``, ``"pallas"`` or ``"blockwise"`` for a
-    backend name (the JAX package's names accepted)."""
+    """``"dense"``, ``"fused"``, ``"pallas"``, ``"blockwise"``, ``"cp"`` or
+    ``"ring"`` for a backend name (the JAX package's names accepted)."""
     if name in BACKENDS:
         return BACKENDS[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"backend {name!r} is not ported yet: {NOT_PORTED[name]}")
     raise ValueError(f"unknown backend {name!r}: use one of {sorted(BACKENDS)}")
 
 
@@ -86,8 +93,17 @@ class ScoreNetwork(nn.Module):
         H, E = config.node_feature_size, config.relposenc_depth
         self.gnn1 = EGNNLayer(H, E, config.inner_size, config.message_size)
         self.gnn2 = EGNNLayer(config.inner_size, E, 1, config.message_size)
+        # the mesh whose ``model`` axis splits the MLP weights
+        # (``parallel/mesh.py::tp_shard_``); None: whole weights
+        self.tp_mesh = None
         if generator is not None:
             init_uniform_(self, generator)
+
+    def forward(self, batch: Dict[str, Any], t, config: ScoreNetworkConfig, bf16=False,
+                context_group=None) -> Dict[str, Any]:
+        """``score_network_forward`` on this module's own tensors as they
+        stand (no gather of tensor-parallel parts)."""
+        return _forward(self, batch, t, config, bf16, context_group, None)
 
 
 def relpos_edge_pre(layer: EGNNLayer, max_len: int) -> torch.Tensor:
@@ -107,6 +123,7 @@ def score_network_forward(
     t,
     config: ScoreNetworkConfig,
     bf16=False,
+    context_group=None,
 ) -> Dict[str, Any]:
     """Predict the noise on a batch of noised states, differentiably.
 
@@ -117,10 +134,25 @@ def score_network_forward(
     the loop kernels' mode in the JAX package's convention
     (``pmhc_tpu/models/score.py``'s ``mm_mode``): True bf16, ``"high"``
     the ``--fast-f32`` split products, False fp32 (``"fused"`` backend
-    only: ``"pallas"``, ``"blockwise"`` and ``"dense"`` run fp32 whatever
-    it asks).
+    only: the other backends run fp32 whatever it asks). ``context_group``: the process group the ``cp`` / ``ring``
+    layers split the neighbour axis over (None: a group of one).
     Returns ``{"frames": RigidArray, "torsions": [B, N, 7, 2]}``.
     """
+    mesh = model.tp_mesh
+    if mesh is None:
+        return _forward(model, batch, t, config, bf16, context_group, None)
+    if resolve_backend(config.backend) in MEGATRON:
+        # a model axis of one holds whole weights
+        tp_group = mesh.get_group("model") if mesh.size(1) > 1 else None
+        return _forward(model, batch, t, config, bf16, context_group, tp_group)
+    from pmhc_tpu_torch.parallel.mesh import tp_full_params
+
+    return torch.func.functional_call(model, tp_full_params(model, mesh),
+                                      (batch, t, config, bf16, context_group))
+
+
+def _forward(model: ScoreNetwork, batch: Dict[str, Any], t, config: ScoreNetworkConfig, bf16,
+             context_group, tp_group) -> Dict[str, Any]:
     backend = resolve_backend(config.backend)
     if backend == "fused":
         from pmhc_tpu_torch.ops.egnn_loop import egnn_forward_loop
@@ -134,8 +166,15 @@ def score_network_forward(
 
         def layer(*args):
             return egnn_forward_blockwise(*args, neighbour_block=config.neighbour_block)
+    elif backend in ("cp", "ring"):
+        from pmhc_tpu_torch.parallel.context import egnn_layer_cp
+
+        def layer(*args):
+            return egnn_layer_cp(*args, group=context_group, ring=backend == "ring",
+                                 tp_group=tp_group)
     else:
-        layer = egnn_forward
+        def layer(*args):
+            return egnn_forward(*args, tp_group=tp_group)
     frames: RigidArray = batch["frames"]
     features = batch["features"]
     mask = batch["mask"].float()

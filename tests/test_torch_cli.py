@@ -267,10 +267,12 @@ def test_npz_runs_without_h5py(trained, data_dir, tmp_path, monkeypatch):
             main(args + ["-T", "4"] + CPU)
 
 
-def test_validate_data_and_unported_options(data_dir, tmp_path):
+def test_validate_data_and_unported_options(data_dir, tmp_path, monkeypatch):
     """--validate-data passes a clean HDF5, refuses a packed file (the
-    schema check reads HDF5), and the multi-device flags and the unported
-    backends raise NotImplementedError naming the ROADMAP item."""
+    schema check reads HDF5); a mesh larger than the torchrun group the
+    process was started in raises, naming torchrun; the backends cp and
+    ring run (on the CPU without a mesh flag: one process, a context
+    group of one)."""
     model = str(tmp_path / "v.pth")
     train_cli.main([str(data_dir / "train.hdf5"), "1", model, "-T", "4", "-b", "6",
                     "--validate-data", "--debug"] + CPU)
@@ -280,13 +282,22 @@ def test_validate_data_and_unported_options(data_dir, tmp_path):
         with pytest.raises(SystemExit, match="before packing"):
             main(args + ["--validate-data", "-T", "4"] + CPU)
     train = [str(data_dir / "train.hdf5"), "1", model, "-T", "4"] + CPU
+    from pmhc_tpu_torch.parallel.distributed import free_port
+
+    # a torchrun group of one process
+    for k, v in (("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0"),
+                 ("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(free_port()))):
+        monkeypatch.setenv(k, v)
     for flags in (["--mesh-data", "2"], ["--mesh-model", "2"], ["--mesh-context", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, multi-GPU"):
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
             train_cli.main(train + flags)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, multi-GPU"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         sample_cli.main([model, str(data_dir / "test.hdf5"), "--mesh-context", "2"] + CPU)
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k)
     for backend in ("cp", "ring"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            train_cli.main(train + ["--backend", backend])
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            sample_cli.main([model, str(data_dir / "test.hdf5"), "--backend", backend] + CPU)
+        out = train_cli.main(train + ["--backend", backend])
+        assert out["epochs"][0]["examples"] == 6
+        out = sample_cli.main([model, str(data_dir / "test.hdf5"), "--backend", backend, "-T", "4",
+                               "--output-dir", str(tmp_path / backend)] + CPU)
+        assert out["pdbs"] == 3

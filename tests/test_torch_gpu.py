@@ -569,3 +569,68 @@ def test_native_formatter_taken_by_finalize_on_card(monkeypatch):
     assert pdb_native.CALLS["format_atoms"] == 2 * len(entries)
     monkeypatch.setenv("PMHC_PDB_FORMATTER", "python")
     assert svc.finalize(handle) == native
+
+
+# -- the mesh paths (on a machine with four cards: ``python -m pytest
+# tests/test_torch_gpu.py --noconftest -m gpu -k mesh``) ------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "high"])
+def test_mesh_rank_kernels_on_the_second_card(mode):
+    """Every kernel with its tensors on cuda:1 and cuda:1 the current
+    device, as rank 1 of a mesh has them, against its plain version: the
+    launches go to the tensors' card and the loop backward sizes its grid
+    from it."""
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    dev = torch.device("cuda", 1)
+    with torch.cuda.device(dev):
+        model = random_model(seed=0).to(dev)
+        bf16 = ef.FLAGS[mode]
+        args = layer_case(model, "gnn1", seed=1, device=dev)
+        got, want = ef.egnn_fused(*args, bf16=bf16), ef.egnn_fused_plain(*args, bf16=bf16)
+        torch.cuda.synchronize(dev)
+        for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
+            assert g.device == dev
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=TOL[mode][name],
+                                       err_msg=f"fused {name}")
+        args, cts = loop_case(model, "gnn2", seed=2, device=dev)
+        got = loop_run(args, cts, bf16, kernel=True)
+        want = loop_run(args, cts, bf16, kernel=False)
+        torch.cuda.synchronize(dev)
+        bad = {n: r for n, r in loop_errors(got, want, LOOP_TOL[mode]).items() if not r[3]}
+        assert not bad, f"loop: {bad}"
+        if mode == "fp32":
+            ctx, step = pallas_case(model, "gnn1", seed=3, device=dev)
+            got, want = ctx(*step), ep.egnn_pallas_plain(*ctx.inputs(*step))
+            torch.cuda.synchronize(dev)
+            for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=PALLAS_TOL[name],
+                                           err_msg=f"pallas {name}")
+
+
+def _mesh_dp_cp(world: int) -> None:
+    """One rank of ``test_mesh_dp_and_cp_match_one_card``."""
+    from chip_smoke import mesh_layouts, mesh_vs_single
+    from pmhc_tpu_torch.parallel import make_mesh
+
+    layouts = mesh_layouts(world)
+    mesh_vs_single("dp", make_mesh(*layouts["dp"]), "card test")
+    for backend in ("cp", "ring"):
+        mesh_vs_single(backend, make_mesh(*layouts[backend]), "card test", backend=backend,
+                       context_parallel=True)
+
+
+@pytest.mark.gpu
+def test_mesh_dp_and_cp_match_one_card():
+    """DP on every card, and CP and ring training on their ``chip_smoke``
+    layouts, 5 graphed steps each at batch 64 a data rank, against a
+    one-card ``Trainer`` from the same seed on the same batches
+    (``GRAPH_TRAIN_TOL``), one process a card over NCCL."""
+    from pmhc_tpu_torch.parallel.distributed import spawn
+
+    _card()
+    world = torch.cuda.device_count()
+    spawn(_mesh_dp_cp, world, args=(world,), device="cuda", timeout=600)

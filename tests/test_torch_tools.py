@@ -228,9 +228,9 @@ def test_bench_train_rows_and_failure():
     for r in rows:
         assert {"steps_per_sec", "examples_per_sec", "windows_steps_per_sec", "card"} <= set(r)
         assert len(r["windows_steps_per_sec"]) == 2 and np.isfinite(r["last_loss"])
-    # a config that fails is reported and the run exits non-zero
+    # a config that fails (an unknown backend) is reported and the run exits non-zero
     with pytest.raises(SystemExit) as exc:
-        bench_train.main(args + ["--backends", "fused,cp"])
+        bench_train.main(args + ["--backends", "fused,mosaic"])
     assert exc.value.code != 0
 
 
