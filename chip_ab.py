@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time two builds of a kernel on one card, in turns, and the current source
-with one phase removed at a time: kernel #3 (``csrc/egnn_pallas.cu``) or
+with one phase removed at a time: kernel #3 (``csrc/egnn_pallas.cu``),
 the training loop's forward and backward (``csrc/egnn_loop.cu``, TPU
-kernels #4-#7).
+kernels #4-#7) or the fused sampler layer (``csrc/egnn_fused.cu``, TPU
+kernels #1 and #2).
 
-    python3 chip_ab.py OLD.cu [--kernel pallas|loop] [--ablate] [--phases]
+    python3 chip_ab.py OLD.cu [--kernel pallas|loop|fused] [--ablate] [--phases]
 
 ``OLD.cu`` is an earlier version of the source, e.g. the parent commit's,
 with the parent's headers that differ from the current ones beside it
@@ -23,17 +24,25 @@ each layer shape timed. The loop: forward and backward of both builds
 checked against the plain version and its autograd
 (``chip_smoke.loop_run(..., kernel=False)``) at ``chip_smoke.LOOP_TOL`` on
 ``chip_smoke.loop_case``'s batch-64 inputs, both layer shapes and every
-mode (fp32, bf16, high), then the forward and the backward timed per layer and mode. Times
+mode (fp32, bf16, high), then the forward and the backward timed per layer and mode. The
+fused layer: both builds checked against ``egnn_fused_plain`` at
+``chip_smoke.TOL`` on ``chip_smoke.layer_case``'s batch-64 inputs (B=64,
+N=16, NP=96), both layer shapes and every mode, then timed per layer and
+mode. Times
 are ``chip_smoke.time_ms`` (``ITERS`` launches captured in a CUDA graph,
 its replay timed between CUDA events: the card's time, not the host's
 launch work) in the order old, new, new, old. ``--ablate`` also builds copies of the current
 source with one phase removed (textual edits, ``ABLATIONS``; their
 outputs are wrong, they are timed only) and times each beside the
 current source; the loop's ``fwd_*`` ablations on the forward, the others
-on the backward. ``--phases`` (loop) also builds
+on the backward. An ablation edits the kernel's ``.cu`` or, where an
+edit names a header, a copy of that header that the ablated build finds
+first. ``--phases`` (loop) also builds
 the current source with ``-DPMHC_LOOP_PHASES`` and prints the backward's
 clock64 cycles per phase (barrier to barrier) and per warp (to its arrival
-at the phase's closing barrier), summed over the blocks. One JSON line per
+at the phase's closing barrier), summed over the blocks; (fused) with
+``-DPMHC_FUSED_PHASES``, the high kernel's cycles per warp in each phase
+of its role (its warpgroups overlap, so ablations alone cannot split it). One JSON line per
 measurement, the card's name and power limit first.
 """
 
@@ -51,9 +60,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, ".chip_scratch", "build")
 ITERS = 200
 
+# the high kernel's head product (issue_head's twelve m64n64k16) and lin2
+# (epilogue_head's twelve m64n16k16; without them the epilogue is dead)
+_HIGH_HEAD_PRODUCT = ("    wgmma_64x64_ss(acc, da_h + 2 * ks, db_h + 2 * ks, ks > 0);\n"
+                      "    wgmma_64x64_ss(acc, da_h + 2 * ks, db_l + 2 * ks, 1);\n"
+                      "    wgmma_64x64_ss(acc, da_l + 2 * ks, db_h + 2 * ks, 1);\n", "")
+_HIGH_LIN2 = ("    wgmma_64x16_rs(lacc, lh[t], d2h + 2 * t, HEAD > 0 || t > 0);\n"
+              "    wgmma_64x16_rs(lacc, lh[t], d2l + 2 * t, 1);\n"
+              "    wgmma_64x16_rs(lacc, ll[t], d2h + 2 * t, 1);\n", "")
+
 # kernel -> name -> [(text in the source, its replacement), ...]: each
 # removes one phase; every text must occur in the source (all its
-# occurrences are replaced)
+# occurrences are replaced). An edit (header, text, replacement) edits the
+# header ``csrc/<header>`` instead of the kernel's .cu.
 ABLATIONS = {"pallas": {
     "no_heads": [("      if (jb < NP) {\n        if (hd == 0) head_task<0>",
                   "      if (jb < 0) {\n        if (hd == 0) head_task<0>")],
@@ -108,18 +127,60 @@ ABLATIONS = {"pallas": {
     "fwd_no_build": [("    build_tile<MODE>(sm, sm + S::NR + L_AI, sm + S::NR + L_QI, sm + S::NR + L_TI, nj, tid, warp, lane);\n",
                       "")],
     "fwd_no_weight_staging": [("  stage_weights<MODE>(sm, loop_w(in.w), tid);\n", "")],
+}, "fused": {
+    # TPU kernels #1 / #2: the row group's node MLPs (a_i and the torsion
+    # node term), the hid tile's build (and split) with the geometry
+    # records, the tile product as a whole and its two halves (the head
+    # product; the epilogue with the lin2, whose removal leaves the
+    # epilogue dead), the fold, the merge, the next tile's prefetch, the
+    # feature MLP and the weight staging; each names the fp32 / bf16 tile
+    # loop's form (egnn_tile.cuh's phases) and the high kernel's
+    "no_node_mlps": [("    if (tl == 0 && r == 0) {\n      const float* nr",
+                      "    if (tl == 0 && r < 0) {\n      const float* nr"),
+                     ("    node_terms<false>(w, off, sm + S::NS, sm + S::AI, sm + S::TN, rg, H, tid);\n", "")],
+    "no_build": [("    build_tile<MODE>(sm, sm + S::AI + r * T, ns + N_Q, ns + N_T, nj, tid, warp, lane);\n", ""),
+                 ("      for (int j = pw; j < TILE; j += 4) {", "      for (int j = pw; j < 0; j += 4) {"),
+                 ("      if (pt < TILE) {\n        float* gr", "      if (pt < 0) {\n        float* gr")],
+    "no_product": [("    tile_product<MODE>(sm, nj, warp, lane);\n", ""), _HIGH_HEAD_PRODUCT, _HIGH_LIN2],
+    "no_head_product": [
+        ("egnn_tile.cuh", "for (int k0 = 0; k0 < T; k0 += 4) {", "for (int k0 = 0; k0 < 0; k0 += 4) {"),
+        ("egnn_tile.cuh", "        mma_bf16_16816(cc[0][nn], a[0][ks], b);\n        mma_bf16_16816(cc[1][nn], a[1][ks], b);\n",
+         ""),
+        _HIGH_HEAD_PRODUCT],
+    "no_epilogue_lin2": [
+        ("egnn_tile.cuh", "reduce_scatter8<R>(part, sum, lane);", "for (int o = 0; o < R; ++o) sum[o] = acc[0][o];"),
+        ("egnn_tile.cuh", "    mma_bf16_16816(lacc[0], la[0], b2);\n    mma_bf16_16816(lacc[1], la[1], b2);\n", ""),
+        _HIGH_LIN2],
+    "no_fold": [("      fold_tile<MODE>(sm, nj, warp, lane);\n", ""),
+                ("      fold_rows(sm + S::GEOS + buf * TILE * GEO_LD,", "      if (false) fold_rows(sm + S::GEOS + buf * TILE * GEO_LD,")],
+    "no_merge": [("      merge_tile<MODE>(sm, lane);\n", ""),
+                 ("  merge_partials(sm + S::FR, fp, tl == 0, lane);\n", "")],
+    "no_prefetch": [("      prefetch(it + 1, nrow / N != b || ntl != tl);\n", ""),
+                    ("      if (it + 1 < items) {\n        const int nrow", "      if (it + 1 < 0) {\n        const int nrow")],
+    "no_feature_mlp": [("    if (tl + 1 < tiles || r + 1 < rg) continue;", "    continue;"),
+                       ("    feature_mlp<false>(w, off,", "    if (false) feature_mlp<false>(w, off,")],
+    "no_weight_staging": [("  stage_weights<MODE>(sm, LoopW{", "  if (false) stage_weights<MODE>(sm, LoopW{"),
+                          ("  stage_high(sm, tb, LoopW{", "  if (false) stage_high(sm, tb, LoopW{")],
 }}
 
+SOURCES = {"pallas": "egnn_pallas", "loop": "egnn_loop", "fused": "egnn_fused"}
 
-def build(name: str, source: str, flags=(), includes=()) -> str:
-    """nvcc ``source`` (text) into ``.chip_scratch/build/lib<name>.so``;
-    headers from ``includes``, then ``csrc/``."""
+
+def build(name: str, source, flags=(), includes=()) -> str:
+    """nvcc ``source`` into ``.chip_scratch/build/lib<name>.so``: the
+    ``.cu``'s text, or {file: text} of the ``.cu`` (key ``None``) and the
+    edited headers, written beside it and found first; then headers from
+    ``includes``, then ``csrc/``."""
     from pmhc_tpu_torch.ops import _build
 
-    os.makedirs(OUT, exist_ok=True)
+    files = source if isinstance(source, dict) else {None: source}
+    hdrs = os.path.join(OUT, f"{name}_include")
+    os.makedirs(hdrs, exist_ok=True)
     src = os.path.join(OUT, f"{name}.cu")
-    with open(src, "w") as f:
-        f.write(source)
+    for fname, text in files.items():
+        with open(src if fname is None else os.path.join(hdrs, fname), "w") as f:
+            f.write(text)
+    includes = (hdrs, *includes)
     out = os.path.join(OUT, f"lib{name}.so")
     inc = [a for d in (*includes, _build.CSRC) for a in ("-I", d)]
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v",
@@ -127,7 +188,7 @@ def build(name: str, source: str, flags=(), includes=()) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc {name} failed:\n{proc.stdout}{proc.stderr}")
     regs = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "wgmma" in ln or "arning" in ln]
     print(json.dumps({"build": name, "ptxas": regs}), flush=True)
     return out
 
@@ -140,6 +201,25 @@ def ablated(src: str, edits) -> str:
             raise AssertionError(f"ablation text not in the source: {find!r}")
         src = src.replace(find, repl)
     return src
+
+
+def ablated_files(kernel: str, edits, csrc: str | None = None) -> dict:
+    """{None: the kernel's ablated .cu, header: its ablated text} for one
+    ablation of ``ABLATIONS[kernel]``: each edit (text, replacement) on the
+    .cu, (header, text, replacement) on ``csrc/<header>``."""
+    if csrc is None:
+        from pmhc_tpu_torch.ops import _build
+
+        csrc = _build.CSRC
+    by_file: dict = {}
+    for e in edits:
+        fname, find, repl = e if len(e) == 3 else (None, *e)
+        by_file.setdefault(fname, []).append((find, repl))
+    out = {}
+    for fname in (None, *sorted(f for f in by_file if f is not None)):
+        with open(os.path.join(csrc, fname or SOURCES[kernel] + ".cu")) as f:
+            out[fname] = ablated(f.read(), by_file.get(fname, []))
+    return out
 
 
 def pallas_ab(libs, card, dev, run_ms) -> None:
@@ -212,6 +292,77 @@ def loop_ab(libs, card, dev, run_ms) -> None:
                             {"layer": layer, "mode": mode}, card)
 
 
+def fused_ab(libs, card, dev, run_ms) -> None:
+    """The fused layer: both builds checked in every mode (fp32, bf16,
+    high) against ``egnn_fused_plain`` at ``chip_smoke.TOL``, then timed per
+    layer shape and mode (B=64, N=16, NP=96), the ablations beside new."""
+    from chip_smoke import MODES, TOL, layer_case, random_model
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+
+    import torch
+
+    model = random_model(seed=0).to(dev).eval()
+    # the current stream at each launch: a capture launches on its own
+    cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    for k, layer in enumerate(("gnn1", "gnn2")):
+        args = layer_case(model, layer, seed=30 + k, device=dev)
+        for mode in MODES:
+            bf16 = ef.FLAGS[mode]
+            want = ef.egnn_fused_plain(*args, bf16=bf16)
+            for name in ("old", "new"):
+                got = ef.launch(libs[name], *args, bf16=bf16, stream=cur())
+                torch.cuda.synchronize()
+                errs = {n: float((g - w).abs().max()) for n, g, w in zip(("q", "t", "tors", "feat"), got, want)}
+                ok = all(errs[n] <= TOL[mode][n] for n in errs)
+                print(json.dumps({"check": name, "layer": layer, "mode": mode, "max_abs_err": errs,
+                                  "ok": ok}), flush=True)
+                if not ok:
+                    raise AssertionError(f"{name} fused kernel disagrees with the plain version on "
+                                         f"{layer} {mode}")
+            run_ms("egnn_fused", {"layer": layer, "mode": mode},
+                   lambda n: lambda: ef.launch(libs[n], *args, bf16=bf16, stream=cur()))
+            if "phases" in libs and mode == "high":
+                fused_phases(libs["phases"], lambda: ef.launch(libs["phases"], *args, bf16=bf16,
+                                                               stream=cur()),
+                             {"layer": layer, "mode": mode}, card)
+
+
+FUSED_PHASES = ("c_wait_full", "c_issue_operands", "c_wait_head_products", "c_epilogues_lin2", "c_store_arrive",
+                "p_wait_raw", "p_build", "p_prefetch_hid_sums", "p_wait_done", "p_fold", "p_merge",
+                "group_setup_features_staging")
+
+
+def fused_phases(lib, launch, labels: dict, card: str, launches: int = 20) -> None:
+    """The high kernel's cycle counters (built with -DPMHC_FUSED_PHASES)
+    over ``launches`` launches: per warp (0-7 consumers, 8-11 the producer)
+    the cycles in each phase of its role, per launch, summed over the
+    blocks; and per phase the mean over the warps of that role."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    lib.egnn_fused_phases.argtypes = [ctypes.c_void_p]
+    lib.egnn_fused_phases.restype = ctypes.c_int
+    buf = np.zeros((12, len(FUSED_PHASES)), dtype=np.uint64)  # [warp][phase]
+    launch()
+    torch.cuda.synchronize()
+    assert lib.egnn_fused_phases(buf.ctypes.data) == 0
+    for _ in range(launches):
+        launch()
+    torch.cuda.synchronize()
+    assert lib.egnn_fused_phases(buf.ctypes.data) == 0
+    per = buf.astype(np.float64) / launches
+    role = {ph: (slice(0, 8) if ph.startswith("c_") else slice(8, 12) if ph.startswith("p_") else slice(0, 12))
+            for ph in FUSED_PHASES}
+    print(json.dumps({"metric": "egnn_fused_high_phase_cycles", **labels, "launches": launches,
+                      "mean_warp_per_launch_all_blocks": {ph: float(per[role[ph], k].mean())
+                                                          for k, ph in enumerate(FUSED_PHASES)},
+                      "warp_per_launch_all_blocks": {ph: [float(x) for x in per[:, k]]
+                                                     for k, ph in enumerate(FUSED_PHASES)},
+                      "card": card}), flush=True)
+
+
 PHASES = ("row_setup", "S0_build", "S1_head_lin2", "S2_B", "S3_lin2_bwd", "P_products_F", "row_end")
 
 
@@ -247,11 +398,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("old", help="an earlier version of the kernel's source")
     ap.add_argument("--kernel", choices=sorted(ABLATIONS), default="pallas",
-                    help="pallas: egnn_pallas.cu (kernel #3); loop: egnn_loop.cu (#4-#7)")
+                    help="pallas: egnn_pallas.cu (kernel #3); loop: egnn_loop.cu (#4-#7); "
+                         "fused: egnn_fused.cu (#1, #2)")
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--phases", action="store_true",
                     help="loop: also build the source with -DPMHC_LOOP_PHASES and report the "
-                         "backward's cycles per phase and warp")
+                         "backward's cycles per phase and warp; fused: -DPMHC_FUSED_PHASES, the "
+                         "high kernel's cycles per phase and warp")
     opts = ap.parse_args()
     sys.path.insert(0, REPO)
     import ctypes
@@ -260,6 +413,7 @@ def main() -> int:
 
     from chip_smoke import card_line, time_ms
     from pmhc_tpu_torch.ops import _build
+    from pmhc_tpu_torch.ops import egnn_fused as ef
     from pmhc_tpu_torch.ops import egnn_loop as el
     from pmhc_tpu_torch.ops import egnn_pallas as ep
 
@@ -268,19 +422,20 @@ def main() -> int:
         return 2
     card = card_line()
     print(card, flush=True)
-    source, bind, ab = {"pallas": ("egnn_pallas", ep.bind, pallas_ab),
-                        "loop": ("egnn_loop", el.bind, loop_ab)}[opts.kernel]
+    source = SOURCES[opts.kernel]
+    bind, ab = {"pallas": (ep.bind, pallas_ab), "loop": (el.bind, loop_ab),
+                "fused": (ef.bind, fused_ab)}[opts.kernel]
     with open(os.path.join(_build.CSRC, source + ".cu")) as f:
         new_src = f.read()
     with open(opts.old) as f:
         sources = {"old": f.read(), "new": new_src}
     if opts.ablate:
         for name, edits in ABLATIONS[opts.kernel].items():
-            sources[name] = ablated(new_src, edits)
+            sources[name] = ablated_files(opts.kernel, edits)
     jobs = {k: (v, (), ()) for k, v in sources.items()}
     jobs["old"] = (sources["old"], (), (os.path.dirname(os.path.abspath(opts.old)),))
-    if opts.phases and opts.kernel == "loop":
-        jobs["phases"] = (new_src, ("-DPMHC_LOOP_PHASES",), ())
+    if opts.phases and opts.kernel in ("loop", "fused"):
+        jobs["phases"] = (new_src, ("-DPMHC_LOOP_PHASES" if opts.kernel == "loop" else "-DPMHC_FUSED_PHASES",), ())
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(jobs)) as pool:
         paths = dict(zip(jobs, pool.map(lambda kv: build(f"{source}_{kv[0]}", *kv[1]), jobs.items())))

@@ -10,11 +10,14 @@ Phases (any failure exits non-zero):
    nvcc, one process per source, all started together (``-Xptxas -v``:
    registers, shared memory, spills). The fused kernel's three
    instantiations (fp32, bf16, high), the loop kernels' six and kernel #3
-   must not spill, and ``cuobjdump -sass`` must find HMMA (tensor-core)
-   instructions in the bf16 instantiations of the fused kernel and of the
-   loop forward and backward, none in their fp32 ones, and in their high
-   ones (``--fast-f32``: each product three mma.sync) 2.5-3.5 times the
-   bf16 count;
+   must not spill, and ``cuobjdump -sass`` must find tensor-core
+   instructions (HMMA: mma.sync, 4,096 FLOP an HMMA.16816; HGMMA: wgmma,
+   2,048 N an HGMMA.64xNx16) in the bf16 instantiations of the fused
+   kernel and of the loop forward and backward, none in their fp32 ones,
+   and in their high ones (``--fast-f32``: each product three passes)
+   about three times the bf16 tensor-core FLOP: 2.5-3.5 times where high
+   runs mma.sync (the loop kernels), at least 2.5 times with every HGMMA
+   shape a multiple of three where it runs wgmma (the fused kernel);
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (batch 64, both layer shapes, fp32, bf16 and high
    modes), with the tolerances stated below: the fused sampler layer, the
@@ -30,7 +33,8 @@ Phases (any failure exits non-zero):
    second 48-neighbour tile; for #3 a partial 32-neighbour block), and the
    fused layer and the loop forward with 40 neighbours more, NP = 136 (two
    96-neighbour tiles per query row, merged online; the loop backward
-   takes NP <= 96);
+   takes NP <= 96); the fused layer also on inputs 4 bytes off 16-byte
+   alignment (``unaligned_case``);
 4. the main paths, which run from CUDA graphs (``utils/graphs.py``: a
    step captured once per shape and mode, then replayed; each replay adds
    the captured launches to the counters, so the counts below are
@@ -342,6 +346,20 @@ def ragged_case(args, n_neighbours: int = 90):
     w, h, q_i, t_i, tors, a_j, q_j, t_j, edge, mask = args
     cut = lambda x, axis: x.narrow(axis, 0, n_neighbours).contiguous()
     return (w, h, q_i, t_i, tors, cut(a_j, 1), cut(q_j, 1), cut(t_j, 1), cut(edge, 1), cut(mask, 2))
+
+
+def unaligned_case(args):
+    """The fused layer's inputs with every tensor but the packed weights a
+    view that starts 4 bytes into its storage: not 16-byte aligned, so the
+    kernel copies a_j, q_j and edge in 4-byte pieces."""
+    import torch
+
+    def off(x):
+        v = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+        v.copy_(x)
+        return v
+
+    return (args[0],) + tuple(off(x) for x in args[1:])
 
 
 def bound_of(split_flops: float, other_flops: float, nbytes: float, mode: str):
@@ -883,13 +901,19 @@ def check_pallas_build(info: dict) -> dict:
     return res["fp32"]
 
 
+# tensor-core FLOP of one SASS instruction: mma.sync m16n8k16 (HMMA.16816)
+# and m16n8k8 (HMMA.1688); a wgmma m64nNk16 (HGMMA.64xNx16) is 2,048 N
+HMMA_FLOP = {"16816": 2 * 16 * 8 * 16, "1688": 2 * 16 * 8 * 8}
+
+
 def build_entries(info: dict, kind_of) -> dict:
-    """``ptxas_entries`` of a built library, each with ``hmma``: its count
-    of HMMA (tensor-core) instructions in the library's SASS
-    (``cuobjdump -sass``)."""
+    """``ptxas_entries`` of a built library, each with its tensor-core
+    instructions in the library's SASS (``cuobjdump -sass``): ``hmma`` (the
+    count of HMMA, mma.sync), ``hgmma`` ({N: count} of HGMMA.64xNx16,
+    wgmma) and ``tc_flop`` (their FLOP, ``HMMA_FLOP`` and 2,048 N)."""
     res = ptxas_entries(info["log"], kind_of)
     for r in res.values():
-        r["hmma"] = 0
+        r.update(hmma=0, hgmma={}, tc_flop=0)
     sass = subprocess.run([cuobjdump_path(), "-sass", info["path"]], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     cur = None
@@ -897,8 +921,20 @@ def build_entries(info: dict, kind_of) -> dict:
         m = re.search(r"Function : (\S+)", ln)
         if m:
             cur = kind_of(m.group(1))
-        elif cur and re.search(r"\bHMMA\b", ln):
+            continue
+        if not cur:
+            continue
+        m = re.search(r"\bHMMA\.(\d+)", ln)
+        if m:
+            if m.group(1) not in HMMA_FLOP:
+                raise AssertionError(f"unknown HMMA shape in {cur}: {ln.strip()}")
             res[cur]["hmma"] += 1
+            res[cur]["tc_flop"] += HMMA_FLOP[m.group(1)]
+        m = re.search(r"\bHGMMA\.64x(\d+)x16\b", ln)
+        if m:
+            n = int(m.group(1))
+            res[cur]["hgmma"][n] = res[cur]["hgmma"].get(n, 0) + 1
+            res[cur]["tc_flop"] += 2 * 64 * n * 16
     return res
 
 
@@ -908,14 +944,25 @@ MODE_ARGS = {"fp32": "0", "bf16": "1", "high": "2"}
 
 
 def check_modes(res: dict, who: str, prefix: str = "") -> None:
-    """The HMMA rule of one kernel's three instantiations: fp32 runs none
-    (no TF32 either), bf16 some, and high, whose every tensor-core product
-    is three mma.sync, between 2.5 and 3.5 times the bf16 count (neither
-    fp32 nor bf16 under another name). None may spill."""
-    fp32, bf16, high = (res[prefix + m]["hmma"] for m in ("fp32", "bf16", "high"))
-    if fp32 or not bf16 or not 2.5 * bf16 <= high <= 3.5 * bf16:
-        raise AssertionError(f"{who}: HMMA fp32 {fp32} (must be 0), bf16 {bf16} (> 0), high {high} "
-                             f"(about 3x bf16): {res}")
+    """The tensor-core rule of one kernel's three instantiations, in the
+    tensor-core FLOP of their SASS (``build_entries``): fp32 has none (no
+    TF32 either), bf16 some, and high, whose every tensor-core product is
+    three passes over split operands, about three times bf16's. A high on
+    mma.sync (bf16's design) holds 2.5-3.5 times bf16's FLOP. A high on
+    wgmma (HGMMA) issues each product as three passes, so each HGMMA shape
+    comes a multiple of three times, and holds at least 2.5 times bf16's
+    FLOP: its static count measures code, not work, and its loops unroll
+    otherwise than bf16's mma.sync tiles (the fused high kernel unrolls a
+    64-row slab's four heads; the bf16 one a 32-row head task's k-step), so
+    no upper bound carries over. Neither fp32 nor bf16 under another name.
+    None may spill."""
+    fp32, bf16, high = (res[prefix + m]["tc_flop"] for m in ("fp32", "bf16", "high"))
+    wgmma = res[prefix + "high"].get("hgmma") or {}
+    three_passes = all(c % 3 == 0 for c in wgmma.values())
+    ok_high = (three_passes and high >= 2.5 * bf16) if wgmma else 2.5 * bf16 <= high <= 3.5 * bf16
+    if fp32 or not bf16 or not ok_high:
+        raise AssertionError(f"{who}: tensor-core FLOP fp32 {fp32} (must be 0), bf16 {bf16} (> 0), high {high} "
+                             f"(about 3x bf16; HGMMA by N {wgmma}, each a multiple of 3): {res}")
     if any(res[prefix + m]["spill_bytes"] for m in MODE_ARGS):
         raise AssertionError(f"{who} spills registers: {res}")
 
@@ -944,10 +991,10 @@ def check_loop_build(info: dict) -> dict:
 
 def check_fused_build(info: dict) -> dict:
     """Phase 2, the fused kernel's three instantiations (``<0>`` fp32,
-    ``<1>`` bf16, ``<2>`` high): registers and spills from ``ptxas -v``, and
-    the HMMA (tensor-core) instructions in the built library's SASS, held
-    to ``check_modes``. Returns {mode: {"registers", "spill_bytes",
-    "smem_bytes", "hmma"}}."""
+    ``<1>`` bf16, ``<2>`` high: on wgmma, HGMMA): registers and spills from
+    ``ptxas -v``, and the tensor-core instructions in the built library's
+    SASS, held to ``check_modes``. Returns {mode: {"registers",
+    "spill_bytes", "smem_bytes", "hmma", "hgmma", "tc_flop"}}."""
     def mode_of(name):
         for mode, arg in MODE_ARGS.items():
             if f"egnn_fused_kernelILi{arg}E" in name:
@@ -2410,9 +2457,10 @@ def main() -> int:
              for i, layer in enumerate(("gnn1", "gnn2"))}
     # and a ragged last row tile: layer 2's neighbours cut to NP = 90; two
     # tiles a row: layer 1's grown to NP = 136 (loop_two_tiles: the fused
-    # layer's neighbour inputs sit where the loop's do)
+    # layer's neighbour inputs sit where the loop's do); layer 1's inputs 4
+    # bytes off 16-byte alignment
     checks = {**cases, "gnn2 NP=90": ragged_case(cases["gnn2"]),
-              "gnn1 NP=136": loop_two_tiles(cases["gnn1"])}
+              "gnn1 NP=136": loop_two_tiles(cases["gnn1"]), "gnn1 unaligned": unaligned_case(cases["gnn1"])}
     max_err = {}
     for mode in MODES:
         bf16 = ef.FLAGS[mode]

@@ -36,7 +36,7 @@
 // high: three tensor-core passes (>= ~10 us) and the splits of hid and act
 // on the CUDA cores.
 //
-// Design: one template, three tile products (fp32, bf16, high). What it does about the six
+// Design of fp32 and bf16: one template, two tile products. What it does about the six
 // limits of this kernel's first design (a 256-thread block per query row,
 // a thread per head unit with its whm row in registers):
 // 1. Serial stages: the geometry records and the fold run on three warps
@@ -79,6 +79,52 @@
 // shared with the training loop's forward (egnn_loop.cu); this file adds
 // the row groups' node MLPs and the finalize.
 //
+// Design of high (egnn_fused_kernel<MODE_HIGH>, this file's own; the loop
+// forward keeps egnn_tile.cuh's mma.sync high path). Measured before it
+// (chip_ab.py --kernel fused --ablate on the tile-loop design, H100): the
+// tile product was half the time, its epilogue and lin2 most of that, and
+// the serial chain build -> product -> fold -> merge left the tensor cores
+// idle through the rest. So the products move to wgmma and the chain
+// becomes a pipeline of warpgroups over (row, tile) items:
+// - warpgroups 0 and 1 consume: each takes a 64-row slab of the 96-row
+//   hid tile (rows 0-63 and 32-95; warps 4 and 5 hold rows 32-63 twice
+//   and feed zeros to the lin2 and store nothing). Per head: twelve
+//   m64n64k16 (4 k-steps x hi*hi, hi*lo, lo*hi) with A = the hid tile and
+//   B = whm, both split into bf16 hi and lo tiles in shared memory in
+//   wgmma's 128B-swizzle layout, into a register accumulator; the
+//   epilogue on it (+ extra term, relu, split into hi and lo) leaves the
+//   lin2's A fragments in registers (two n8 chunks of a k16 step are one
+//   A fragment), and twelve m64n16k16 add the head's lin2 rows (padded
+//   to n = 16, zero outside the head) to a 64 x 16 accumulator. Two head
+//   accumulators: head h + 1's product runs while head h's epilogue does.
+//   A 96-row tile is not a multiple of m64: one row a slab pair wastes a
+//   third of the tensor work (rows 32-63 twice), where two rows a product
+//   (192 = 3 x m64) would have to pair rows across batch elements and
+//   tiles; the tensor cores are not what bounds this kernel.
+// - warpgroup 2 produces: it builds item k + 1's hid tile (split into hi
+//   and lo, written straight into the swizzled layout) and geometry
+//   records into the other of two buffers while item k's products run,
+//   prefetches item k + 2's raw inputs (cp.async), folds item k - 1 once
+//   its lin2 outputs (double-buffered) are in, and merges item k - 2 on a
+//   warp of its own (warp 8) while warps 9-11 wait for and fold the next.
+// - named barriers (bar.sync / bar.arrive with an id and a count) hand the
+//   buffers over between the roles: FULL (the producer arrives after a
+//   fence.proxy.async, the consumers wait) and DONE (the consumers arrive
+//   after their last wgmma wait, the folding warps wait); the producer
+//   has one of its own. __syncthreads only around a row group's node MLPs
+//   and feature MLP, which all warps run.
+// Budget: shared memory 231,280 bytes of 232,448: whm hi + lo 64 KB, lin2
+// B hi + lo 16 KB, hid hi + lo 24 KB a buffer (two), raw a_j / edge / q_j
+// / t_j / mask 51 KB, geometry records 2 x 7.9 KB, lin2 outputs 2 x 6.4
+// KB, coefficients 5 KB, the row group's node inputs and terms 10.8 KB,
+// HID and fold partials 1.5 KB, 1 KB to align the tiles to 1024 bytes. Registers: 152 of the 168 that 12
+// warps leave (two head accumulators 64, the lin2's A fragments 32, its
+// accumulator 8), no spills. Warps: 8 consume (6 live), 3 build and fold,
+// 1 merges and writes the row outputs. Measured after it (same tool):
+// 0.077 -> 0.060 ms a launch; the consumers' epilogues and the producer's
+// build each take about as long as an item, the tensor cores idle most of
+// it (chip_ab.py --kernel fused --phases).
+//
 // Modes (template MODE, egnn_common.cuh): fp32 is IEEE fp32 FMA
 // throughout (no TF32). bf16 rounds every MLP matmul operand to bf16
 // (round to nearest even): whm and hid, wrq and the local quaternion, w2
@@ -86,8 +132,8 @@
 // the attention's rank-1 terms, biases, softmax and fold stay fp32.
 // high (--fast-f32; TPU kernel #1 with mm_maker("high")) splits the
 // operands of the two tensor-core products, whm and hid, w2 and act, into
-// bf16 hi + lo and sums hi*hi + hi*lo + lo*hi in fp32: three mma.sync per
-// bf16 one. Unlike the TPU kernel, which splits every matmul, it runs the
+// bf16 hi + lo and sums hi*hi + hi*lo + lo*hi in fp32: three wgmma per
+// product. Unlike the TPU kernel, which splits every matmul, it runs the
 // rotation term and the node MLPs (wmi, wtt, wfh, wfm2, wf2) in fp32 FMA,
 // as the fp32 mode does: on the CUDA cores a split would cost more and be
 // less exact. The plain version does the same.
@@ -97,6 +143,7 @@
 // cudaGetLastError().
 
 #include "egnn_tile.cuh"
+#include "wgmma.cuh"
 
 #include <stddef.h>
 #include <stdint.h>
@@ -158,6 +205,149 @@ struct Smem : TileSmem<MODE> {
   static constexpr size_t BYTES = TOTAL * sizeof(float);
   static_assert(BYTES <= 232448, "fused layer shared memory exceeds the H100's 227 KB");
 };
+
+// The row group's node terms, by all threads: a_i = wmi @ h_i + bm1 (4
+// lanes per unit, threads 0-255) and the torsion head's node term wtt @
+// tors14 + bt1 (2 lanes per unit, threads 256-383) of its rg rows, from
+// their node inputs nr [RG][NODE], into ai and tn [RG][T]; each weight
+// loaded once into registers.
+template <bool RND>
+__device__ __forceinline__ void node_terms(const float* __restrict__ w, const Offsets& off, const float* nr,
+                                           float* ai, float* tn, int rg, int H, int tid) {
+  if (tid < 4 * T) {  // a_i = wmi @ h_i + bm1: 4 lanes per unit
+    const int o = tid >> 2, q = tid & 3;
+    float wr[T / 4];
+#pragma unroll
+    for (int kk = 0; kk < T / 4; ++kk)
+      wr[kk] = q + 4 * kk < H ? rnd<RND>(__ldg(w + off.wmi + o * H + q + 4 * kk)) : 0.f;
+    const float bias = __ldg(w + off.bm1 + o);
+    float acc[RG] = {};  // the group's rows side by side (rows past rg are not stored)
+#pragma unroll
+    for (int kk = 0; kk < T / 4; ++kk)
+      if (q + 4 * kk < H)
+#pragma unroll
+        for (int rr = 0; rr < RG; ++rr)
+          acc[rr] = fmaf(wr[kk], rnd<RND>(nr[rr * NODE + N_H + q + 4 * kk]), acc[rr]);
+#pragma unroll
+    for (int rr = 0; rr < RG; ++rr) {
+      float a = acc[rr] + __shfl_xor_sync(0xffffffffu, acc[rr], 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      if (q == 0 && rr < rg) ai[rr * T + o] = a + bias;
+    }
+  } else {  // the torsion head's node term wtt @ tors14 + bt1: 2 lanes per unit
+    const int o = (tid - 4 * T) >> 1, q = tid & 1;
+    float wr[NTOR];
+#pragma unroll
+    for (int kk = 0; kk < NTOR; ++kk) wr[kk] = rnd<RND>(__ldg(w + off.wtt + o * 2 * NTOR + q + 2 * kk));
+    const float bias = __ldg(w + off.bt1 + o);
+    float acc[RG] = {};
+#pragma unroll
+    for (int kk = 0; kk < NTOR; ++kk)
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr)
+        acc[rr] = fmaf(wr[kk], rnd<RND>(nr[rr * NODE + N_TOR + q + 2 * kk]), acc[rr]);
+#pragma unroll
+    for (int rr = 0; rr < RG; ++rr) {
+      const float a = acc[rr] + __shfl_xor_sync(0xffffffffu, acc[rr], 1);
+      if (q == 0 && rr < rg) tn[rr * T + o] = a + bias;
+    }
+  }
+}
+
+// A finished row's geometry outputs, by lanes 0-10 of one warp, from its
+// fold state fr and its node inputs ns: the updated quaternion (lane 0),
+// translation (lanes 1-3) and torsions (lanes 4-10).
+__device__ __forceinline__ void row_outputs(const float* fr, const float* ns, int row, int lane,
+                                            float* __restrict__ out_q, float* __restrict__ out_t,
+                                            float* __restrict__ out_tors) {
+  if (lane >= 1 + 3 + NTOR) return;
+  const float inv_d = 1.f / fr[F_D];
+  if (lane == 0) {
+    const float* q_i = ns + N_Q;
+    float g4[4];
+    if (fr[F_CNT] > 0.f) {
+      for (int c = 0; c < 4; ++c) g4[c] = fr[F_GD + c] * inv_d;
+    } else {  // no neighbour: identity rotation
+      g4[0] = 1.f;
+      g4[1] = g4[2] = g4[3] = 0.f;
+    }
+    float nrm = fmaxf(sqrtf(g4[0] * g4[0] + g4[1] * g4[1] + g4[2] * g4[2] + g4[3] * g4[3]), 1e-12f);
+    for (int c = 0; c < 4; ++c) g4[c] /= nrm;
+    float uq[4];
+    qmul(g4, q_i, uq);
+    nrm = fmaxf(sqrtf(uq[0] * uq[0] + uq[1] * uq[1] + uq[2] * uq[2] + uq[3] * uq[3]), 1e-12f);
+    for (int c = 0; c < 4; ++c) out_q[(size_t)row * 4 + c] = uq[c] / nrm;
+  } else if (lane < 4) {
+    const int c = lane - 1;
+    out_t[(size_t)row * 3 + c] = ns[N_T + c] + fr[F_TR + c] * inv_d;
+  } else {
+    const int k = lane - 4;
+    const float da = fr[F_TA + k] * inv_d;
+    const float sn = sinf(da), co = cosf(da);
+    const float st = ns[N_TOR + 2 * k], ct = ns[N_TOR + 2 * k + 1];
+    out_tors[(size_t)row * 2 * NTOR + 2 * k] = sn * ct + co * st;
+    out_tors[(size_t)row * 2 * NTOR + 2 * k + 1] = co * ct - sn * st;
+  }
+}
+
+// The feature MLP of a finished row group, by all threads (after a
+// barrier): hidden = relu(wfh @ h_i + wfm2 @ HID + bf1) into fh (4 lanes
+// per unit), a barrier, then feat = wf2 @ hidden + bf2 into out_feat rows
+// g0 .. g0 + rg - 1; from the node inputs ns [RG][NODE] and the HID sums
+// hs [RG][T]; each weight loaded once into registers.
+template <bool RND>
+__device__ __forceinline__ void feature_mlp(const float* __restrict__ w, const Offsets& off, const float* ns,
+                                            const float* hs, float* fh, float* __restrict__ out_feat, int g0,
+                                            int rg, int H, int O, int tid) {
+  if (tid < 4 * T) {  // hidden = relu(wfh @ h_i + wfm2 @ HID + bf1): 4 lanes per unit
+    const int o = tid >> 2, q = tid & 3;
+    float wh[T / 4], wm[T / 4];
+#pragma unroll
+    for (int kk = 0; kk < T / 4; ++kk) {
+      const int k = q + 4 * kk;
+      wh[kk] = k < H ? rnd<RND>(__ldg(w + off.wfh + o * H + k)) : 0.f;
+      wm[kk] = rnd<RND>(__ldg(w + off.wfm2 + o * T + k));
+    }
+    const float bias = __ldg(w + off.bf1 + o);
+    float acc[RG] = {};
+#pragma unroll
+    for (int kk = 0; kk < T / 4; ++kk)
+      if (q + 4 * kk < H)
+#pragma unroll
+        for (int rr = 0; rr < RG; ++rr)
+          acc[rr] = fmaf(wh[kk], rnd<RND>(ns[rr * NODE + N_H + q + 4 * kk]), acc[rr]);
+#pragma unroll
+    for (int kk = 0; kk < T / 4; ++kk)
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr)
+        acc[rr] = fmaf(wm[kk], rnd<RND>(hs[rr * T + q + 4 * kk]), acc[rr]);
+#pragma unroll
+    for (int rr = 0; rr < RG; ++rr) {
+      float a = acc[rr] + __shfl_xor_sync(0xffffffffu, acc[rr], 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      if (q == 0 && rr < rg) fh[rr * T + o] = rnd<RND>(fmaxf(a + bias, 0.f));
+    }
+  }
+  __syncthreads();
+  for (int base = 0; base < 4 * O; base += THREADS) {  // feat = wf2 @ hidden + bf2
+    const int o = (base + tid) >> 2, q = tid & 3;
+    float wr[T / 4];
+#pragma unroll
+    for (int kk = 0; kk < T / 4; ++kk) wr[kk] = o < O ? rnd<RND>(__ldg(w + off.wf2 + o * T + q + 4 * kk)) : 0.f;
+    const float bias = o < O ? __ldg(w + off.bf2 + o) : 0.f;
+    float acc[RG] = {};
+#pragma unroll
+    for (int kk = 0; kk < T / 4; ++kk)
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr) acc[rr] = fmaf(wr[kk], fh[rr * T + q + 4 * kk], acc[rr]);
+#pragma unroll
+    for (int rr = 0; rr < RG; ++rr) {
+      float a = acc[rr] + __shfl_xor_sync(0xffffffffu, acc[rr], 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      if (o < O && q == 0 && rr < rg) out_feat[(size_t)(g0 + rr) * O + o] = a + bias;
+    }
+  }
+}
 
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -233,44 +423,7 @@ egnn_fused_kernel(const float* __restrict__ w,
       const float* nr = sm + S::NR;
       for (int e = tid; e < rg * NODE; e += THREADS) sm[S::NS + e] = nr[e];
       for (int e = tid; e < rg * T; e += THREADS) sm[S::HS + e] = 0.f;
-      if (tid < 4 * T) {  // a_i = wmi @ h_i + bm1: 4 lanes per unit
-        const int o = tid >> 2, q = tid & 3;
-        float wr[T / 4];
-#pragma unroll
-        for (int kk = 0; kk < T / 4; ++kk)
-          wr[kk] = q + 4 * kk < H ? rnd<RND>(__ldg(w + off.wmi + o * H + q + 4 * kk)) : 0.f;
-        const float bias = __ldg(w + off.bm1 + o);
-        float acc[RG] = {};  // the group's rows side by side (rows past rg are not stored)
-#pragma unroll
-        for (int kk = 0; kk < T / 4; ++kk)
-          if (q + 4 * kk < H)
-#pragma unroll
-            for (int rr = 0; rr < RG; ++rr)
-              acc[rr] = fmaf(wr[kk], rnd<RND>(nr[rr * NODE + N_H + q + 4 * kk]), acc[rr]);
-#pragma unroll
-        for (int rr = 0; rr < RG; ++rr) {
-          float a = acc[rr] + __shfl_xor_sync(0xffffffffu, acc[rr], 1);
-          a += __shfl_xor_sync(0xffffffffu, a, 2);
-          if (q == 0 && rr < rg) sm[S::AI + rr * T + o] = a + bias;
-        }
-      } else {  // the torsion head's node term wtt @ tors14 + bt1: 2 lanes per unit
-        const int o = (tid - 4 * T) >> 1, q = tid & 1;
-        float wr[NTOR];
-#pragma unroll
-        for (int kk = 0; kk < NTOR; ++kk) wr[kk] = rnd<RND>(__ldg(w + off.wtt + o * 2 * NTOR + q + 2 * kk));
-        const float bias = __ldg(w + off.bt1 + o);
-        float acc[RG] = {};
-#pragma unroll
-        for (int kk = 0; kk < NTOR; ++kk)
-#pragma unroll
-          for (int rr = 0; rr < RG; ++rr)
-            acc[rr] = fmaf(wr[kk], rnd<RND>(nr[rr * NODE + N_TOR + q + 2 * kk]), acc[rr]);
-#pragma unroll
-        for (int rr = 0; rr < RG; ++rr) {
-          const float a = acc[rr] + __shfl_xor_sync(0xffffffffu, acc[rr], 1);
-          if (q == 0 && rr < rg) sm[S::TN + rr * T + o] = a + bias;
-        }
-      }
+      node_terms<RND>(w, off, nr, sm + S::AI, sm + S::TN, rg, H, tid);
       __syncthreads();
     }
     const float* ns = sm + S::NS + r * NODE;
@@ -305,90 +458,460 @@ egnn_fused_kernel(const float* __restrict__ w,
     // -- after the row's last tile, its geometry outputs ----------------------
     if (warp == 0) {
       merge_tile<MODE>(sm, lane);
-      const float* fr = sm + S::FR;
-      if (tl + 1 == tiles && lane < 1 + 3 + NTOR) {
-        const float inv_d = 1.f / fr[F_D];
-        if (lane == 0) {
-          const float* q_i = ns + N_Q;
-          float g4[4];
-          if (fr[F_CNT] > 0.f) {
-            for (int c = 0; c < 4; ++c) g4[c] = fr[F_GD + c] * inv_d;
-          } else {  // no neighbour: identity rotation
-            g4[0] = 1.f;
-            g4[1] = g4[2] = g4[3] = 0.f;
-          }
-          float nrm = fmaxf(sqrtf(g4[0] * g4[0] + g4[1] * g4[1] + g4[2] * g4[2] + g4[3] * g4[3]), 1e-12f);
-          for (int c = 0; c < 4; ++c) g4[c] /= nrm;
-          float uq[4];
-          qmul(g4, q_i, uq);
-          nrm = fmaxf(sqrtf(uq[0] * uq[0] + uq[1] * uq[1] + uq[2] * uq[2] + uq[3] * uq[3]), 1e-12f);
-          for (int c = 0; c < 4; ++c) out_q[(size_t)row * 4 + c] = uq[c] / nrm;
-        } else if (lane < 4) {
-          const int c = lane - 1;
-          out_t[(size_t)row * 3 + c] = ns[N_T + c] + fr[F_TR + c] * inv_d;
-        } else {
-          const int k = lane - 4;
-          const float da = fr[F_TA + k] * inv_d;
-          const float sn = sinf(da), co = cosf(da);
-          const float st = ns[N_TOR + 2 * k], ct = ns[N_TOR + 2 * k + 1];
-          out_tors[(size_t)row * 2 * NTOR + 2 * k] = sn * ct + co * st;
-          out_tors[(size_t)row * 2 * NTOR + 2 * k + 1] = co * ct - sn * st;
-        }
-      }
+      if (tl + 1 == tiles) row_outputs(sm + S::FR, ns, row, lane, out_q, out_t, out_tors);
     }
     if (tl + 1 < tiles || r + 1 < rg) continue;
 
     // -- the group's last row is done: its feature MLPs, each weight loaded
     // -- once into registers for all the group's rows -------------------------
     __syncthreads();
-    if (tid < 4 * T) {  // hidden = relu(wfh @ h_i + wfm2 @ HID + bf1): 4 lanes per unit
-      const int o = tid >> 2, q = tid & 3;
-      float wh[T / 4], wm[T / 4];
+    feature_mlp<RND>(w, off, sm + S::NS, sm + S::HS, sm + S::FH, out_feat, g0, rg, H, O, tid);
+  }
+}
+
+// ---- high mode (--fast-f32): the tile products on wgmma ----------------------
+
+// Built with -DPMHC_FUSED_PHASES (chip_ab.py --kernel fused --phases) the
+// high kernel adds up, per warp and phase, the cycles each warp spends in
+// each phase of its role (lane 0, clock64); egnn_fused_phases copies them
+// out and clears them. Consumers: 0 waiting for FULL, 1 the first two
+// head products' issue and the extra terms' operands, 2 waiting for a head
+// product, 3 the epilogues with the lin2's (and the next head product's)
+// issue, 4 the last wait, the lin2 outputs' store and the arrival at DONE.
+// Producer: 5 waiting for the raw inputs (and the last step's fold and
+// merge), 6 the build, 7 the prefetch and HID sums, 8 waiting for DONE,
+// 9 the fold (warps 9-11), 10 the merge and row outputs (warp 8). All
+// warps: 11 the row groups' node terms and feature MLPs and the weight
+// staging. Without the flag the marks are empty.
+#ifdef PMHC_FUSED_PHASES
+constexpr int NPHASE = 12;
+__device__ unsigned long long g_fused_phases[WARPS][NPHASE];
+#endif
+struct PhaseClock {
+#ifdef PMHC_FUSED_PHASES
+  long long t;
+  __device__ __forceinline__ void start() { t = clock64(); }
+  __device__ __forceinline__ void mark(int k) {
+    const long long now = clock64();
+    if ((threadIdx.x & 31) == 0) atomicAdd(&g_fused_phases[threadIdx.x >> 5][k], (unsigned long long)(now - t));
+    t = now;
+  }
+#else
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+#endif
+};
+
+// Shared memory of the high kernel. The bf16 tiles in the 128B-swizzle
+// layout (sw128: 128-byte rows, wgmma's K-major operands), in bytes from a
+// base that the kernel aligns to 1024 bytes (the swizzle's atom); then the
+// fp32 regions, in floats from the same base. HighSmem::BYTES adds the
+// alignment's 1 KB.
+struct HighSmem {
+  static constexpr int WHM_H = 0;                      // whm hi [HEADS][T] bf16 (wgmma B, per head 64 rows)
+  static constexpr int WHM_L = WHM_H + HEADS * 128;    // whm lo
+  static constexpr int W2_H = WHM_L + HEADS * 128;     // lin2 hi [4 heads][16 rows][T] bf16 (wgmma B, n = 16)
+  static constexpr int W2_L = W2_H + 4 * 16 * 128;     // lin2 lo
+  static constexpr int HIDB = W2_L + 4 * 16 * 128;     // hid tiles [2 buffers][hi, lo][TILE][T] bf16
+  static constexpr int HID_HALF = TILE * 128, HID_BUF = 2 * HID_HALF;
+  static constexpr int COEF = (HIDB + 2 * HID_BUF) / 4;  // floats from here: [5][HEADS] extra-term c0..c3, cb
+  static constexpr int B2 = COEF + 5 * HEADS;            // [16]
+  static constexpr int AJ = B2 + 16;                     // the next tile's raw inputs (cp.async): a_j [TILE][T]
+  static constexpr int ED = AJ + TILE * T;               // edge [TILE][T]
+  static constexpr int QJ = ED + TILE * T;               // q_j [TILE][4]
+  static constexpr int TJ = QJ + TILE * 4;               // t_j [TILE * 3]
+  static constexpr int MK = TJ + TILE * 3;               // mask [TILE]
+  static constexpr int GEOS = MK + TILE;                 // geometry records [2 buffers][TILE][GEO_LD]
+  static constexpr int OUTS = GEOS + 2 * TILE * GEO_LD;  // lin2 outputs [2 buffers][TILE][O_LD]
+  static constexpr int HSP = OUTS + 2 * TILE * O_LD;     // HID partials [4 producer warps][T]
+  static constexpr int FP = HSP + 4 * T;                 // fold partials [2 buffers][3][FOLD]
+  static constexpr int FR = FP + 2 * 3 * FOLD;           // the row's running fold
+  static constexpr int NS = FR + FOLD;                   // the row group's node inputs [RG][NODE]
+  static constexpr int AI = NS + RG * NODE;              // a_i, torsion node terms (+ bt1), HID sums and
+  static constexpr int TN = AI + RG * T;                 // feature MLP hiddens [RG][T]
+  static constexpr int HS = TN + RG * T;
+  static constexpr int FH = HS + RG * T;
+  static constexpr int TOTAL = FH + RG * T;
+  static constexpr size_t BYTES = TOTAL * sizeof(float) + 1024;
+  static_assert(HIDB % 1024 == 0 && W2_H % 1024 == 0, "wgmma operands need 1024-byte aligned tiles");
+  static_assert(AJ % 4 == 0 && ED % 4 == 0 && QJ % 4 == 0 && NS % 4 == 0 && AI % 4 == 0, "16-byte regions");
+  static_assert(BYTES <= 232448, "high-mode shared memory exceeds the H100's 227 KB");
+};
+
+// named barriers (0 is __syncthreads): the producer warpgroup's own; hid
+// tile and geometry of buffer k ready (FULL + k: the producer arrives, the
+// consumers wait); lin2 outputs of buffer k ready (DONE + k: the consumers
+// arrive, the folding warps 9-11 wait)
+constexpr int BAR_PROD = 1, BAR_FULL = 2, BAR_DONE = 4;
+constexpr int PRODUCER = 256;  // first producer thread (warps 8-11)
+constexpr int FULL_COUNT = THREADS, DONE_COUNT = PRODUCER + 96;
+
+// 32-bit word `word` of row `row` of a sw128 tile
+__device__ __forceinline__ uint32_t& tile_word(char* tile, int row, int word) {
+  return *reinterpret_cast<uint32_t*>(tile + sw128(row, 4 * word));
+}
+
+// whm and the lin2 rows split into bf16 hi and lo tiles (sw128), the
+// extra-term coefficients of heads 0, 1 and 3 (head 2's come per row from
+// the node term) and b2, by all threads.
+__device__ __forceinline__ void stage_high(float* sm, char* tb, const LoopW& w, int tid) {
+  using S = HighSmem;
+  for (int e = tid; e < HEADS * T / 2; e += THREADS) {  // whm row u, units 2l, 2l + 1
+    const int u = e >> 5, l = e & 31;
+    split_bf16x2(__ldg(w.whm + u * T + 2 * l), __ldg(w.whm + u * T + 2 * l + 1), tile_word(tb + S::WHM_H, u, l),
+                 tile_word(tb + S::WHM_L, u, l));
+  }
+  for (int e = tid; e < 4 * 16 * T / 2; e += THREADS) {  // head hd's B rows o < 16: its own lin2 rows, else 0
+    const int hd = e >> 9, o = (e >> 5) & 15, l = e & 31;
+    uint32_t hi = 0u, lo = 0u;
+    if (o >= row0_of(hd) && o < row0_of(hd) + rows_of(hd))
+      split_bf16x2(__ldg(w.w2 + o * T + 2 * l), __ldg(w.w2 + o * T + 2 * l + 1), hi, lo);
+    tile_word(tb + S::W2_H, 16 * hd + o, l) = hi;
+    tile_word(tb + S::W2_L, 16 * hd + o, l) = lo;
+  }
+  for (int u = tid; u < HEADS; u += THREADS) {
+    const int hd = u / T, uu = u - hd * T;
+    float c[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    if (hd == 0) {
+      c[0] = w.wad[uu];
+      c[1] = w.waq[uu];
+      c[4] = w.ba1[uu];
+    } else if (hd == 1) {
+      for (int r = 0; r < 4; ++r) c[r] = w.wrq[uu * 4 + r];
+      c[4] = w.br1[uu];
+    } else if (hd == 3) {
+      c[4] = w.bl1[uu];
+    }
+    for (int r = 0; r < 5; ++r) sm[S::COEF + r * HEADS + u] = c[r];
+  }
+  if (tid < NOUT) sm[S::B2 + tid] = w.b2[tid];
+}
+
+// The head product of one head on a consumer warpgroup's 64-row slab, in
+// flight on return: act's pre-activation whm @ hid in three passes (hi*hi +
+// hi*lo + lo*hi), twelve m64n64k16 with both operands in shared memory
+// (da_h / da_l: the slab's hid hi / lo rows; db_h / db_l: the head's whm
+// hi / lo rows), committed as one group.
+__device__ __forceinline__ void issue_head(float (&acc)[32], uint64_t da_h, uint64_t da_l, uint64_t db_h,
+                                           uint64_t db_l) {
+  wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < T / 4; ++kk) {
-        const int k = q + 4 * kk;
-        wh[kk] = k < H ? rnd<RND>(__ldg(w + off.wfh + o * H + k)) : 0.f;
-        wm[kk] = rnd<RND>(__ldg(w + off.wfm2 + o * T + k));
+  for (int ks = 0; ks < 4; ++ks) {
+    wgmma_64x64_ss(acc, da_h + 2 * ks, db_h + 2 * ks, ks > 0);
+    wgmma_64x64_ss(acc, da_h + 2 * ks, db_l + 2 * ks, 1);
+    wgmma_64x64_ss(acc, da_l + 2 * ks, db_h + 2 * ks, 1);
+  }
+  wgmma_commit();
+}
+
+// The epilogue of one head on its finished accumulator, then its lin2 in
+// flight: act = relu(acc + extra) split into bf16 hi and lo, in registers
+// (the accumulator's two n8 chunks of a k16 step are one A fragment of
+// the lin2), and the head's lin2 rows added to lacc (twelve m64n16k16 on
+// the head's B rows padded to n = 16: d2h / d2l), committed as one group.
+// e_lo / e_hi: the extra term's operands of the thread's rows g and g + 8;
+// tn: the row's torsion node terms; a dead thread (rows another warpgroup
+// owns) feeds zeros.
+template <int HEAD>
+__device__ __forceinline__ void epilogue_head(const float* sm, float (&acc)[32], uint64_t d2h, uint64_t d2l,
+                                              const float* e_lo, const float* e_hi, const float* tn,
+                                              uint32_t (&lh)[4][4], uint32_t (&ll)[4][4], float (&lacc)[8],
+                                              bool live, int c) {
+  using S = HighSmem;
+  constexpr int NC = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 0;  // coefficients c0 .. c(NC - 1) in use
+  fence_operand(acc);
+  const float* coef = sm + S::COEF + HEAD * T;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {
+      if (!live) {
+        lh[t][2 * nn] = lh[t][2 * nn + 1] = ll[t][2 * nn] = ll[t][2 * nn + 1] = 0u;
+        continue;
       }
-      const float bias = __ldg(w + off.bf1 + o);
-      float acc[RG] = {};
+      const int u = 16 * t + 8 * nn + 2 * c;  // the chunk's units u, u + 1 of the head
+      float c0[5] = {0.f, 0.f, 0.f, 0.f, 0.f}, c1[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int kk = 0; kk < T / 4; ++kk)
-        if (q + 4 * kk < H)
+      for (int r = 0; r < NC; ++r) {
+        const float2 cv = *reinterpret_cast<const float2*>(coef + r * HEADS + u);
+        c0[r] = cv.x;
+        c1[r] = cv.y;
+      }
+      const float2 cb = *reinterpret_cast<const float2*>(HEAD == 2 ? tn + u : coef + 4 * HEADS + u);
+      c0[4] = cb.x;
+      c1[4] = cb.y;
 #pragma unroll
-          for (int rr = 0; rr < RG; ++rr)
-            acc[rr] = fmaf(wh[kk], rnd<RND>(sm[S::NS + rr * NODE + N_H + q + 4 * kk]), acc[rr]);
-#pragma unroll
-      for (int kk = 0; kk < T / 4; ++kk)
-#pragma unroll
-        for (int rr = 0; rr < RG; ++rr)
-          acc[rr] = fmaf(wm[kk], rnd<RND>(sm[S::HS + rr * T + q + 4 * kk]), acc[rr]);
-#pragma unroll
-      for (int rr = 0; rr < RG; ++rr) {
-        float a = acc[rr] + __shfl_xor_sync(0xffffffffu, acc[rr], 1);
-        a += __shfl_xor_sync(0xffffffffu, a, 2);
-        if (q == 0 && rr < rg) sm[S::FH + rr * T + o] = rnd<RND>(fmaxf(a + bias, 0.f));
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const int i = 4 * (2 * t + nn) + 2 * h8;
+        const float* e = h8 ? e_hi : e_lo;
+        const float x0 = fmaxf(acc[i] + extra_term<HEAD>(e, c0), 0.f);
+        const float x1 = fmaxf(acc[i + 1] + extra_term<HEAD>(e, c1), 0.f);
+        split_bf16x2(x0, x1, lh[t][2 * nn + h8], ll[t][2 * nn + h8]);
       }
     }
+  }
+  fence_operand(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    wgmma_64x16_rs(lacc, lh[t], d2h + 2 * t, HEAD > 0 || t > 0);
+    wgmma_64x16_rs(lacc, lh[t], d2l + 2 * t, 1);
+    wgmma_64x16_rs(lacc, ll[t], d2h + 2 * t, 1);
+  }
+  wgmma_commit();
+}
+
+// A consumer warpgroup (cw = 0: tile rows 0-63; cw = 1: rows 32-95, whose
+// warps 4 and 5 hold rows of warpgroup 0 and are dead): items it0 ..
+// it0 + n - 1 of the block (row_lo + it / tiles, tile it % tiles; g0 the
+// row group's first row), each waiting for its buffer's FULL barrier and
+// arriving at DONE when its lin2 outputs are stored. Two accumulators: the
+// head product of head h + 1 runs on the tensor cores while the epilogue of
+// head h runs on the CUDA cores. The groups retire in issue order: P0 P1
+// L0 P2 L1 P3 L2 L3 (P: a head product, L: a lin2), so waiting for all but
+// the newest group leaves only P(h + 1) in flight at epilogue h, and L(h - 1)
+// has read its A fragments before epilogue h rewrites them (epilogue 3,
+// with no P after it, waits for all).
+__device__ __forceinline__ void high_consumer(float* sm, uint32_t tb_addr, int it0, int n, int row_lo, int g0,
+                                              int tiles, int warp, int lane, PhaseClock& clk) {
+  using S = HighSmem;
+  const int cw = warp >> 2, w4 = warp & 3, g = lane >> 2, c = lane & 3;
+  const bool live = cw == 0 || w4 >= 2;
+  const int r_lo = 32 * cw + 16 * w4 + g, r_hi = r_lo + 8;  // the thread's two tile rows
+  const uint64_t dwh = desc_sw128(tb_addr + S::WHM_H), dwl = desc_sw128(tb_addr + S::WHM_L);
+  const uint64_t d2h = desc_sw128(tb_addr + S::W2_H), d2l = desc_sw128(tb_addr + S::W2_L);
+  constexpr uint64_t HB = 64 * 128 >> 4, H2 = 16 * 128 >> 4;  // a head's B rows, in descriptor units
+  for (int k = 0; k < n; ++k) {
+    const int it = it0 + k, buf = it & 1;
+    const int r = row_lo + it / tiles - g0;  // the row's place in its group
+    // the slab's hid rows (hi, lo) of this buffer
+    const uint32_t slab = tb_addr + S::HIDB + buf * S::HID_BUF + 32 * cw * 128;
+    const uint64_t dah = desc_sw128(slab), dal = desc_sw128(slab + S::HID_HALF);
+    bar_sync(BAR_FULL + buf, FULL_COUNT);
+    clk.mark(0);
+    float acc0[32], acc1[32];
+    issue_head(acc0, dah, dal, dwh, dwl);
+    issue_head(acc1, dah, dal, dwh + HB, dwl + HB);
+    const float* geo = sm + S::GEOS + buf * TILE * GEO_LD;
+    float e0[2][2], e1[2][4];  // head 0's -d2, qdot^2 and head 1's local quat, rows g and g + 8
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      pair_operands<0>(geo, h8 ? r_hi : r_lo, e0[h8]);
+      pair_operands<1>(geo, h8 ? r_hi : r_lo, e1[h8]);
+    }
+    const float* tn = sm + S::TN + r * T;  // head 2's extra term, per unit
+    float lacc[8];
+    uint32_t lh[4][4], ll[4][4];
+    clk.mark(1);
+    wgmma_wait<1>();
+    clk.mark(2);
+    epilogue_head<0>(sm, acc0, d2h, d2l, e0[0], e0[1], tn, lh, ll, lacc, live, c);
+    issue_head(acc0, dah, dal, dwh + 2 * HB, dwl + 2 * HB);
+    clk.mark(3);
+    wgmma_wait<1>();
+    clk.mark(2);
+    epilogue_head<1>(sm, acc1, d2h + H2, d2l + H2, e1[0], e1[1], tn, lh, ll, lacc, live, c);
+    issue_head(acc1, dah, dal, dwh + 3 * HB, dwl + 3 * HB);
+    clk.mark(3);
+    wgmma_wait<1>();
+    clk.mark(2);
+    epilogue_head<2>(sm, acc0, d2h + 2 * H2, d2l + 2 * H2, e0[0], e0[1], tn, lh, ll, lacc, live, c);
+    clk.mark(3);
+    wgmma_wait<0>();
+    clk.mark(2);
+    epilogue_head<3>(sm, acc1, d2h + 3 * H2, d2l + 3 * H2, e0[0], e0[1], tn, lh, ll, lacc, live, c);
+    clk.mark(3);
+    wgmma_wait<0>();
+    fence_operand(lacc);
+    if (live) {
+      float* out = sm + S::OUTS + buf * TILE * O_LD;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int o = 8 * (e >> 2) + 2 * c + (e & 1);
+        if (o < NOUT) out[((e & 2) ? r_hi : r_lo) * O_LD + o] = lacc[e] + sm[S::B2 + o];
+      }
+    }
+    bar_arrive(BAR_DONE + buf, DONE_COUNT);
+    clk.mark(4);
+  }
+}
+
+// The merge of item it (its fold partials fp) into its row's running state
+// and, after the row's last tile, the row's geometry outputs; one warp.
+__device__ __forceinline__ void merge_item(float* sm, const float* fp, int it, int row_lo, int g0, int tiles,
+                                           int lane, float* out_q, float* out_t, float* out_tors) {
+  using S = HighSmem;
+  const int row = row_lo + it / tiles, tl = it % tiles;
+  merge_partials(sm + S::FR, fp, tl == 0, lane);
+  if (tl + 1 == tiles) row_outputs(sm + S::FR, sm + S::NS + (row - g0) * NODE, row, lane, out_q, out_t, out_tors);
+}
+
+// The producer warpgroup (warps 8-11, pw = warp - 8, pt = tid - PRODUCER):
+// for item it = it0 + k, build its hid tile (split into hi and lo, all four
+// warps) and geometry records (warps 8-10) into buffer (it & 1) and arrive
+// at FULL; prefetch the next item's raw inputs (cp.async, all four warps)
+// and add the HID partials (warps 10-11); warp 8 merges item it - 2 (and
+// writes its row's outputs) while warps 9-11 wait for item it - 1's DONE
+// and fold it into the fold partials of buffer ((it - 1) & 1). The last
+// step folds the group's last item; its merge follows.
+__device__ __forceinline__ void high_producer(float* sm, char* tb, const TileSrc& src, int it0, int n, int items,
+                                              int row_lo, int g0, int N, int NP, int tiles, int warp, int lane,
+                                              float* out_q, float* out_t, float* out_tors, PhaseClock& clk) {
+  using S = HighSmem;
+  const int pw = warp - 8, pt = threadIdx.x - PRODUCER;
+  for (int k = 0; k <= n; ++k) {
+    if (k < n) cp_async_wait_all();
+    bar_sync(BAR_PROD, 128);  // the item's raw inputs have landed; the last fold and merge are done
+    clk.mark(5);
+    if (k < n) {
+      const int it = it0 + k, buf = it & 1;
+      const int row = row_lo + it / tiles, tl = it % tiles, r = row - g0, b = row / N;
+      const int nj = min(TILE, NP - tl * TILE);
+      const float* ns = sm + S::NS + r * NODE;
+      const float2 ai2 = *reinterpret_cast<const float2*>(sm + S::AI + r * T + 2 * lane);
+      char* hh = tb + S::HIDB + buf * S::HID_BUF;
+      float hs0 = 0.f, hs1 = 0.f;
+#pragma unroll 4
+      for (int j = pw; j < TILE; j += 4) {
+        float v0 = 0.f, v1 = 0.f;
+        if (j < nj) {
+          const float2 x = *reinterpret_cast<const float2*>(sm + S::AJ + j * T + 2 * lane);
+          const float2 y = *reinterpret_cast<const float2*>(sm + S::ED + j * T + 2 * lane);
+          v0 = fmaxf(ai2.x + x.x + y.x, 0.f);
+          v1 = fmaxf(ai2.y + x.y + y.y, 0.f);
+          hs0 += v0;
+          hs1 += v1;
+        }
+        split_bf16x2(v0, v1, tile_word(hh, j, lane), tile_word(hh + S::HID_HALF, j, lane));
+      }
+      sm[S::HSP + pw * T + 2 * lane] = hs0;
+      sm[S::HSP + pw * T + 2 * lane + 1] = hs1;
+      if (pt < TILE) {
+        float* gr = sm + S::GEOS + (buf * TILE + pt) * GEO_LD;
+        if (pt < nj) {
+          geo_record<MODE_HIGH>(gr, sm + S::QJ + pt * 4, sm + S::TJ + pt * 3, sm[S::MK + pt], ns + N_Q, ns + N_T);
+        } else {
+          for (int cc = 0; cc < GEO; ++cc) gr[cc] = 0.f;
+        }
+      }
+      fence_proxy_async();  // the hid tile, for the consumers' wgmma reads
+      bar_arrive(BAR_FULL + buf, FULL_COUNT);
+      clk.mark(6);
+      bar_sync(BAR_PROD, 128);  // the raw buffers are free; the HID partials are in
+      if (it + 1 < items) {
+        const int nrow = row_lo + (it + 1) / tiles, ntl = (it + 1) % tiles, nb = nrow / N;
+        prefetch_raw<128>(RawTile{sm + S::AJ, sm + S::ED, sm + S::QJ, sm + S::TJ, sm + S::MK}, src, nb,
+                          nrow - nb * N, nrow, ntl, nb != b || ntl != tl, pt);
+      }
+      cp_async_commit();
+      if (pt >= 2 * 32) {
+        const int u = pt - 2 * 32;
+        float hsum = sm[S::HS + r * T + u];
+        for (int w4 = 0; w4 < 4; ++w4) hsum += sm[S::HSP + w4 * T + u];
+        sm[S::HS + r * T + u] = hsum;
+      }
+      clk.mark(7);
+    }
+    if (pw == 0) {
+      if (k >= 2) merge_item(sm, sm + S::FP + (k & 1) * 3 * FOLD, it0 + k - 2, row_lo, g0, tiles, lane, out_q,
+                             out_t, out_tors);
+      clk.mark(10);
+    } else if (k > 0) {
+      const int it = it0 + k - 1, buf = it & 1;
+      const int nj = min(TILE, NP - (it % tiles) * TILE);
+      bar_sync(BAR_DONE + buf, DONE_COUNT);
+      clk.mark(8);
+      fold_rows(sm + S::GEOS + buf * TILE * GEO_LD, sm + S::OUTS + buf * TILE * O_LD,
+                sm + S::FP + buf * 3 * FOLD, nj, pw - 1, lane);
+      clk.mark(9);
+    }
+  }
+  bar_sync(BAR_PROD, 128);  // the last fold is in
+  const int last = it0 + n - 1;
+  if (pw == 0) merge_item(sm, sm + S::FP + (last & 1) * 3 * FOLD, last, row_lo, g0, tiles, lane, out_q, out_t, out_tors);
+  clk.mark(10);
+}
+
+template <>
+__global__ void __launch_bounds__(THREADS, 1)
+egnn_fused_kernel<MODE_HIGH>(const float* __restrict__ w, const float* __restrict__ h,
+                             const float* __restrict__ qi, const float* __restrict__ ti,
+                             const float* __restrict__ tors, const float* __restrict__ aj,
+                             const float* __restrict__ qj, const float* __restrict__ tj,
+                             const float* __restrict__ edge, const float* __restrict__ mask,
+                             float* __restrict__ out_q, float* __restrict__ out_t, float* __restrict__ out_tors,
+                             float* __restrict__ out_feat, int rows, int per_block, int N, int NP, int H, int O) {
+  using S = HighSmem;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t raw_addr = smem_addr(smem);
+  const uint32_t pad = (1024u - (raw_addr & 1023u)) & 1023u;
+  char* tb = reinterpret_cast<char*>(smem) + pad;  // 1024-byte aligned
+  float* sm = reinterpret_cast<float*>(tb);
+  const uint32_t tb_addr = raw_addr + pad;
+  const int row_lo = blockIdx.x * per_block;
+  const int row_hi = min(rows, row_lo + per_block);
+  if (row_lo >= row_hi) return;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const Offsets off = weight_offsets(H, O);
+  const int tiles = (NP + TILE - 1) / TILE;
+  const int items = (row_hi - row_lo) * tiles;
+  const TileSrc src = tile_src(aj, qj, tj, edge, mask, NP);
+  PhaseClock clk;
+  clk.start();
+
+  if (tid >= PRODUCER) {  // the first item's raw inputs, while the weights are staged
+    const int b = row_lo / N;
+    prefetch_raw<128>(RawTile{sm + S::AJ, sm + S::ED, sm + S::QJ, sm + S::TJ, sm + S::MK}, src, b, row_lo - b * N,
+                      row_lo, 0, true, tid - PRODUCER);
+    cp_async_commit();
+  }
+  stage_high(sm, tb, LoopW{w + off.whm, w + off.wad, w + off.waq, w + off.ba1, w + off.br1, w + off.bt1,
+                           w + off.bl1, w + off.wrq, w + off.w2, w + off.b2}, tid);
+  fence_proxy_async();  // the staged B tiles, for wgmma's reads
+
+  for (int g0 = row_lo; g0 < row_hi; g0 += RG) {
+    const int rg = min(RG, row_hi - g0);
+    // -- the row group: node inputs, a_i and the torsion node terms --------
+    for (int e = tid; e < rg * NODE; e += THREADS) {
+      const int r = e / NODE, k = e - r * NODE;
+      const size_t rr = (size_t)(g0 + r);
+      float v = 0.f;
+      if (k < N_T) v = qi[rr * 4 + k];
+      else if (k < N_TOR) v = ti[rr * 3 + k - N_T];
+      else if (k < N_TOR + 2 * NTOR) v = tors[rr * 2 * NTOR + k - N_TOR];
+      else if (k >= N_H && k < N_H + H) v = h[rr * H + k - N_H];
+      sm[S::NS + e] = v;
+    }
+    for (int e = tid; e < rg * T; e += THREADS) sm[S::HS + e] = 0.f;
     __syncthreads();
-    for (int base = 0; base < 4 * O; base += THREADS) {  // feat = wf2 @ hidden + bf2
-      const int o = (base + tid) >> 2, q = tid & 3;
-      float wr[T / 4];
-#pragma unroll
-      for (int kk = 0; kk < T / 4; ++kk) wr[kk] = o < O ? rnd<RND>(__ldg(w + off.wf2 + o * T + q + 4 * kk)) : 0.f;
-      const float bias = o < O ? __ldg(w + off.bf2 + o) : 0.f;
-      float acc[RG] = {};
-#pragma unroll
-      for (int kk = 0; kk < T / 4; ++kk)
-#pragma unroll
-        for (int rr = 0; rr < RG; ++rr) acc[rr] = fmaf(wr[kk], sm[S::FH + rr * T + q + 4 * kk], acc[rr]);
-#pragma unroll
-      for (int rr = 0; rr < RG; ++rr) {
-        float a = acc[rr] + __shfl_xor_sync(0xffffffffu, acc[rr], 1);
-        a += __shfl_xor_sync(0xffffffffu, a, 2);
-        if (o < O && q == 0 && rr < rg) out_feat[(size_t)(g0 + rr) * O + o] = a + bias;
-      }
+    node_terms<false>(w, off, sm + S::NS, sm + S::AI, sm + S::TN, rg, H, tid);
+    __syncthreads();
+
+    // -- the group's items: warpgroups 0-1 consume, warpgroup 2 produces ---
+    const int it0 = (g0 - row_lo) * tiles;
+    clk.mark(11);
+    if (tid < PRODUCER) {
+      high_consumer(sm, tb_addr, it0, rg * tiles, row_lo, g0, tiles, warp, lane, clk);
+    } else {
+      high_producer(sm, tb, src, it0, rg * tiles, items, row_lo, g0, N, NP, tiles, warp, lane, out_q, out_t,
+                    out_tors, clk);
     }
+
+    // -- the group's feature MLPs ------------------------------------------
+    __syncthreads();
+    feature_mlp<false>(w, off, sm + S::NS, sm + S::HS, sm + S::FH, out_feat, g0, rg, H, O, tid);
+  }
+  clk.mark(11);
+}
+
+template <int MODE>
+constexpr size_t smem_bytes() {
+  if constexpr (MODE == MODE_HIGH) {
+    return HighSmem::BYTES;
+  } else {
+    return Smem<MODE>::BYTES;
   }
 }
 
@@ -398,7 +921,7 @@ int launch(const float* w, const float* h, const float* qi, const float* ti, con
            float* out_q, float* out_t, float* out_tors, float* out_feat,
            int B, int N, int NP, int H, int O, cudaStream_t stream) {
   static std::atomic<int> sms_of[MAX_DEVICES];
-  const int sms = persistent_sms(egnn_fused_kernel<MODE>, Smem<MODE>::BYTES, sms_of);
+  const int sms = persistent_sms(egnn_fused_kernel<MODE>, smem_bytes<MODE>(), sms_of);
   if (sms < 0) return -sms;
   // one block per SM, each a contiguous run of query rows
   int rows = B * N;
@@ -407,7 +930,7 @@ int launch(const float* w, const float* h, const float* qi, const float* ti, con
   void* args[] = {&w, &h, &qi, &ti, &tors, &aj, &qj, &tj, &edge, &mask,
                   &out_q, &out_t, &out_tors, &out_feat, &rows, &per_block, &N, &NP, &H, &O};
   const cudaError_t err = cudaLaunchKernel(egnn_fused_kernel<MODE>, dim3(grid), dim3(THREADS), args,
-                                           Smem<MODE>::BYTES, stream);
+                                           smem_bytes<MODE>(), stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -420,6 +943,18 @@ extern "C" {
 // Length in floats of the packed weight buffer for input width H and
 // output width O (the Python packer checks its buffer against it).
 int egnn_fused_weights_size(int H, int O) { return pmhc::weight_offsets(H, O).total; }
+
+#ifdef PMHC_FUSED_PHASES
+// Copies the high kernel's phase cycle counters ([WARPS][NPHASE] unsigned
+// 64-bit) to ``out`` and clears them.
+int egnn_fused_phases(unsigned long long* out) {
+  using namespace pmhc;
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_fused_phases, sizeof(g_fused_phases));
+  if (err != cudaSuccess) return (int)err;
+  static unsigned long long zero[WARPS][NPHASE];
+  return (int)cudaMemcpyToSymbol(g_fused_phases, zero, sizeof(zero));
+}
+#endif
 
 int egnn_fused_launch(const float* w, const float* h, const float* qi, const float* ti,
                       const float* tors, const float* aj, const float* qj, const float* tj,

@@ -1,6 +1,8 @@
 // The neighbour-tile device code of the fused sampler layer (egnn_fused.cu,
-// TPU kernels #1/#2) and of the training loop's forward (egnn_loop.cu,
-// #4/#5): one persistent block of WARPS = 12 warps per SM walks a
+// TPU kernels #1/#2, fp32 and bf16; its high mode runs a wgmma pipeline of
+// its own there, reusing the helpers below) and of the training loop's
+// forward (egnn_loop.cu, #4/#5, every mode): one persistent block of
+// WARPS = 12 warps per SM walks a
 // contiguous run of query rows (b, i), each row's NP neighbours in tiles of
 // TILE = 96, folded into the row's online-softmax state. What a kernel adds
 // around it: its node inputs, and what it does with a finished row.
@@ -531,25 +533,65 @@ __device__ __forceinline__ void copy16(float* dst, const float* src, bool aligne
   }
 }
 
-// cp.async of tile tl of query row (b, i) = row into the raw buffers: its
-// edge and mask rows and, with with_bj, its a_j, q_j and t_j rows. The
-// caller commits.
+// The raw buffers of one tile in shared memory: a_j [TILE][T], edge
+// [TILE][T], q_j [TILE][4], t_j [TILE * 3], mask [TILE].
+struct RawTile {
+  float *aj, *ed, *qj, *tj, *mk;
+};
+
+// cp.async of tile tl of query row (b, i) = row into the raw buffers, by
+// NT threads (t = 0 .. NT - 1): its edge and mask rows and, with with_bj,
+// its a_j, q_j and t_j rows. The caller commits.
+template <int NT>
+__device__ __forceinline__ void prefetch_raw(const RawTile& d, const TileSrc& s, int b, int i, int row, int tl,
+                                             bool with_bj, int t) {
+  const int j0 = tl * TILE, nj = min(TILE, s.NP - j0);
+  if (with_bj) {
+    const float* src = s.aj + ((size_t)b * s.NP + j0) * T;
+    for (int c = t; c < nj * T / 4; c += NT) copy16(d.aj + 4 * c, src + 4 * c, s.al_aj);
+    for (int c = t; c < nj; c += NT) copy16(d.qj + 4 * c, s.qj + ((size_t)b * s.NP + j0 + c) * 4, s.al_qj);
+    for (int c = t; c < nj * 3; c += NT) cp_async4(d.tj + c, s.tj + ((size_t)b * s.NP + j0) * 3 + c);
+  }
+  const float* esrc = s.edge + ((size_t)i * s.NP + j0) * T;
+  for (int c = t; c < nj * T / 4; c += NT) copy16(d.ed + 4 * c, esrc + 4 * c, s.al_ed);
+  for (int c = t; c < nj; c += NT) cp_async4(d.mk + c, s.mask + (size_t)row * s.NP + j0 + c);
+}
+
+// prefetch_raw into the tile loop's raw buffers by the whole block
 template <int MODE>
 __device__ __forceinline__ void prefetch_tile(float* sm, const TileSrc& s, int b, int i, int row, int tl,
                                               bool with_bj, int tid) {
   using S = TileSmem<MODE>;
-  const int j0 = tl * TILE, nj = min(TILE, s.NP - j0);
-  if (with_bj) {
-    const float* src = s.aj + ((size_t)b * s.NP + j0) * T;
-    for (int c = tid; c < nj * T / 4; c += THREADS) copy16(sm + S::AJ + 4 * c, src + 4 * c, s.al_aj);
-    for (int c = tid; c < nj; c += THREADS)
-      copy16(sm + S::QJ + 4 * c, s.qj + ((size_t)b * s.NP + j0 + c) * 4, s.al_qj);
-    for (int c = tid; c < nj * 3; c += THREADS)
-      cp_async4(sm + S::TJ + c, s.tj + ((size_t)b * s.NP + j0) * 3 + c);
+  prefetch_raw<THREADS>(RawTile{sm + S::AJ, sm + S::ED, sm + S::QJ, sm + S::TJ, sm + S::MK}, s, b, i, row, tl,
+                        with_bj, tid);
+}
+
+// The geometry record g of one neighbour from its q_j [4], t_j [3] and mask
+// and the row's q_i, t_i (a padding row's record is zeros).
+template <int MODE>
+__device__ __forceinline__ void geo_record(float* g, const float* qj, const float* tj, float mk, const float* q_i,
+                                           const float* t_i) {
+  float q_j[4], dx[3];
+  for (int c = 0; c < 4; ++c) q_j[c] = qj[c];
+  for (int c = 0; c < 3; ++c) dx[c] = t_i[c] - tj[c];
+  const float d2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2];
+  const float qdot = q_i[0] * q_j[0] + q_i[1] * q_j[1] + q_i[2] * q_j[2] + q_i[3] * q_j[3];
+  // zero-quat guard: padded frames may carry all-zero quats
+  const float n2 = fmaxf(q_j[0] * q_j[0] + q_j[1] * q_j[1] + q_j[2] * q_j[2] + q_j[3] * q_j[3], 1e-30f);
+  const float rn2 = 1.f / n2;  // one division: the chain sets the build's time
+  const float inv[4] = {q_j[0] * rn2, -q_j[1] * rn2, -q_j[2] * rn2, -q_j[3] * rn2};
+  float tmp[4], lq[4];
+  qmul(q_i, q_j, tmp);
+  qmul(inv, tmp, lq);
+  g[G_ND2] = -d2;
+  g[G_QD2] = qdot * qdot;
+  for (int c = 0; c < 4; ++c) {
+    g[G_LQ + c] = rnd<MODE == MODE_BF16>(lq[c]);  // bf16: the rotation term's operand, rounded once
+    g[G_INV + c] = inv[c];
+    g[G_QJ + c] = q_j[c];
   }
-  const float* esrc = s.edge + ((size_t)i * s.NP + j0) * T;
-  for (int c = tid; c < nj * T / 4; c += THREADS) copy16(sm + S::ED + 4 * c, esrc + 4 * c, s.al_ed);
-  for (int c = tid; c < nj; c += THREADS) cp_async4(sm + S::MK + c, s.mask + (size_t)row * s.NP + j0 + c);
+  for (int c = 0; c < 3; ++c) g[G_DX + c] = dx[c];
+  g[G_MASK] = mk;
 }
 
 // The tile's hid rows (nj neighbours; rows past nj zero), each warp's HID
@@ -585,28 +627,7 @@ __device__ __forceinline__ void build_tile(float* sm, const float* ai, const flo
   if (tid < TILE) {
     float* g = sm + S::GEOS + tid * GEO_LD;
     if (tid < nj) {
-      float q_j[4], dx[3];
-      for (int c = 0; c < 4; ++c) q_j[c] = sm[S::QJ + tid * 4 + c];
-      for (int c = 0; c < 3; ++c) dx[c] = t_i[c] - sm[S::TJ + tid * 3 + c];
-      const float d2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2];
-      const float qdot = q_i[0] * q_j[0] + q_i[1] * q_j[1] + q_i[2] * q_j[2] + q_i[3] * q_j[3];
-      // zero-quat guard: padded frames may carry all-zero quats
-      const float n2 = fmaxf(q_j[0] * q_j[0] + q_j[1] * q_j[1] + q_j[2] * q_j[2] + q_j[3] * q_j[3],
-                             1e-30f);
-      const float rn2 = 1.f / n2;  // one division: the chain sets the build's time
-      const float inv[4] = {q_j[0] * rn2, -q_j[1] * rn2, -q_j[2] * rn2, -q_j[3] * rn2};
-      float tmp[4], lq[4];
-      qmul(q_i, q_j, tmp);
-      qmul(inv, tmp, lq);
-      g[G_ND2] = -d2;
-      g[G_QD2] = qdot * qdot;
-      for (int c = 0; c < 4; ++c) {
-        g[G_LQ + c] = rnd<MODE == MODE_BF16>(lq[c]);  // bf16: the rotation term's operand, rounded once
-        g[G_INV + c] = inv[c];
-        g[G_QJ + c] = q_j[c];
-      }
-      for (int c = 0; c < 3; ++c) g[G_DX + c] = dx[c];
-      g[G_MASK] = sm[S::MK + tid];
+      geo_record<MODE>(g, sm + S::QJ + tid * 4, sm + S::TJ + tid * 3, sm[S::MK + tid], q_i, t_i);
     } else {
       for (int c = 0; c < GEO; ++c) g[c] = 0.f;
     }
@@ -641,18 +662,20 @@ __device__ __forceinline__ void tile_product(float* sm, int nj, int warp, int la
 // Warps 0-2: neighbours 32 warp .. 32 warp + 31 of the tile folded into a
 // partial of the online softmax (logit - (1 - mask) * 1e9; the maximum,
 // then D, GD[4], TA[7], TR[3], CNT against it). Rows past nj are left out.
-template <int MODE>
-__device__ __forceinline__ void fold_tile(float* sm, int nj, int warp, int lane) {
-  using S = TileSmem<MODE>;
+// (fold_rows: on the records geos [TILE][GEO_LD] and lin2 outputs outs
+// [TILE][O_LD], into the partials fp [3][FOLD]; fold_tile: on the tile
+// loop's.)
+__device__ __forceinline__ void fold_rows(const float* geos, const float* outs, float* fp, int nj, int warp,
+                                          int lane) {
   const int j = 32 * warp + lane;
   const bool valid = j < nj;
-  float* fp = sm + S::FP + warp * FOLD;
+  fp += warp * FOLD;
   if (32 * warp >= nj) {
     if (lane <= F_CNT) fp[lane] = lane == F_M ? -INFINITY : 0.f;
     return;
   }
-  const float* g = sm + S::GEOS + j * GEO_LD;
-  const float* ov = sm + S::OUTS + j * O_LD;
+  const float* g = geos + j * GEO_LD;
+  const float* ov = outs + j * O_LD;
   const float mk = valid ? g[G_MASK] : 0.f;
   const float logit = valid ? ov[0] - (1.f - mk) * 1e9f : -INFINITY;
   const float m = warp_max(logit);
@@ -677,6 +700,12 @@ __device__ __forceinline__ void fold_tile(float* sm, int nj, int warp, int lane)
   if (!(lane & 1)) fp[1 + ((lane >> 1) & 15)] = sum;
 }
 
+template <int MODE>
+__device__ __forceinline__ void fold_tile(float* sm, int nj, int warp, int lane) {
+  using S = TileSmem<MODE>;
+  fold_rows(sm + S::GEOS, sm + S::OUTS, sm + S::FP, nj, warp, lane);
+}
+
 // s0 plus the warps' partial sums of HID column k
 template <int MODE>
 __device__ __forceinline__ float hid_sum(const float* sm, float s0, int k) {
@@ -688,21 +717,20 @@ __device__ __forceinline__ float hid_sum(const float* sm, float s0, int k) {
 // Warp 0: the three fold partials merged into the row's running state
 // (from m = -1e30 and zero sums at the row's first tile). Returns the
 // merged state's entry ``lane`` (lanes <= F_CNT; 0 on the others).
-template <int MODE>
-__device__ __forceinline__ float merge_tile(float* sm, int lane) {
-  using S = TileSmem<MODE>;
-  float* fr = sm + S::FR;
+// merge_tile of the partials fp [3][FOLD] into the running state fr;
+// first: the row's first tile (the running state is m = -1e30 and zero
+// sums, whatever fr holds)
+__device__ __forceinline__ float merge_partials(float* fr, const float* fp, bool first, int lane) {
   float v = 0.f;
   if (lane <= F_CNT) {
-    const float* fp = sm + S::FP;
-    const float m_run = fr[F_M];
+    const float m_run = first ? -1e30f : fr[F_M];
     const float m_new = fmaxf(fmaxf(m_run, fp[F_M]), fmaxf(fp[FOLD + F_M], fp[2 * FOLD + F_M]));
     if (lane == F_M) {
       v = m_new;
     } else if (lane == F_CNT) {
-      v = fr[F_CNT] + fp[F_CNT] + fp[FOLD + F_CNT] + fp[2 * FOLD + F_CNT];
+      v = (first ? 0.f : fr[F_CNT]) + fp[F_CNT] + fp[FOLD + F_CNT] + fp[2 * FOLD + F_CNT];
     } else {
-      v = fr[lane] * expf(m_run - m_new);
+      v = first ? 0.f : fr[lane] * expf(m_run - m_new);
       for (int w3 = 0; w3 < 3; ++w3) v += fp[w3 * FOLD + lane] * expf(fp[w3 * FOLD + F_M] - m_new);
     }
   }
@@ -710,6 +738,12 @@ __device__ __forceinline__ float merge_tile(float* sm, int lane) {
   if (lane <= F_CNT) fr[lane] = v;
   __syncwarp();
   return v;
+}
+
+template <int MODE>
+__device__ __forceinline__ float merge_tile(float* sm, int lane) {
+  using S = TileSmem<MODE>;
+  return merge_partials(sm + S::FR, sm + S::FP, false, lane);
 }
 
 // The SM count of the current device, after the kernel's dynamic shared

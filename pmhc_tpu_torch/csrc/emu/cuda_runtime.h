@@ -7,11 +7,20 @@
 // slot the kernel never wrote shows up in its results. What this cannot
 // show: anything of the card's compiler (registers, spills, launch
 // limits), timing, or races that a barrier here hides. PMHC_CUDA_EMU
-// selects the emulated bodies of the PTX primitives (csrc/mma_bf16.cuh).
+// selects the emulated bodies of the PTX primitives (csrc/mma_bf16.cuh,
+// csrc/wgmma.cuh); their runtime is here: the shared window's addresses
+// (the block's shared memory starts at EMU_SMEM_BASE, 16-byte but not
+// 1024-byte aligned, so a kernel that needs 1024-byte alignment must make
+// it), the named barriers (bar.sync / bar.arrive with an id and a thread
+// count) and each thread's queue of issued wgmma (run at wait_group).
 #pragma once
 #define PMHC_CUDA_EMU 1
 #include <atomic>
 #include <barrier>
+#include <condition_variable>
+#include <cstdlib>
+#include <deque>
+#include <mutex>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -48,13 +57,64 @@ inline float* emu_smem_ptr = nullptr;
 inline size_t emu_smem_floats = 0;
 inline size_t emu_max_smem = 0;
 
+// a named barrier: the threads that arrive in one phase, the count the
+// phase waits for, and the phase number the waiters watch
+struct EmuNamedBar {
+  std::mutex m;
+  std::condition_variable cv;
+  int arrived = 0, expected = 0;
+  unsigned phase = 0;
+};
+
 struct EmuBlock {
   std::barrier<>* bar;
   std::vector<std::barrier<>*> wbar;
   float shfl[32][32];
   uint32_t frag[32][32][6];  // per warp and lane: an mma's A (4) and B (2) registers
+  EmuNamedBar nbar[16];
 };
 inline thread_local EmuBlock* emu_blk = nullptr;
+
+// bar.sync (wait) / bar.arrive (no wait) on named barrier id of n threads;
+// the threads of one phase must agree on n
+inline void emu_named_bar(int id, int n, bool wait) {
+  if (id < 0 || id >= 16 || n <= 0 || n % 32) std::abort();
+  EmuNamedBar& b = emu_blk->nbar[id];
+  std::unique_lock<std::mutex> lk(b.m);
+  if (b.arrived == 0) b.expected = n;
+  else if (b.expected != n) std::abort();
+  const unsigned phase = b.phase;
+  if (++b.arrived == n) {
+    b.arrived = 0;
+    ++b.phase;
+    b.cv.notify_all();
+    return;
+  }
+  if (wait) b.cv.wait(lk, [&] { return b.phase != phase; });
+}
+
+// the shared window: addresses of the emulated block's shared memory
+inline constexpr uint32_t EMU_SMEM_BASE = 0x410;
+inline uint32_t emu_smem_addr(const void* p) {
+  return (uint32_t)(static_cast<const char*>(p) - reinterpret_cast<const char*>(emu_smem_ptr)) + EMU_SMEM_BASE;
+}
+inline void* emu_smem_at(uint32_t addr) { return reinterpret_cast<char*>(emu_smem_ptr) + (addr - EMU_SMEM_BASE); }
+
+// an issued wgmma: D (n / 2 floats of this thread), its A fragment
+// registers (or null: A through desc_a), B's descriptor, scale_d; queued
+// until the wait_group that retires its group
+struct EmuWgmma {
+  float* d;
+  int n;
+  const uint32_t* a;
+  uint64_t desc_a, desc_b;
+  int scale_d;
+};
+struct EmuWgmmaQueue {
+  std::vector<EmuWgmma> open;               // issued since the last commit
+  std::deque<std::vector<EmuWgmma>> groups;  // committed, oldest first
+};
+inline thread_local EmuWgmmaQueue emu_wgmma_q;
 
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_blk->wbar[threadIdx.x / 32]->arrive_and_wait(); }

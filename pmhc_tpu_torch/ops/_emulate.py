@@ -26,7 +26,7 @@ GXX_FLAGS = ["-std=c++20", "-O1", "-pthread", "-shared", "-fPIC"]
 SMEM_FLOATS = 58112  # the card's largest dynamic shared memory a block may opt into, in floats
 
 _TU = """#include "cuda_runtime.h"
-#include "{name}.cu"
+#include "{source}"
 namespace pmhc {{
 namespace {{
 alignas(16) float smem[{n}];
@@ -42,13 +42,18 @@ def gxx_path() -> str | None:
     return shutil.which("g++")
 
 
-def build_emulated(name: str) -> ctypes.CDLL:
-    """Compile (unless built) and load ``csrc/<name>.cu`` for the CPU."""
+def build_emulated(name: str, source: str | None = None) -> ctypes.CDLL:
+    """Compile (unless built) and load ``csrc/<name>.cu`` for the CPU, or
+    the CUDA source file ``source`` (a test's kernel, with the headers of
+    ``csrc/``) under the library name ``name``."""
     gxx = gxx_path()
     if gxx is None:
         raise RuntimeError("g++ not found: the kernel emulation needs a C++20 compiler")
-    tu = _TU.format(name=name, n=SMEM_FLOATS)
+    tu = _TU.format(source=source or f"{name}.cu", n=SMEM_FLOATS)
     h = hashlib.sha256((tu + " ".join(GXX_FLAGS)).encode())
+    if source is not None:
+        with open(source, "rb") as f:
+            h.update(f.read())
     for d in (CSRC, EMU_DIR):
         for f in sorted(os.listdir(d)):
             if f.endswith((".cu", ".cuh", ".h")):

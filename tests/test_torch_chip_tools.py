@@ -21,25 +21,25 @@ from pmhc_tpu_torch.ops import _emulate
 
 torch.set_num_threads(1)
 CSRC = os.path.join(chip_ab.REPO, "pmhc_tpu_torch", "csrc")
-SOURCES = {"pallas": "egnn_pallas.cu", "loop": "egnn_loop.cu"}
 CASES = [(k, n) for k, edits in sorted(chip_ab.ABLATIONS.items()) for n in sorted(edits)]
 
 
 def _source(kernel: str) -> str:
     """What ``chip_ab`` ablates: the kernel's ``.cu`` (the loop forward's
     phases are called there, from ``egnn_tile.cuh``)."""
-    with open(os.path.join(CSRC, SOURCES[kernel])) as f:
+    with open(os.path.join(CSRC, chip_ab.SOURCES[kernel] + ".cu")) as f:
         return f.read()
 
 
-def _syntax_check(gxx: str, path: str) -> subprocess.CompletedProcess:
+def _syntax_check(gxx: str, path: str, include: str) -> subprocess.CompletedProcess:
     """g++ -fsyntax-only of ``path`` (an ablated source) as the emulated
-    build compiles it, the headers from ``csrc/``."""
+    build compiles it, the headers from ``include`` (ablated headers),
+    then ``csrc/``."""
     tu = f"{path}.cpp"
     with open(tu, "w") as f:
         f.write(f'#include "cuda_runtime.h"\n#include "{path}"\n')
     return subprocess.run([gxx, "-std=c++20", "-fsyntax-only", "-pthread", "-I", _emulate.EMU_DIR,
-                           "-I", CSRC, tu], capture_output=True, text=True, timeout=300)
+                           "-I", include, "-I", CSRC, tu], capture_output=True, text=True, timeout=300)
 
 
 @pytest.fixture(scope="module")
@@ -51,17 +51,28 @@ def compiled(tmp_path_factory):
     out = tmp_path_factory.mktemp("ablated")
     paths = {}
     for kernel, name in CASES:
-        paths[kernel, name] = str(out / f"{kernel}_{name}.cu")
-        with open(paths[kernel, name], "w") as f:
-            f.write(chip_ab.ablated(_source(kernel), chip_ab.ABLATIONS[kernel][name]))
+        inc = out / f"{kernel}_{name}_include"
+        inc.mkdir()
+        paths[kernel, name] = (str(inc / f"{kernel}_{name}.cu"), str(inc))
+        for fname, text in chip_ab.ablated_files(kernel, chip_ab.ABLATIONS[kernel][name], CSRC).items():
+            with open(paths[kernel, name][0] if fname is None else inc / fname, "w") as f:
+                f.write(text)
     with ThreadPoolExecutor(4) as pool:
-        return dict(zip(paths, pool.map(lambda p: _syntax_check(gxx, p), paths.values())))
+        return dict(zip(paths, pool.map(lambda p: _syntax_check(gxx, *p), paths.values())))
 
 
 @pytest.mark.parametrize("kernel,name", CASES)
 def test_ablation_text_occurs_in_its_source(kernel, name):
-    src = _source(kernel)
-    assert chip_ab.ablated(src, chip_ab.ABLATIONS[kernel][name]) != src
+    """Every edit applies (``ablated`` raises on a text that does not
+    occur) and the ablation changes the kernel's source or a header."""
+    def original(fname):
+        if fname is None:
+            return _source(kernel)
+        with open(os.path.join(CSRC, fname)) as f:
+            return f.read()
+
+    files = chip_ab.ablated_files(kernel, chip_ab.ABLATIONS[kernel][name], CSRC)
+    assert any(text != original(fname) for fname, text in files.items())
 
 
 @pytest.mark.parametrize("kernel,name", CASES)

@@ -181,6 +181,95 @@ def test_fused_kernel_emulated_two_tiles(mode):
     _fused_matches_plain(_lib("egnn_fused", ef.bind), args, mode)
 
 
+# One warpgroup runs the wgmma primitives of csrc/wgmma.cuh as the fused
+# kernel's high mode does: B [N][64] (bf16-rounded from fp32) staged in
+# shared memory by the kernel side's sw128 layout, 1024-byte aligned from
+# the emulated block's unaligned shared-memory base as the fused kernel
+# aligns it; A [64][64] beside it in the same layout (N = 64: m64n64k16
+# with A through its descriptor) or in registers (N = 16: m64n16k16, each
+# warp's m16n8k16 A fragments of its 16 rows); four k-steps into one
+# accumulator (scale_d 0, then 1), read before its wait_group (still the
+# start values) and after (the product).
+_WGMMA_KERNEL = r"""
+#include "wgmma.cuh"
+#include "mma_bf16.cuh"
+namespace pmhc {
+namespace {
+template <int N>
+__global__ void wgmma_probe(const float* a, const float* b, float* d, float* before) {
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t raw = smem_addr(smem), pad = (1024u - (raw & 1023u)) & 1023u;
+  char* tb = reinterpret_cast<char*>(smem) + pad;
+  const int t = threadIdx.x, w = t / 32, l = t % 32, g = l / 4, c = l % 4;
+  for (int e = t; e < N * 32; e += 128)
+    *reinterpret_cast<uint32_t*>(tb + sw128(e / 32, 4 * (e % 32))) = pack_bf16x2(b[2 * e], b[2 * e + 1]);
+  char* ta = tb + 64 * 128;  // A [64][64] after B (N * 128 bytes, 1024-byte aligned)
+  for (int e = t; e < 64 * 32; e += 128)
+    *reinterpret_cast<uint32_t*>(ta + sw128(e / 32, 4 * (e % 32))) = pack_bf16x2(a[2 * e], a[2 * e + 1]);
+  fence_proxy_async();
+  __syncthreads();
+  uint32_t af[4][4];
+  for (int ks = 0; ks < 4; ++ks)
+    for (int q = 0; q < 4; ++q) {
+      const int row = 16 * w + g + 8 * (q & 1), col = 16 * ks + 8 * (q >> 1) + 2 * c;
+      af[ks][q] = pack_bf16x2(a[row * 64 + col], a[row * 64 + col + 1]);
+    }
+  float acc[N / 2];
+  for (int e = 0; e < N / 2; ++e) acc[e] = -1.f;
+  const uint64_t da = desc_sw128(smem_addr(ta)), db = desc_sw128(smem_addr(tb));
+  wgmma_fence();
+  for (int ks = 0; ks < 4; ++ks) {
+    if constexpr (N == 64) wgmma_64x64_ss(acc, da + 2 * ks, db + 2 * ks, ks > 0);
+    else wgmma_64x16_rs(acc, af[ks], db + 2 * ks, ks > 0);
+  }
+  wgmma_commit();
+  for (int e = 0; e < N / 2; ++e) before[t * (N / 2) + e] = acc[e];
+  wgmma_wait<0>();
+  fence_operand(acc);
+  for (int e = 0; e < N / 2; ++e) {
+    const int row = 16 * w + g + 8 * ((e & 3) >> 1), col = 8 * (e >> 2) + 2 * c + (e & 1);
+    d[row * N + col] = acc[e];
+  }
+}
+template <int N>
+int run(const float* a, const float* b, float* d, float* before) {
+  void* args[] = {&a, &b, &d, &before};
+  return (int)cudaLaunchKernel(wgmma_probe<N>, dim3(1), dim3(128), args, 1024 + 2 * 64 * 128, nullptr);
+}
+}  // namespace
+}  // namespace pmhc
+extern "C" int wgmma_probe_launch(const float* a, const float* b, float* d, float* before, int n) {
+  return n == 64 ? pmhc::run<64>(a, b, d, before) : pmhc::run<16>(a, b, d, before);
+}
+"""
+
+
+@pytest.mark.parametrize("n", [64, 16])
+def test_wgmma_emulated_matches_numpy(tmp_path, n):
+    """The emulated wgmma (m64n64k16 with A and B through their
+    descriptors and the 128-byte swizzle; m64n16k16 with A from registers)
+    against numpy's product of the same bf16-rounded operands: a wrong
+    descriptor field, swizzle, k-step advance or fragment layout moves
+    elements of D."""
+    if _emulate.gxx_path() is None:
+        pytest.skip("needs g++ to compile the kernels for the CPU")
+    import ctypes
+
+    src = tmp_path / "wgmma_probe.cu"
+    src.write_text(_WGMMA_KERNEL)
+    lib = _emulate.build_emulated("wgmma_probe", str(src))
+    lib.wgmma_probe_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    rng = np.random.default_rng(n)
+    a = rng.standard_normal((64, 64)).astype(np.float32)
+    b = rng.standard_normal((n, 64)).astype(np.float32)
+    d = np.zeros((64, n), np.float32)
+    before = np.zeros((128, n // 2), np.float32)
+    assert lib.wgmma_probe_launch(a.ctypes.data, b.ctypes.data, d.ctypes.data, before.ctypes.data, n) == 0
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16).double().numpy()  # noqa: E731
+    np.testing.assert_allclose(d, bf(a) @ bf(b).T, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(before, -1.0)  # the accumulator moves only at wait_group
+
+
 @pytest.mark.parametrize("layer,q_scale,batch_size,n_neighbours", [
     ("gnn1", 1.0, 3, None), ("gnn2", 1.3, 3, None),
     ("gnn1", 1.0, 2, None), ("gnn2", 1.0, 2, None),
