@@ -60,14 +60,23 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, ".chip_scratch", "build")
 ITERS = 200
 
-# the high kernel's head product (issue_head's twelve m64n64k16) and lin2
-# (epilogue_head's twelve m64n16k16; without them the epilogue is dead)
-_HIGH_HEAD_PRODUCT = ("    wgmma_64x64_ss(acc, da_h + 2 * ks, db_h + 2 * ks, ks > 0);\n"
-                      "    wgmma_64x64_ss(acc, da_h + 2 * ks, db_l + 2 * ks, 1);\n"
-                      "    wgmma_64x64_ss(acc, da_l + 2 * ks, db_h + 2 * ks, 1);\n", "")
-_HIGH_LIN2 = ("    wgmma_64x16_rs(lacc, lh[t], d2h + 2 * t, HEAD > 0 || t > 0);\n"
-              "    wgmma_64x16_rs(lacc, lh[t], d2l + 2 * t, 1);\n"
-              "    wgmma_64x16_rs(lacc, ll[t], d2h + 2 * t, 1);\n", "")
+# egnn_high.cuh, the high pipeline of the fused layer and the loop forward
+# (its head product, issue_head, is also the loop backward's): the head
+# product (issue_head's twelve m64n64k16), the lin2 (epilogue_head's twelve
+# m64n16k16; without them the epilogue is dead), the build, the fold, the
+# merge and the next item's prefetch
+_HIGH = "egnn_high.cuh"
+_HIGH_HEAD_PRODUCT = (_HIGH, "    wgmma_ss<64, 0, 0>(acc, da_h + 2 * ks, db_h + 2 * ks, ks > 0);\n"
+                             "    wgmma_ss<64, 0, 0>(acc, da_h + 2 * ks, db_l + 2 * ks, 1);\n"
+                             "    wgmma_ss<64, 0, 0>(acc, da_l + 2 * ks, db_h + 2 * ks, 1);\n", "")
+_HIGH_LIN2 = (_HIGH, "    wgmma_rs<16, 0>(lacc, lh[t], d2h + 2 * t, HEAD > 0 || t > 0);\n"
+                     "    wgmma_rs<16, 0>(lacc, lh[t], d2l + 2 * t, 1);\n"
+                     "    wgmma_rs<16, 0>(lacc, ll[t], d2h + 2 * t, 1);\n", "")
+_HIGH_BUILD = [(_HIGH, "      for (int j = pw; j < TILE; j += 4) {", "      for (int j = pw; j < 0; j += 4) {"),
+               (_HIGH, "      if (pt < TILE) {\n        float* gr", "      if (pt < 0) {\n        float* gr")]
+_HIGH_FOLD = (_HIGH, "      fold_rows(sm + S::GEOS + buf * TILE * GEO_LD,", "      if (false) fold_rows(sm + S::GEOS + buf * TILE * GEO_LD,")
+_HIGH_MERGE = (_HIGH, "  merge_partials(sm + S::FR, fp, tl == 0, lane);\n", "")
+_HIGH_PREFETCH = (_HIGH, "      if (it + 1 < items) {\n        const int nrow", "      if (it + 1 < 0) {\n        const int nrow")
 
 # kernel -> name -> [(text in the source, its replacement), ...]: each
 # removes one phase; every text must occur in the source (all its
@@ -93,14 +102,23 @@ ABLATIONS = {"pallas": {
 }, "loop": {
     # the three products of d(pre_heads) / hid tiles, one at a time
     # (each names its fp32, bf16 and high form; texts shared by the modes,
-    # as the high backward's build, staging, E and d(hid) loop, once)
+    # as the staging, phases B, E and F and the atomics, once). high: the
+    # backward's head products are the forward half's and part 1's
+    # (issue_head) and part 2's act^T
     "no_head_product": [("for (int k0 = 0; k0 < T; k0 += 4) {", "for (int k0 = 0; k0 < 0; k0 += 4) {"),
-                        ("        mma_bf16_16816(cc[nn], a[ks], b);\n", ""),
-                        ("        mma_split_16816(cc[nn], ah, al, bh, bl);\n", "")],
+                        ("        mma_bf16_16816(cc[nn], a[ks], b);\n", ""), _HIGH_HEAD_PRODUCT,
+                        ("    wgmma_ss<48, 0, 0>(accT, dwh + HEAD * D_HEAD + 2 * ks, dah + 2 * ks, ks > 0);\n"
+                         "    wgmma_ss<48, 0, 0>(accT, dwh + HEAD * D_HEAD + 2 * ks, dal + 2 * ks, 1);\n"
+                         "    wgmma_ss<48, 0, 0>(accT, dwl + HEAD * D_HEAD + 2 * ks, dah + 2 * ks, 1);\n", "")],
     "no_dwhm_product": [("p3_bf16(sm, warp, lane);", ""), ("p3_fp32(sm, warp, lane);", ""),
-                        ("p3_high(sm, warp, lane);", "")],
+                        ("    wgmma_rs<64, 1>(dwc, dh[s3], dah_mn + s3 * D_K16, s3 > 0);\n"
+                         "    wgmma_rs<64, 1>(dwc, dh[s3], dal_mn + s3 * D_K16, 1);\n"
+                         "    wgmma_rs<64, 1>(dwc, dl[s3], dah_mn + s3 * D_K16, 1);\n", "")],
     "no_dhid_product": [("for (int k0 = 0; k0 < HEADS; k0 += 4) {", "for (int k0 = 0; k0 < 0; k0 += 4) {"),
-                        ("for (int ks = 0; ks < HEADS / 16; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {")],
+                        ("for (int ks = 0; ks < HEADS / 16; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {"),
+                        ("    wgmma_rs<64, 1>(dhid, fh[t], bh, HEAD > 0 || t > 0);\n"
+                         "    wgmma_rs<64, 1>(dhid, fh[t], bl, 1);\n"
+                         "    wgmma_rs<64, 1>(dhid, fl[t], bh, 1);\n", "")],
     # d(a_j), d(edge) (2 per pair and column) and phase F's d(q_j), d(t_j)
     "no_atomics": [("  atomicAdd(reinterpret_cast<float4*>(io.daj + aj_at), v);\n", ""),
                    ("  atomicAdd(reinterpret_cast<float4*>(io.dedge + edge_at), v);\n", ""),
@@ -110,23 +128,31 @@ ABLATIONS = {"pallas": {
                    ("atomicAdd(io.dtj + ((size_t)b * NP + j) * 3 + c, dtj[c]);", "(void)dtj[c];")],
     "no_phases_BF": [("if (nbr) {", "if (false) {")],
     "no_E": [("constexpr int NS = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 0;", "constexpr int NS = HEAD < 0 ? 2 : 0;")],
-    "no_unit_sums": [("for (int jj = 0; jj < BT; ++jj) {", "for (int jj = 0; jj < 0; ++jj) {")],
+    "no_unit_sums": [("for (int jj = 0; jj < BT; ++jj) {", "for (int jj = 0; jj < 0; ++jj) {"),
+                     ("        us[h8][0] += dp;\n#pragma unroll\n"
+                      "        for (int s = 0; s < NE; ++s) us[h8][1 + s] = fmaf(dp, ej[s], us[h8][1 + s]);\n", ""),
+                     ("      us[h8][s] += __shfl_xor_sync(0xffffffffu, us[h8][s], 1);\n"
+                      "      us[h8][s] += __shfl_xor_sync(0xffffffffu, us[h8][s], 2);\n", "")],
     "no_build": [("for (int e = tid; e < (BT / 2) * (T / 2); e += THREADS) {",
                   "for (int e = tid; e < 0; e += THREADS) {"),
-                 ("for (int e = tid; e < BT * T / 4; e += THREADS) {", "for (int e = tid; e < 0; e += THREADS) {")],
+                 ("for (int e = tid; e < BT * T / 4; e += THREADS) {", "for (int e = tid; e < 0; e += THREADS) {"),
+                 ("    for (int j = pw; j < BT; j += 4) {", "    for (int j = pw; j < 0; j += 4) {")],
     "no_weight_staging": [("for (int e = tid; e < 4 * 8 * 4 * 32; e += THREADS) {",
                            "for (int e = tid; e < 0; e += THREADS) {"),
                           ("for (int e = tid; e < 8 * 16 * 32; e += THREADS) {",
                            "for (int e = tid; e < 0; e += THREADS) {"),
                           ("for (int e = tid; e < HEADS * T / 4; e += THREADS) {\n      const int u",
-                           "for (int e = tid; e < 0; e += THREADS) {\n      const int u")],
-    # the forward (egnn_tile.cuh's phases, called from the forward kernel)
-    "fwd_no_product": [("    tile_product<MODE>(sm, nj, warp, lane);\n", "")],
-    "fwd_no_fold": [("      fold_tile<MODE>(sm, nj, warp, lane);\n", "")],
-    "fwd_no_prefetch": [("      prefetch(it + 1, nrow / N != b || ntl != tl);\n", "")],
+                           "for (int e = tid; e < 0; e += THREADS) {\n      const int u"),
+                          ("  stage_high<S>(sm, tb, loop_w(in.w), tid);\n", "")],
+    # the forward (egnn_tile.cuh's phases, called from the forward kernel;
+    # high: egnn_high.cuh's)
+    "fwd_no_product": [("    tile_product<MODE>(sm, nj, warp, lane);\n", ""), _HIGH_HEAD_PRODUCT, _HIGH_LIN2],
+    "fwd_no_fold": [("      fold_tile<MODE>(sm, nj, warp, lane);\n", ""), _HIGH_FOLD],
+    "fwd_no_prefetch": [("      prefetch(it + 1, nrow / N != b || ntl != tl);\n", ""), _HIGH_PREFETCH],
     "fwd_no_build": [("    build_tile<MODE>(sm, sm + S::NR + L_AI, sm + S::NR + L_QI, sm + S::NR + L_TI, nj, tid, warp, lane);\n",
-                      "")],
-    "fwd_no_weight_staging": [("  stage_weights<MODE>(sm, loop_w(in.w), tid);\n", "")],
+                      ""), *_HIGH_BUILD],
+    "fwd_no_weight_staging": [("  stage_weights<MODE>(sm, loop_w(in.w), tid);\n", ""),
+                              ("  stage_high<S>(sm, tb, loop_w(in.w), tid);\n", "")],
 }, "fused": {
     # TPU kernels #1 / #2: the row group's node MLPs (a_i and the torsion
     # node term), the hid tile's build (and split) with the geometry
@@ -139,8 +165,7 @@ ABLATIONS = {"pallas": {
                       "    if (tl == 0 && r < 0) {\n      const float* nr"),
                      ("    node_terms<false>(w, off, sm + S::NS, sm + S::AI, sm + S::TN, rg, H, tid);\n", "")],
     "no_build": [("    build_tile<MODE>(sm, sm + S::AI + r * T, ns + N_Q, ns + N_T, nj, tid, warp, lane);\n", ""),
-                 ("      for (int j = pw; j < TILE; j += 4) {", "      for (int j = pw; j < 0; j += 4) {"),
-                 ("      if (pt < TILE) {\n        float* gr", "      if (pt < 0) {\n        float* gr")],
+                 *_HIGH_BUILD],
     "no_product": [("    tile_product<MODE>(sm, nj, warp, lane);\n", ""), _HIGH_HEAD_PRODUCT, _HIGH_LIN2],
     "no_head_product": [
         ("egnn_tile.cuh", "for (int k0 = 0; k0 < T; k0 += 4) {", "for (int k0 = 0; k0 < 0; k0 += 4) {"),
@@ -151,16 +176,13 @@ ABLATIONS = {"pallas": {
         ("egnn_tile.cuh", "reduce_scatter8<R>(part, sum, lane);", "for (int o = 0; o < R; ++o) sum[o] = acc[0][o];"),
         ("egnn_tile.cuh", "    mma_bf16_16816(lacc[0], la[0], b2);\n    mma_bf16_16816(lacc[1], la[1], b2);\n", ""),
         _HIGH_LIN2],
-    "no_fold": [("      fold_tile<MODE>(sm, nj, warp, lane);\n", ""),
-                ("      fold_rows(sm + S::GEOS + buf * TILE * GEO_LD,", "      if (false) fold_rows(sm + S::GEOS + buf * TILE * GEO_LD,")],
-    "no_merge": [("      merge_tile<MODE>(sm, lane);\n", ""),
-                 ("  merge_partials(sm + S::FR, fp, tl == 0, lane);\n", "")],
-    "no_prefetch": [("      prefetch(it + 1, nrow / N != b || ntl != tl);\n", ""),
-                    ("      if (it + 1 < items) {\n        const int nrow", "      if (it + 1 < 0) {\n        const int nrow")],
+    "no_fold": [("      fold_tile<MODE>(sm, nj, warp, lane);\n", ""), _HIGH_FOLD],
+    "no_merge": [("      merge_tile<MODE>(sm, lane);\n", ""), _HIGH_MERGE],
+    "no_prefetch": [("      prefetch(it + 1, nrow / N != b || ntl != tl);\n", ""), _HIGH_PREFETCH],
     "no_feature_mlp": [("    if (tl + 1 < tiles || r + 1 < rg) continue;", "    continue;"),
                        ("    feature_mlp<false>(w, off,", "    if (false) feature_mlp<false>(w, off,")],
     "no_weight_staging": [("  stage_weights<MODE>(sm, LoopW{", "  if (false) stage_weights<MODE>(sm, LoopW{"),
-                          ("  stage_high(sm, tb, LoopW{", "  if (false) stage_high(sm, tb, LoopW{")],
+                          ("  stage_high<S>(sm, tb, LoopW{", "  if (false) stage_high<S>(sm, tb, LoopW{")],
 }}
 
 SOURCES = {"pallas": "egnn_pallas", "loop": "egnn_loop", "fused": "egnn_fused"}
@@ -364,13 +386,20 @@ def fused_phases(lib, launch, labels: dict, card: str, launches: int = 20) -> No
 
 
 PHASES = ("row_setup", "S0_build", "S1_head_lin2", "S2_B", "S3_lin2_bwd", "P_products_F", "row_end")
+# the high kernel's phases of each role (egnn_loop.cu, RoleClock): consumers
+# (warps 0-7) and the producer (warps 8-11) share the counters' columns
+HIGH_PHASES = {"consumer": ("c_wait_full", "c_forward_half", "c_phase_B", "c_part1_dhid_E", "c_dhid_out_F_sums",
+                            "c_part2_dW2_units_dwhm", "c_ordered_adds"),
+               "producer": ("p_wait_empty", "p_row_inputs", "p_build_hid", "p_geometry")}
 
 
 def loop_phases(lib, launch, labels: dict, card: str, launches: int = 20) -> None:
     """The backward's cycle counters (built with -DPMHC_LOOP_PHASES) over
     ``launches`` launches: per phase, the cycles from barrier to barrier and
     each warp's cycles to its arrival at the closing barrier, per launch,
-    summed over the blocks and over each block's rows and tiles."""
+    summed over the blocks and over each block's rows and tiles. The high
+    kernel (``labels["mode"] == "high"``) counts per warp the cycles of each
+    phase of its role (``HIGH_PHASES``): the mean over the role's warps."""
     import ctypes
 
     import numpy as np
@@ -387,6 +416,15 @@ def loop_phases(lib, launch, labels: dict, card: str, launches: int = 20) -> Non
     torch.cuda.synchronize()
     assert lib.egnn_loop_bwd_phases(buf.ctypes.data) == 0
     per = buf.astype(np.float64) / launches
+    if labels.get("mode") == "high":
+        roles = {"consumer": slice(0, 8), "producer": slice(8, 12)}
+        print(json.dumps({"metric": "egnn_loop_bwd_high_phase_cycles", **labels, "launches": launches,
+                          "mean_warp_per_launch_all_blocks": {
+                              ph: float(per[roles[role], k].mean())
+                              for role, names in HIGH_PHASES.items() for k, ph in enumerate(names)},
+                          "warp_per_launch_all_blocks": {str(w): [float(x) for x in per[w]] for w in range(12)},
+                          "card": card}), flush=True)
+        return
     print(json.dumps({"metric": "egnn_loop_bwd_phase_cycles", **labels, "launches": launches,
                       "per_launch_all_blocks": {ph: float(per[12, k]) for k, ph in enumerate(PHASES)},
                       "warp_busy_per_launch_all_blocks": {

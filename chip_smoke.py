@@ -14,10 +14,9 @@ Phases (any failure exits non-zero):
    instructions (HMMA: mma.sync, 4,096 FLOP an HMMA.16816; HGMMA: wgmma,
    2,048 N an HGMMA.64xNx16) in the bf16 instantiations of the fused
    kernel and of the loop forward and backward, none in their fp32 ones,
-   and in their high ones (``--fast-f32``: each product three passes)
-   about three times the bf16 tensor-core FLOP: 2.5-3.5 times where high
-   runs mma.sync (the loop kernels), at least 2.5 times with every HGMMA
-   shape a multiple of three where it runs wgmma (the fused kernel);
+   and in their high ones (``--fast-f32``: each product three passes on
+   wgmma) HGMMA only, no HMMA, every HGMMA shape a multiple of three and
+   at least 2.5 times the bf16 tensor-core FLOP;
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (batch 64, both layer shapes, fp32, bf16 and high
    modes), with the tolerances stated below: the fused sampler layer, the
@@ -947,31 +946,31 @@ def check_modes(res: dict, who: str, prefix: str = "") -> None:
     """The tensor-core rule of one kernel's three instantiations, in the
     tensor-core FLOP of their SASS (``build_entries``): fp32 has none (no
     TF32 either), bf16 some, and high, whose every tensor-core product is
-    three passes over split operands, about three times bf16's. A high on
-    mma.sync (bf16's design) holds 2.5-3.5 times bf16's FLOP. A high on
-    wgmma (HGMMA) issues each product as three passes, so each HGMMA shape
-    comes a multiple of three times, and holds at least 2.5 times bf16's
-    FLOP: its static count measures code, not work, and its loops unroll
-    otherwise than bf16's mma.sync tiles (the fused high kernel unrolls a
-    64-row slab's four heads; the bf16 one a 32-row head task's k-step), so
-    no upper bound carries over. Neither fp32 nor bf16 under another name.
-    None may spill."""
+    three passes over split operands on wgmma, HGMMA and no HMMA: each
+    product issued as three passes, so each HGMMA shape comes a multiple of
+    three times, and at least 2.5 times bf16's FLOP. Its static count
+    measures code, not work, and its loops unroll otherwise than bf16's
+    mma.sync tiles (the high kernels unroll a 64-row slab's four heads; the
+    bf16 ones a head task's k-step), so no upper bound carries over.
+    Neither fp32 nor bf16 under another name. None may spill."""
     fp32, bf16, high = (res[prefix + m]["tc_flop"] for m in ("fp32", "bf16", "high"))
     wgmma = res[prefix + "high"].get("hgmma") or {}
-    three_passes = all(c % 3 == 0 for c in wgmma.values())
-    ok_high = (three_passes and high >= 2.5 * bf16) if wgmma else 2.5 * bf16 <= high <= 3.5 * bf16
+    hmma_high = res[prefix + "high"]["hmma"]
+    ok_high = bool(wgmma) and not hmma_high and all(c % 3 == 0 for c in wgmma.values()) and high >= 2.5 * bf16
     if fp32 or not bf16 or not ok_high:
         raise AssertionError(f"{who}: tensor-core FLOP fp32 {fp32} (must be 0), bf16 {bf16} (> 0), high {high} "
-                             f"(about 3x bf16; HGMMA by N {wgmma}, each a multiple of 3): {res}")
+                             f"(HGMMA by N {wgmma}, each a multiple of 3, at least 2.5x bf16; HMMA {hmma_high}, "
+                             f"must be 0): {res}")
     if any(res[prefix + m]["spill_bytes"] for m in MODE_ARGS):
         raise AssertionError(f"{who} spills registers: {res}")
 
 
 def check_loop_build(info: dict) -> dict:
     """Phase 2, the loop kernels' six instantiations (forward and backward,
-    ``<0>`` fp32, ``<1>`` bf16, ``<2>`` high): registers and spills from
-    ``ptxas -v`` and HMMA counts from the SASS, held to ``check_modes``.
-    Returns {kind: {"registers", "spill_bytes", "smem_bytes", "hmma"}}."""
+    ``<0>`` fp32, ``<1>`` bf16, ``<2>`` high: on wgmma, HGMMA): registers
+    and spills from ``ptxas -v`` and the tensor-core instructions in the
+    SASS, held to ``check_modes``. Returns {kind: {"registers",
+    "spill_bytes", "smem_bytes", "hmma", "hgmma", "tc_flop"}}."""
     def kind_of(name):
         for kind in ("fwd", "bwd"):
             for mode, arg in MODE_ARGS.items():

@@ -11,18 +11,19 @@
 // (forward) and autograd through it (backward).
 //
 // Forward. Per query row (b, i), over its NP neighbours, the recompute of
-// egnn_tile.cuh (a_i and the torsion node term come in pre-projected)
-// folded into the online-softmax accumulators m, D, GD[4], TA[7], TR[3],
-// CNT and the plain sum HID[T] of relu(pre) over all NP slots. It is
-// egnn_fused.cu's neighbour loop (the tile loop of egnn_tile.cuh) without
-// the node MLPs and the per-node finalize, which stay in torch so autograd
-// carries them; the design is described above the kernel
-// (egnn_loop_fwd_kernel).
+// egnn_tile.cuh (fp32, bf16) or egnn_high.cuh (high; a_i and the torsion
+// node term come in pre-projected) folded into the online-softmax
+// accumulators m, D, GD[4], TA[7], TR[3], CNT and the plain sum HID[T] of
+// relu(pre) over all NP slots. It is egnn_fused.cu's neighbour loop
+// without the node MLPs and the per-node finalize, which stay in torch so
+// autograd carries them; the designs are described above the kernel
+// (egnn_loop_fwd_kernel and its high specialization).
 //
 // Backward. Takes the cotangents of D, GD, TA, TR, HID (m and CNT carry
 // none) and the forward's final m, recomputes each neighbour tile
-// (flash-style) and runs the adjoints; the design is described above the
-// kernel (egnn_loop_bwd_kernel). Blocks are persistent (one per SM, each a
+// (flash-style) and runs the adjoints; the designs are described above the
+// kernels (egnn_loop_bwd_kernel: fp32, bf16; egnn_loop_bwd_kernel<MODE_HIGH>:
+// a wgmma warpgroup pipeline). Blocks are persistent (one per SM, each a
 // contiguous run of rows), so every weight gradient is summed in registers
 // or shared memory across all the rows of a block, written once per block
 // as a partial, and the partials are summed by a second kernel: no atomics
@@ -42,8 +43,9 @@
 // fp32 peak, >= ~0.01 ms at 989 TFLOP/s bf16; 700 W). fp32: its three
 // products are FFMA in register tiles; bf16: they run on the tensor cores,
 // and the CUDA-core work around them (recompute epilogues, adjoints, the
-// per-unit sums, atomics) sets the time; high: three tensor-core passes
-// per product (>= ~0.03 ms), with the splits on the CUDA cores.
+// per-unit sums, atomics) sets the time; high: three wgmma passes per
+// product (>= ~0.03 ms) over operands split once into swizzled tiles, the
+// CUDA-core work beside them on other warpgroups.
 //
 // bf16 mode: the rounding points of egnn_tile.cuh in the recompute;
 // in the backward, the operands of the dW2 and dwhm/dwrq outer products,
@@ -61,7 +63,7 @@
 // Interface: plain C, loaded with ctypes. Launchers allocate nothing,
 // launch on the caller's stream and return the CUDA error code.
 
-#include "egnn_tile.cuh"
+#include "egnn_high.cuh"
 
 #include <stddef.h>
 #include <stdint.h>
@@ -107,8 +109,8 @@ struct BwdIO {
 };
 
 // ---------------------------------------------------------------------------
-// Forward. Replaces the TPU kernels _make_loop_fwd (#4, fp32) and
-// _make_loop_fwd_g8 (#5, bf16). It is egnn_fused.cu's neighbour loop
+// Forward, fp32 and bf16 (high: below). Replaces the TPU kernels
+// _make_loop_fwd (#4, fp32) and _make_loop_fwd_g8 (#5, bf16). It is egnn_fused.cu's neighbour loop
 // (egnn_tile.cuh) without the node MLPs and the finalize: one persistent
 // block of 12 warps per SM over a contiguous run of query rows (8 at
 // B=64, N=16: 128 blocks, one wave), the weights staged once per block,
@@ -250,9 +252,104 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// high (--fast-f32; #4 with mm_maker("high")): egnn_high.cuh's wgmma
+// pipeline, the fused layer's high tile loop, with this kernel's row
+// groups and row end. A row group (RG rows) loads its rows' a_i, torsion
+// node term (+ bt1), q_i and t_i, which the kernel gets pre-projected (no
+// node MLPs); warpgroups 0-1 then run the head products and lin2 on wgmma
+// while warpgroup 2 builds the next (row, tile) item, folds the last and
+// merges the one before; after a row's last tile, warp 8 writes its m, D,
+// GD, TA, TR and CNT (LoopRows), and after the group all threads write its
+// rows' HID. No finalize. m is the exact maximum of the masked logits from
+// -1e30, as in the other modes.
+
+// The loop forward's row end: the row's merged fold state.
+struct LoopRows {
+  FwdOut out;
+  __device__ __forceinline__ void row_done(const float* fr, const float*, int row, int lane) const {
+    const float v = fr[lane <= F_CNT ? lane : 0];
+    if (lane == F_M) {
+      out.m[row] = v;
+    } else if (lane == F_D) {
+      out.D[row] = v;
+    } else if (lane < F_TA) {
+      out.GD[(size_t)row * 4 + lane - F_GD] = v;
+    } else if (lane < F_TR) {
+      out.TA[(size_t)row * NTOR + lane - F_TA] = v;
+    } else if (lane < F_CNT) {
+      out.TR[(size_t)row * 3 + lane - F_TR] = v;
+    } else if (lane == F_CNT) {
+      out.CNT[row] = v;
+    }
+  }
+};
+
+using HighSmemL = HighSmem<8>;  // node rows: q_i[4], t_i[3]
+
+template <>
+__global__ void __launch_bounds__(THREADS, 1)
+    egnn_loop_fwd_kernel<MODE_HIGH>(const Inputs in, const FwdOut out, int per_block) {
+  using S = HighSmemL;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t raw_addr = smem_addr(smem);
+  const uint32_t pad = (1024u - (raw_addr & 1023u)) & 1023u;
+  char* tb = reinterpret_cast<char*>(smem) + pad;  // 1024-byte aligned
+  float* sm = reinterpret_cast<float*>(tb);
+  const uint32_t tb_addr = raw_addr + pad;
+  const int rows = in.B * in.N;
+  const int row_lo = blockIdx.x * per_block;
+  const int row_hi = min(rows, row_lo + per_block);
+  if (row_lo >= row_hi) return;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int N = in.N, NP = in.NP;
+  const int tiles = (NP + TILE - 1) / TILE;
+  const int items = (row_hi - row_lo) * tiles;
+  const TileSrc src = tile_src(in.aj, in.qj, in.tj, in.edge, in.mask, NP);
+  PhaseClock clk;
+
+  if (tid >= PRODUCER) {  // the first item's raw inputs, while the weights are staged
+    const int b = row_lo / N;
+    prefetch_raw<128>(RawTile{sm + S::AJ, sm + S::ED, sm + S::QJ, sm + S::TJ, sm + S::MK}, src, b, row_lo - b * N,
+                      row_lo, 0, true, tid - PRODUCER);
+    cp_async_commit();
+  }
+  stage_high<S>(sm, tb, loop_w(in.w), tid);
+  fence_proxy_async();  // the staged B tiles, for wgmma's reads
+
+  for (int g0 = row_lo; g0 < row_hi; g0 += RG) {
+    const int rg = min(RG, row_hi - g0);
+    // -- the row group: a_i, the torsion node terms + bt1, q_i, t_i ---------
+    for (int e = tid; e < rg * T; e += THREADS) {
+      const size_t at = (size_t)g0 * T + e;
+      sm[S::AI + e] = in.ai[at];
+      sm[S::TN + e] = in.tor[at] + __ldg(in.w + O_BT1 + e % T);
+      sm[S::HS + e] = 0.f;
+    }
+    for (int e = tid; e < rg * S::NODE; e += THREADS) {
+      const int r = e / S::NODE, k = e - r * S::NODE;
+      const size_t rr = (size_t)(g0 + r);
+      sm[S::NS + e] = k < N_T ? in.qi[rr * 4 + k] : k < N_T + 3 ? in.ti[rr * 3 + k - N_T] : 0.f;
+    }
+    __syncthreads();
+
+    // -- the group's items: warpgroups 0-1 consume, warpgroup 2 produces ---
+    const int it0 = (g0 - row_lo) * tiles;
+    if (tid < PRODUCER) {
+      high_consumer<S>(sm, tb_addr, it0, rg * tiles, row_lo, g0, tiles, warp, lane, clk);
+    } else {
+      high_producer<S>(sm, tb, src, it0, rg * tiles, items, row_lo, g0, N, NP, tiles, warp, lane, LoopRows{out},
+                       clk);
+    }
+    __syncthreads();  // the group's HID sums are in
+    for (int e = tid; e < rg * T; e += THREADS) out.HID[(size_t)g0 * T + e] = sm[S::HS + e];
+  }
+}
+
 // ---------------------------------------------------------------------------
-// Backward. Replaces the TPU kernels _make_loop_bwd (#6, fp32) and
-// _make_loop_bwd_g8 (#7, bf16). One persistent block of 12 warps per SM
+// Backward, fp32 and bf16. Replaces the TPU kernels _make_loop_bwd (#6,
+// fp32) and _make_loop_bwd_g8 (#7, bf16). One persistent block of 12 warps per SM
 // over a contiguous run of query rows; the weights are staged once per
 // block. Per row, neighbours go in tiles of BT = 48 (NP = 96: two tiles;
 // NP <= MAXNP). Per tile, between barriers:
@@ -282,12 +379,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 // bf16 (template MODE): the products on mma.sync m16n8k16 (bf16 operands,
 // fp32 sums): whm as two sets of B fragments (for act and for d(hid)), the
 // lin2 forward from act's C fragments, the lin2 backward and dW2 from DP;
-// fp32: IEEE FMA in register tiles (no TF32, no tensor cores). high
-// (--fast-f32): the bf16 mode's tasks with each product split into three
-// mma.sync (mma_split_16816) on the fp32 mode's shared memory (whm, w2 and
-// the hid tile in fp32; split fragments of whm twice over would not fit
-// in 227 KB beside DW and DP): every fragment is split from fp32 where it
-// is loaded, and act stays unrounded in DP.
+// fp32: IEEE FMA in register tiles (no TF32, no tensor cores). (high:
+// egnn_loop_bwd_kernel<MODE_HIGH> below.)
 // The per-element state (q_j, q_j^-1, t_j of the row's batch element) is
 // cached for all NP neighbours and rebuilt when a block's run of rows
 // crosses into the next batch element.
@@ -306,8 +399,8 @@ constexpr int FR_LD = 12;              // cached per neighbour: q_j[4], q_j^-1[4
 constexpr int F_QJ = 0, F_INV = 4, F_TJ = 8;
 constexpr int CT_M = 0, CT_D = 1, CT_GD = 2, CT_TA = 6, CT_TR = 13, CT_N = 16;
 
-// Shared memory of the backward, in floats (every region 16-byte aligned);
-// high mode has the fp32 mode's regions (and one d(a_i) slot).
+// Shared memory of the fp32 and bf16 backward, in floats (every region
+// 16-byte aligned).
 template <int MODE>
 struct BSmem {
   static constexpr bool BF16 = MODE == MODE_BF16;
@@ -922,253 +1015,103 @@ __device__ __forceinline__ void p2_bf16(const float* sm, const BwdIO& io, size_t
   }
 }
 
-// A fragment (hi, lo) split from a row-major fp32 tile, p = &tile[g][2c]:
-// rows g and g + 8 (ld floats apart), columns 2c, 2c + 1 and 2c + 8, 2c + 9.
-__device__ __forceinline__ void split_a(const float* p, int ld, uint32_t (&h)[4], uint32_t (&l)[4]) {
-  const float2 x0 = *reinterpret_cast<const float2*>(p), x1 = *reinterpret_cast<const float2*>(p + 8 * ld);
-  const float2 x2 = *reinterpret_cast<const float2*>(p + 8), x3 = *reinterpret_cast<const float2*>(p + 8 * ld + 8);
-  split_bf16x2(x0.x, x0.y, h[0], l[0]);
-  split_bf16x2(x1.x, x1.y, h[1], l[1]);
-  split_bf16x2(x2.x, x2.y, h[2], l[2]);
-  split_bf16x2(x3.x, x3.y, h[3], l[3]);
+// Phase B of one neighbour (every mode): the value-path adjoints from its
+// lin2 outputs ov [13], geometry record g and the row's m and cotangents
+// ct [CT_N]: the lin2 outputs' cotangents d(out) into dv [13]; its d(q_j),
+// d(q_j^-1) first terms and d(t_j) into ov [0 .. 10] for phase F; d(t_i)
+// added to rq [4 .. 6].
+__device__ __forceinline__ void phase_b(const float* ct, const float* g, float* ov, float* dv, float* rq) {
+  const float* inv = g + G_INV;
+  const float* q_j = g + G_QJ;
+  const float* dx = g + G_DX;
+  const float logit = ov[0] - (1.f - g[G_MASK]) * 1e9f;
+  const float e = expf(logit - ct[CT_M]);
+  float ld[4], u[4], gdl[4], c1[4], c2[4], nb[11];
+  for (int c = 0; c < 4; ++c) ld[c] = 1.f / (1.f + expf(-ov[1 + c]));
+  qmul(ld, inv, u);
+  qmul(q_j, u, gdl);
+  const float mtr = ov[12];
+  float ge = ct[CT_D];
+  for (int c = 0; c < 4; ++c) ge += ct[CT_GD + c] * gdl[c];
+  for (int k = 0; k < NTOR; ++k) ge += ct[CT_TA + k] * ov[5 + k];
+  for (int c = 0; c < 3; ++c) ge += ct[CT_TR + c] * mtr * dx[c];
+  dv[0] = e * ge;
+  float dgd[4], dmtr = 0.f;
+  for (int c = 0; c < 4; ++c) dgd[c] = e * ct[CT_GD + c];
+  for (int k = 0; k < NTOR; ++k) dv[5 + k] = e * ct[CT_TA + k];
+  for (int c = 0; c < 3; ++c) {
+    const float dmr = e * ct[CT_TR + c];
+    dmtr += dmr * dx[c];
+    rq[4 + c] += dmr * mtr;
+    nb[8 + c] = -dmr * mtr;
+  }
+  dv[12] = dmtr;
+  // gdelta = q_j (x) u, u = ld (x) inv: d a = g (x) conj(b), d b = conj(a) (x) g
+  qconj(u, c1);
+  qmul(dgd, c1, nb);                   // d(q_j), first term
+  qconj(q_j, c1);
+  float du[4];
+  qmul(c1, dgd, du);
+  qconj(inv, c1);
+  qmul(du, c1, c2);                    // d(ld)
+  for (int c = 0; c < 4; ++c) dv[1 + c] = c2[c] * ld[c] * (1.f - ld[c]);
+  qconj(ld, c1);
+  qmul(c1, du, nb + 4);                // d(q_j^-1), first term
+  for (int c = 0; c < 11; ++c) ov[c] = nb[c];
 }
 
-// B fragment (hi, lo) of column n = g split from an fp32 row that holds k
-// contiguously, p = &row[2c]: k = 2c, 2c + 1 and 2c + 8, 2c + 9.
-__device__ __forceinline__ void split_b(const float* p, uint32_t (&h)[2], uint32_t (&l)[2]) {
-  const float2 x0 = *reinterpret_cast<const float2*>(p), x1 = *reinterpret_cast<const float2*>(p + 8);
-  split_bf16x2(x0.x, x0.y, h[0], l[0]);
-  split_bf16x2(x1.x, x1.y, h[1], l[1]);
-}
-
-// The same where k runs down a column, ld floats apart: p = &col[2c * ld].
-__device__ __forceinline__ void split_b_col(const float* p, int ld, uint32_t (&h)[2], uint32_t (&l)[2]) {
-  split_bf16x2(p[0], p[ld], h[0], l[0]);
-  split_bf16x2(p[8 * ld], p[9 * ld], h[1], l[1]);
-}
-
-// S1, high: s1_bf16's tile with each product split (hid and whm from the
-// fp32 tile and rows, split per k-step; act and the lin2 rows); act goes
-// to DP unrounded.
-template <int HEAD>
-__device__ __forceinline__ void s1_high(float* sm, const LoopW& w, int jb, int lane) {
-  using S = BSmem<MODE_HIGH>;
-  constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
-  constexpr int NE = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 1;
-  const int g = lane >> 2, c = lane & 3;
-  const int j = jb + g;
-  float e[2][NE];
-  pair_operands<HEAD>(sm + S::GEOS, j, e[0]);
-  pair_operands<HEAD>(sm + S::GEOS, j + 8, e[1]);
-  float lacc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 1
-  for (int t = 0; t < 4; ++t) {
-    float cc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t ah[4], al[4];
-      split_a(sm + S::HID + j * HF_LD + 16 * ks + 2 * c, HF_LD, ah, al);
-#pragma unroll
-      for (int nn = 0; nn < 2; ++nn) {
-        uint32_t bh[2], bl[2];
-        split_b(sm + S::WHM + (HEAD * T + 16 * t + 8 * nn + g) * HF_LD + 16 * ks + 2 * c, bh, bl);
-        mma_split_16816(cc[nn], ah, al, bh, bl);
-      }
-    }
-    uint32_t lh[4], ll[4];
-#pragma unroll
-    for (int nn = 0; nn < 2; ++nn) {
-      const int uu = 16 * t + 8 * nn + 2 * c;
-      float c0[5], c1[5];
-      unit_coef<false, HEAD>(w, sm + S::TN, uu, c0);
-      unit_coef<false, HEAD>(w, sm + S::TN, uu + 1, c1);
-#pragma unroll
-      for (int h8 = 0; h8 < 2; ++h8) {
-        const float x0 = fmaxf(cc[nn][2 * h8] + extra_term<HEAD>(e[h8], c0), 0.f);
-        const float x1 = fmaxf(cc[nn][2 * h8 + 1] + extra_term<HEAD>(e[h8], c1), 0.f);
-        split_bf16x2(x0, x1, lh[2 * nn + h8], ll[2 * nn + h8]);
-        *reinterpret_cast<float2*>(sm + S::DP + (j + 8 * h8) * DP_LD + HEAD * T + uu) = float2{x0, x1};
-      }
-    }
-    uint32_t bh[2] = {0u, 0u}, bl[2] = {0u, 0u};  // the head's lin2 rows, padded to n = 8 with zeros
-    if (g < R) split_b(sm + S::W2S + (R0 + g) * T + 16 * t + 2 * c, bh, bl);
-    mma_split_16816(lacc, lh, ll, bh, bl);
+// Phase F of neighbour j of batch element b (every mode): the quaternion
+// and distance adjoints from the row's q_i, the neighbour's geometry record
+// g, phase E's sums dl [RED_LD] and phase B's terms nb [11]: d(q_j) and
+// d(t_j) by atomics, d(q_i) and d(t_i) added to rq [0 .. 3] and [4 .. 6].
+__device__ __forceinline__ void phase_f(const BwdIO& io, const float* q_i, const float* g, const float* dl,
+                                        const float* nb, float* rq, int b, int NP, int j) {
+  const float* q_j = g + G_QJ;
+  const float* inv = g + G_INV;
+  const float* dx = g + G_DX;
+  float dqj[4], dinv[4], dtj[3], v[4], c1[4], t4[4];
+  for (int c = 0; c < 4; ++c) {
+    dqj[c] = nb[c];
+    dinv[c] = nb[4 + c];
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int n = 2 * c + r;
-    if (n < R) {
-      const float bias = __ldg(w.b2 + R0 + n);
-      sm[S::OUTS + j * DV_LD + R0 + n] = lacc[r] + bias;
-      sm[S::OUTS + (j + 8) * DV_LD + R0 + n] = lacc[2 + r] + bias;
-    }
+  for (int c = 0; c < 3; ++c) dtj[c] = nb[8 + c];
+  // local = inv (x) v, v = q_i (x) q_j
+  qmul(q_i, q_j, v);
+  qconj(v, c1);
+  qmul(dl, c1, t4);
+  for (int c = 0; c < 4; ++c) dinv[c] += t4[c];
+  qconj(inv, c1);
+  float dv4[4];
+  qmul(c1, dl, dv4);
+  qconj(q_j, c1);
+  qmul(dv4, c1, t4);
+  for (int c = 0; c < 4; ++c) rq[c] += t4[c];
+  qconj(q_i, c1);
+  qmul(c1, dv4, t4);
+  for (int c = 0; c < 4; ++c) dqj[c] += t4[c];
+  // inv = conj(q_j) / sq; divide by sq twice (the 1e-30 guard squared underflows)
+  const float sq = fmaxf(q_j[0] * q_j[0] + q_j[1] * q_j[1] + q_j[2] * q_j[2] + q_j[3] * q_j[3], 1e-30f);
+  qconj(q_j, c1);
+  float ds = 0.f;
+  for (int c = 0; c < 4; ++c) ds += dinv[c] * c1[c] / sq;
+  ds = -ds / sq;
+  dqj[0] += dinv[0] / sq;
+  for (int c = 1; c < 4; ++c) dqj[c] -= dinv[c] / sq;
+  for (int c = 0; c < 4; ++c) dqj[c] += 2.f * q_j[c] * ds;
+  // attention extras: -d2 and qdot^2
+  const float dd2 = -dl[4];
+  const float qdot = q_i[0] * q_j[0] + q_i[1] * q_j[1] + q_i[2] * q_j[2] + q_i[3] * q_j[3];
+  const float dqdot = 2.f * qdot * dl[5];
+  for (int c = 0; c < 3; ++c) {
+    rq[4 + c] += 2.f * dd2 * dx[c];
+    dtj[c] -= 2.f * dd2 * dx[c];
   }
-}
-
-// S3, high: s3_bf16 with each product split (d(out), act from DP, w2 from
-// W2S); phase E's sums take d(rot) and wrq unrounded.
-template <int HEAD>
-__device__ __forceinline__ void s3_high(float* sm, const LoopW& w, int jb, int nj, int lane, float* dw2) {
-  using S = BSmem<MODE_HIGH>;
-  constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
-  constexpr int NS = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 0;
-  const int g = lane >> 2, c = lane & 3;
-  const int ja = jb + g, jc = jb + g + 8;
-  auto dv = [&](int j, int o) { return j < nj && o < R ? sm[S::DOUT + j * DV_LD + R0 + o] : 0.f; };
-  float av[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const float* src = sm + S::DP + HEAD * T + 8 * nt + 2 * c;
-    const float2 x0 = *reinterpret_cast<const float2*>(src + ja * DP_LD);
-    const float2 x1 = *reinterpret_cast<const float2*>(src + jc * DP_LD);
-    av[nt][0] = x0.x, av[nt][1] = x0.y, av[nt][2] = x1.x, av[nt][3] = x1.y;
+  for (int c = 0; c < 4; ++c) {
+    rq[c] += dqdot * q_j[c];
+    dqj[c] += dqdot * q_i[c];
   }
-  {  // dW2[R0 + o][unit] += d(out)^T @ act (A rows = lin2 rows, k = neighbours)
-    uint32_t ah[4] = {0u, 0u, 0u, 0u}, al[4] = {0u, 0u, 0u, 0u};
-    split_bf16x2(dv(jb + 2 * c, g), dv(jb + 2 * c + 1, g), ah[0], al[0]);
-    split_bf16x2(dv(jb + 2 * c + 8, g), dv(jb + 2 * c + 9, g), ah[2], al[2]);
-    const float* ar = sm + S::DP + (jb + 2 * c) * DP_LD + HEAD * T + g;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      uint32_t bh[2], bl[2];
-      split_b_col(ar + 8 * nt, DP_LD, bh, bl);
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_split_16816(acc, ah, al, bh, bl);
-      if (g < R) {
-        dw2[(R0 + g) * T + 8 * nt + 2 * c] += acc[0];
-        dw2[(R0 + g) * T + 8 * nt + 2 * c + 1] += acc[1];
-      }
-    }
-    __syncwarp();
-  }
-  uint32_t ah[4] = {0u, 0u, 0u, 0u}, al[4] = {0u, 0u, 0u, 0u};
-  split_bf16x2(dv(ja, 2 * c), dv(ja, 2 * c + 1), ah[0], al[0]);
-  split_bf16x2(dv(jc, 2 * c), dv(jc, 2 * c + 1), ah[1], al[1]);
-  const float* w2r = sm + S::W2S + R0 * T;
-  float ev[2 * NS + 1];
-#pragma unroll
-  for (int k = 0; k < 2 * NS; ++k) ev[k] = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int un = 8 * nt + g, o = 2 * c;  // B[k = lin2 row][n = unit], k >= R zero
-    uint32_t bh[2] = {0u, 0u}, bl[2] = {0u, 0u};
-    split_bf16x2(o < R ? w2r[o * T + un] : 0.f, o + 1 < R ? w2r[(o + 1) * T + un] : 0.f, bh[0], bl[0]);
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_split_16816(acc, ah, al, bh, bl);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[k] = av[nt][k] > 0.f ? acc[k] : 0.f;
-    float* dst = sm + S::DP + HEAD * T + 8 * nt + 2 * c;
-    *reinterpret_cast<float2*>(dst + ja * DP_LD) = float2{acc[0], acc[1]};
-    *reinterpret_cast<float2*>(dst + jc * DP_LD) = float2{acc[2], acc[3]};
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int uu = 8 * nt + 2 * c + e;
-      float cs[NS + 1];
-      if constexpr (HEAD == 0) {
-        cs[0] = __ldg(w.wad + uu);
-        cs[1] = __ldg(w.waq + uu);
-      } else if constexpr (HEAD == 1) {
-#pragma unroll
-        for (int s = 0; s < NS; ++s) cs[s] = __ldg(w.wrq + uu * 4 + s);
-      }
-#pragma unroll
-      for (int h8 = 0; h8 < 2; ++h8)
-#pragma unroll
-        for (int s = 0; s < NS; ++s) ev[h8 * NS + s] = fmaf(cs[s], acc[2 * h8 + e], ev[h8 * NS + s]);
-    }
-  }
-  if constexpr (NS > 0) {
-    float h1[NS], h2[NS / 2];
-    rs_step<2 * NS, 2>(reinterpret_cast<float(&)[2 * NS]>(ev), h1, lane);
-    rs_step<NS, 1>(h1, h2, lane);
-#pragma unroll
-    for (int k = 0; k < NS / 2; ++k) {
-      const int f = c * (NS / 2) + k, h8 = f / NS, s = f % NS;
-      sm[S::REDS + (h8 ? jc : ja) * RED_LD + (HEAD == 0 ? 4 + s : s)] = h2[k];
-    }
-  }
-}
-
-// P, warps 0-7, high: p3_bf16 with each product split (d(pre_heads) from
-// DP, hid^T from the fp32 hid tile); the same C fragment slots in DW.
-__device__ __forceinline__ void p3_high(float* sm, int warp, int lane) {
-  using S = BSmem<MODE_HIGH>;
-  const int g = lane >> 2, c = lane & 3;
-  uint32_t ah[2][3][4], al[2][3][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int ks = 0; ks < 3; ++ks) {
-      const float* r = sm + S::DP + (16 * ks + 2 * c) * DP_LD + 32 * warp + 16 * mt + g;
-      split_bf16x2(r[0], r[DP_LD], ah[mt][ks][0], al[mt][ks][0]);
-      split_bf16x2(r[8], r[DP_LD + 8], ah[mt][ks][1], al[mt][ks][1]);
-      split_bf16x2(r[8 * DP_LD], r[9 * DP_LD], ah[mt][ks][2], al[mt][ks][2]);
-      split_bf16x2(r[8 * DP_LD + 8], r[9 * DP_LD + 8], ah[mt][ks][3], al[mt][ks][3]);
-    }
-  float4* dw = reinterpret_cast<float4*>(sm + S::DW) + warp * 16 * 32 + lane;
-#pragma unroll 2
-  for (int nt = 0; nt < 8; ++nt) {
-    uint32_t bh[3][2], bl[3][2];
-#pragma unroll
-    for (int ks = 0; ks < 3; ++ks)
-      split_b_col(sm + S::HID + (16 * ks + 2 * c) * HF_LD + 8 * nt + g, HF_LD, bh[ks], bl[ks]);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const float4 v = dw[(mt * 8 + nt) * 32];
-      float acc[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int ks = 0; ks < 3; ++ks) mma_split_16816(acc, ah[mt][ks], al[mt][ks], bh[ks], bl[ks]);
-      dw[(mt * 8 + nt) * 32] = float4{acc[0], acc[1], acc[2], acc[3]};
-    }
-  }
-}
-
-// P, d(hid), high: p2_bf16 with each product split (d(pre_heads) from DP,
-// whm from its fp32 rows, k = units down a column), relu-gated by the fp32
-// hid tile.
-template <int MT, int NN>
-__device__ __forceinline__ void p2_high(const float* sm, const BwdIO& io, size_t aj0, size_t ed0,
-                                        int nj, int mt0, int nt0, int lane, float (&dai)[4]) {
-  using S = BSmem<MODE_HIGH>;
-  const int g = lane >> 2, c = lane & 3;
-  float acc[MT][NN][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int nn = 0; nn < NN; ++nn) acc[m][nn][0] = acc[m][nn][1] = acc[m][nn][2] = acc[m][nn][3] = 0.f;
-#pragma unroll 2
-  for (int ks = 0; ks < HEADS / 16; ++ks) {
-    uint32_t bh[NN][2], bl[NN][2];
-#pragma unroll
-    for (int nn = 0; nn < NN; ++nn)
-      split_b_col(sm + S::WHM + (16 * ks + 2 * c) * HF_LD + 8 * (nt0 + nn) + g, HF_LD, bh[nn], bl[nn]);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      uint32_t ah[4], al[4];
-      split_a(sm + S::DP + (16 * (mt0 + m) + g) * DP_LD + 16 * ks + 2 * c, DP_LD, ah, al);
-#pragma unroll
-      for (int nn = 0; nn < NN; ++nn) mma_split_16816(acc[m][nn], ah, al, bh[nn], bl[nn]);
-    }
-  }
-#pragma unroll
-  for (int nn = 0; nn < NN; ++nn) {
-    const int col = 8 * (nt0 + nn) + 2 * c;
-    const float gh0 = sm[S::GH + col], gh1 = sm[S::GH + col + 1];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-#pragma unroll
-      for (int h8 = 0; h8 < 2; ++h8) {
-        const int j = 16 * (mt0 + m) + g + 8 * h8;
-        if (j < nj) {
-          const float2 hv = *reinterpret_cast<const float2*>(sm + S::HID + j * HF_LD + col);
-          const float d0 = hv.x > 0.f ? acc[m][nn][2 * h8] + gh0 : 0.f;
-          const float d1 = hv.y > 0.f ? acc[m][nn][2 * h8 + 1] + gh1 : 0.f;
-          const size_t at = (size_t)j * T + col;
-          dpre_out2(io, aj0 + at, ed0 + at, float2{d0, d1}, dai[2 * nn], dai[2 * nn + 1]);
-        }
-      }
-    }
-  }
+  for (int c = 0; c < 4; ++c) atomicAdd(io.dqj + ((size_t)b * NP + j) * 4 + c, dqj[c]);
+  for (int c = 0; c < 3; ++c) atomicAdd(io.dtj + ((size_t)b * NP + j) * 3 + c, dtj[c]);
 }
 
 // Built with -DPMHC_LOOP_PHASES (chip_ab.py --phases) the backward adds up,
@@ -1199,12 +1142,34 @@ __device__ __forceinline__ long long clock_now() {
 #define phase_sync(k) __syncthreads()
 #endif
 
+// The high kernel (egnn_loop_bwd_kernel<MODE_HIGH>) counts per warp the
+// cycles of each phase of its role (lane 0) in the same counters: a
+// consumer warp 0 waiting for FULL, 1 the forward half, 2 phase B, 3 part
+// 1, 4 the d(hid) epilogue, phase F and the item's sums, 5 part 2, 6 the
+// ordered adds (waiting for ADD included); a producer warp 0 waiting for
+// EMPTY, 1 the row's inputs, 2 the hid tile, 3 the geometry records.
+// Without the flag the marks are empty.
+struct RoleClock {
+#ifdef PMHC_LOOP_PHASES
+  long long t;
+  __device__ __forceinline__ void start() { t = clock_now(); }
+  __device__ __forceinline__ void mark(int k) {
+    const long long now = clock_now();
+    if ((threadIdx.x & 31) == 0) atomicAdd(&g_phase_cycles[threadIdx.x >> 5][k], (unsigned long long)(now - t));
+    t = now;
+  }
+#else
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+#endif
+};
+
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
     egnn_loop_bwd_kernel(const Inputs in, const BwdIO io) {
   using S = BSmem<MODE>;
   constexpr bool BF16 = MODE == MODE_BF16;
-  constexpr bool MMA = MODE != MODE_FP32;  // bf16 and high: the tasks on the tensor cores
+  static_assert(MODE != MODE_HIGH, "high mode: egnn_loop_bwd_kernel<MODE_HIGH>");
   extern __shared__ __align__(16) float smem[];
   float* sm = smem;
   const int tid = threadIdx.x;
@@ -1411,11 +1376,6 @@ __global__ void __launch_bounds__(THREADS, 1)
         else if (hd == 1) s1_bf16<1>(sm, lw, jb, lane);
         else if (hd == 2) s1_bf16<2>(sm, lw, jb, lane);
         else s1_bf16<3>(sm, lw, jb, lane);
-      } else if constexpr (MMA) {
-        if (hd == 0) s1_high<0>(sm, lw, jb, lane);
-        else if (hd == 1) s1_high<1>(sm, lw, jb, lane);
-        else if (hd == 2) s1_high<2>(sm, lw, jb, lane);
-        else s1_high<3>(sm, lw, jb, lane);
       } else {
         if (hd == 0) s1_fp32<0>(sm, lw, jb, lane);
         else if (hd == 1) s1_fp32<1>(sm, lw, jb, lane);
@@ -1430,48 +1390,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int jl = 32 * (warp - 8) + lane;
       const bool nbr = (warp == 8 || warp == 9) && jl < nj;
       if (nbr) {
-        const float* ct = sm + S::CT;
-        const float* g = sm + S::GEOS + jl * GEO_LD;
-        float* ov = sm + S::OUTS + jl * DV_LD;
-        float* rq = sm + S::RQL + jl * 8;
-        const float* inv = g + G_INV;
-        const float* q_j = g + G_QJ;
-        const float* dx = g + G_DX;
-        const float logit = ov[0] - (1.f - g[G_MASK]) * 1e9f;
-        const float e = expf(logit - ct[CT_M]);
-        float ld[4], u[4], gdl[4], c1[4], c2[4], nb[11];
-        for (int c = 0; c < 4; ++c) ld[c] = 1.f / (1.f + expf(-ov[1 + c]));
-        qmul(ld, inv, u);
-        qmul(q_j, u, gdl);
-        const float mtr = ov[12];
-        float ge = ct[CT_D];
-        for (int c = 0; c < 4; ++c) ge += ct[CT_GD + c] * gdl[c];
-        for (int k = 0; k < NTOR; ++k) ge += ct[CT_TA + k] * ov[5 + k];
-        for (int c = 0; c < 3; ++c) ge += ct[CT_TR + c] * mtr * dx[c];
-        float* dv = sm + S::DOUT + jl * DV_LD;
-        dv[0] = e * ge;
-        float dgd[4], dmtr = 0.f;
-        for (int c = 0; c < 4; ++c) dgd[c] = e * ct[CT_GD + c];
-        for (int k = 0; k < NTOR; ++k) dv[5 + k] = e * ct[CT_TA + k];
-        for (int c = 0; c < 3; ++c) {
-          const float dmr = e * ct[CT_TR + c];
-          dmtr += dmr * dx[c];
-          rq[4 + c] += dmr * mtr;
-          nb[8 + c] = -dmr * mtr;
-        }
-        dv[12] = dmtr;
-        // gdelta = q_j (x) u, u = ld (x) inv: d a = g (x) conj(b), d b = conj(a) (x) g
-        qconj(u, c1);
-        qmul(dgd, c1, nb);                   // d(q_j), first term
-        qconj(q_j, c1);
-        float du[4];
-        qmul(c1, dgd, du);
-        qconj(inv, c1);
-        qmul(du, c1, c2);                    // d(ld)
-        for (int c = 0; c < 4; ++c) dv[1 + c] = c2[c] * ld[c] * (1.f - ld[c]);
-        qconj(ld, c1);
-        qmul(c1, du, nb + 4);                // d(q_j^-1), first term
-        for (int c = 0; c < 11; ++c) ov[c] = nb[c];
+        phase_b(sm + S::CT, sm + S::GEOS + jl * GEO_LD, sm + S::OUTS + jl * DV_LD, sm + S::DOUT + jl * DV_LD,
+                sm + S::RQL + jl * 8);
       }
       phase_sync(3);
 
@@ -1481,11 +1401,6 @@ __global__ void __launch_bounds__(THREADS, 1)
         else if (hd == 1) s3_bf16<1>(sm, lw, jb, nj, lane, dw2);
         else if (hd == 2) s3_bf16<2>(sm, lw, jb, nj, lane, dw2);
         else s3_bf16<3>(sm, lw, jb, nj, lane, dw2);
-      } else if constexpr (MMA) {
-        if (hd == 0) s3_high<0>(sm, lw, jb, nj, lane, dw2);
-        else if (hd == 1) s3_high<1>(sm, lw, jb, nj, lane, dw2);
-        else if (hd == 2) s3_high<2>(sm, lw, jb, nj, lane, dw2);
-        else s3_high<3>(sm, lw, jb, nj, lane, dw2);
       } else {
         if (hd == 0) s3_fp32<0>(sm, lw, jb, nj, lane, dw2);
         else if (hd == 1) s3_fp32<1>(sm, lw, jb, nj, lane, dw2);
@@ -1503,8 +1418,6 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (warp < 8) {
           if constexpr (BF16) {
             p3_bf16(sm, warp, lane);
-          } else if constexpr (MMA) {
-            p3_high(sm, warp, lane);
           } else {
             p3_fp32(sm, warp, lane);
             p2b_fp32(sm, io, aj0, ed0, nj, warp, lane, dai);
@@ -1532,64 +1445,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         } else {
           // F: quaternion and distance adjoints (warps 8-9, lane = neighbour)
           if (nbr) {
-            const int j = j0 + jl;
-            const float* g = sm + S::GEOS + jl * GEO_LD;
-            const float* q_i = sm + S::NODE;
-            const float* q_j = g + G_QJ;
-            const float* inv = g + G_INV;
-            const float* dx = g + G_DX;
-            const float* dl = sm + S::REDS + jl * RED_LD;
-            const float* nb = sm + S::OUTS + jl * DV_LD;
-            float* rq = sm + S::RQL + jl * 8;
-            float dqj[4], dinv[4], dtj[3], v[4], c1[4], t4[4];
-            for (int c = 0; c < 4; ++c) {
-              dqj[c] = nb[c];
-              dinv[c] = nb[4 + c];
-            }
-            for (int c = 0; c < 3; ++c) dtj[c] = nb[8 + c];
-            // local = inv (x) v, v = q_i (x) q_j
-            qmul(q_i, q_j, v);
-            qconj(v, c1);
-            qmul(dl, c1, t4);
-            for (int c = 0; c < 4; ++c) dinv[c] += t4[c];
-            qconj(inv, c1);
-            float dv4[4];
-            qmul(c1, dl, dv4);
-            qconj(q_j, c1);
-            qmul(dv4, c1, t4);
-            for (int c = 0; c < 4; ++c) rq[c] += t4[c];
-            qconj(q_i, c1);
-            qmul(c1, dv4, t4);
-            for (int c = 0; c < 4; ++c) dqj[c] += t4[c];
-            // inv = conj(q_j) / sq; divide by sq twice (the 1e-30 guard squared underflows)
-            const float sq = fmaxf(q_j[0] * q_j[0] + q_j[1] * q_j[1] + q_j[2] * q_j[2] + q_j[3] * q_j[3],
-                                   1e-30f);
-            qconj(q_j, c1);
-            float ds = 0.f;
-            for (int c = 0; c < 4; ++c) ds += dinv[c] * c1[c] / sq;
-            ds = -ds / sq;
-            dqj[0] += dinv[0] / sq;
-            for (int c = 1; c < 4; ++c) dqj[c] -= dinv[c] / sq;
-            for (int c = 0; c < 4; ++c) dqj[c] += 2.f * q_j[c] * ds;
-            // attention extras: -d2 and qdot^2
-            const float dd2 = -dl[4];
-            const float qdot = q_i[0] * q_j[0] + q_i[1] * q_j[1] + q_i[2] * q_j[2] + q_i[3] * q_j[3];
-            const float dqdot = 2.f * qdot * dl[5];
-            for (int c = 0; c < 3; ++c) {
-              rq[4 + c] += 2.f * dd2 * dx[c];
-              dtj[c] -= 2.f * dd2 * dx[c];
-            }
-            for (int c = 0; c < 4; ++c) {
-              rq[c] += dqdot * q_j[c];
-              dqj[c] += dqdot * q_i[c];
-            }
-            for (int c = 0; c < 4; ++c) atomicAdd(io.dqj + ((size_t)b * NP + j) * 4 + c, dqj[c]);
-            for (int c = 0; c < 3; ++c) atomicAdd(io.dtj + ((size_t)b * NP + j) * 3 + c, dtj[c]);
+            phase_f(io, sm + S::NODE, sm + S::GEOS + jl * GEO_LD, sm + S::REDS + jl * RED_LD,
+                    sm + S::OUTS + jl * DV_LD, sm + S::RQL + jl * 8, b, NP, j0 + jl);
           }
           if constexpr (BF16) {
             p2_bf16<3, 2>(sm, io, aj0, ed0, nj, 0, 2 * (warp - 8), lane, dai);
-          } else if constexpr (MMA) {
-            p2_high<3, 2>(sm, io, aj0, ed0, nj, 0, 2 * (warp - 8), lane, dai);
           } else {
             p2a_fp32(sm, io, aj0, ed0, nj, warp, lane, dai);
           }
@@ -1597,7 +1457,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       // d(a_i): the lanes' sums over this tile's neighbours, reduced over the
       // lanes that share columns, added to slots of disjoint columns
-      if constexpr (MMA) {
+      if constexpr (BF16) {
         if (warp >= 8) {  // over the 8 g lanes; lanes 0-3: columns 16 (w - 8) + 8nn + 2c + r
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
@@ -1663,7 +1523,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float4* dw = reinterpret_cast<const float4*>(sm + S::DW) + warp * 16 * 32 + lane;
     for (int s = 0; s < 16; ++s) {
       const float4 v = dw[s * 32];
-      if constexpr (MMA) {  // slot mt * 8 + nt: units 32w + 16mt + g (+ 8), columns 8nt + 2c (+ 1)
+      if constexpr (BF16) {  // slot mt * 8 + nt: units 32w + 16mt + g (+ 8), columns 8nt + 2c (+ 1)
         const int u = 32 * warp + 16 * (s >> 3) + (lane >> 2), col = 8 * (s & 7) + 2 * (lane & 3);
         part[O_WHM + u * T + col] = v.x;
         part[O_WHM + u * T + col + 1] = v.y;
@@ -1699,6 +1559,690 @@ __global__ void __launch_bounds__(THREADS, 1)
     part[O_W2 + e] = sm[S::DW2 + e] + sm[S::DW2 + NOUT * T + e] + sm[S::DW2 + 2 * NOUT * T + e];
 }
 
+// ---------------------------------------------------------------------------
+// Backward, high (--fast-f32; TPU kernel #6 with mm_maker("high")):
+// egnn_loop_bwd_kernel<MODE_HIGH>, a wgmma warpgroup pipeline. It computes
+// what the fp32 / bf16 kernel above computes, with every tensor-core
+// product three wgmma over bf16 hi / lo operands (hi*hi + hi*lo + lo*hi,
+// fp32 sums). Measured before it (chip_ab.py --kernel loop --phases on the
+// mma.sync design, H100): S1 9.1k, P 11.3k, S3 5.3k, S0 3.2k and S2 1.3k
+// cycles a 48-neighbour tile, ~30k in all, each phase between block-wide
+// barriers; removing the three products saved only a third (PERF.md,
+// section 7). Design:
+// - Items are (row, 48-neighbour tile) pairs (NP <= 96: one or two a row),
+//   item it on consumer warpgroup it & 1 (warps 0-3, 4-7), so a row's two
+//   tiles run side by side and each warpgroup's CUDA-core work (epilogues,
+//   phases B and F, atomics) overlaps the other's tensor-core work. The
+//   producer warpgroup (warps 8-11) builds item it + 2's hid tile (split
+//   into bf16 hi and lo, written straight into wgmma's 128B-swizzle
+//   layout), geometry records and row inputs into buffer it & 1 while the
+//   consumer of that buffer finishes item it.
+// - A consumer's item, on an m64 slab whose rows 48-63 (warp 3) are dead
+//   (a quarter of the neighbour-row tensor work wasted; the unit-row
+//   products below use n48 and waste none):
+//   forward half  the fused high kernel's head product and lin2 (issue_head,
+//                 epilogue_head), the lin2 outputs to OUTS;
+//   phase B       on all four warps, lane = neighbour (12 a warp): where
+//                 the mma.sync design ran it on warps 8-9 between
+//                 barriers, the neighbours now spread over the warpgroup
+//                 and the other warpgroup's products run beside it;
+//                 d(out) in hi / lo to a swizzled tile (DOUT: o < 16 at
+//                 bytes 0-31, lo at 32-63 of a neighbour's row);
+//   part 1        rows = neighbours: per head the head product again and
+//                 d(act) = d(out) w2 (A = DOUT K-major, B = w2 MN-major),
+//                 d(pre) = relu'(pre) d(act), phase E's sums, and d(hid) +=
+//                 d(pre) whm from registers (B = whm MN-major); then d(hid)
+//                 + d(HID), gated by hid, to d(a_j), d(edge) (vector
+//                 atomics) and d(a_i);
+//   phase F       on all four warps, lane = neighbour; then the item's
+//                 d(a_i), d(q_i), d(t_i) (one fp32 atomic a value and
+//                 warpgroup: two partials onto zero, so the sum is
+//                 deterministic) and db2;
+//   part 2        rows = units: per head act^T = whm hid^T (n48) and
+//                 d(act)^T = w2^T d(out)^T (A = w2 MN-major), relu and
+//                 gate on the accumulators, the per-unit sums (bias, wad,
+//                 waq, wrq gradients, d(tor)) along the registers' rows,
+//                 and from registers dW2^T += act^T d(out) (B = DOUT
+//                 MN-major, n16) and dwhm += d(pre)^T hid (B = hid MN-major).
+//   One split copy of whm, w2, hid and d(out) serves every product, read
+//   K-major or MN-major through the descriptor's transpose bits: no
+//   operand is split from fp32 where it is loaded.
+// - dwhm and dW2 (fp32, shared memory) take each item's sums in item order,
+//   per head a named barrier from the previous item's warpgroup (ADD, two
+//   ids a head by item parity, so no phase can take a later item's wait):
+//   the fixed-order weight-gradient partials and egnn_loop_reduce_kernel
+//   stay, no atomics on weight gradients. The per-unit sums and db2 keep
+//   one slot per warpgroup, summed in order at the end.
+// - Named barriers: FULL (the producer arrives after fence.proxy.async, the
+//   consumer waits), EMPTY (the consumer arrives after its item, the
+//   producer waits before rebuilding the buffer), one per consumer
+//   warpgroup, ADD per head, and the producer's own.
+// Budget: shared memory 229,952 bytes (BHSmem) of 232,448 (the dwhm sums'
+// rows padded to 72 floats: at 64 the ordered adds hit one bank from 8
+// lanes); 168 registers of the 168 that 12 warps leave, no spills
+// (chip_smoke.py phase 2). d(a_i), d(tor), d(q_i) and d(t_i) take a
+// tile's partial by atomics onto outputs the launcher zeroes.
+// Measured after it (same tool, H100): 0.294 -> 0.217 ms a launch; a
+// consumer warpgroup's item takes ~43k cycles, the forward half 15k of
+// them, the producer waits most of its time (PERF.md, sections 6-7).
+
+constexpr int U_N = 640;  // per-unit sums: bias [HEADS], wad [T], waq [T], wrq [T][4]
+constexpr int U_WAD = HEADS, U_WAQ = HEADS + T, U_WRQ = HEADS + 2 * T;
+constexpr int P_N = 88;   // an item's per-warp partials: d(a_i) [T], d(q_i)[4], d(t_i)[3], db2 [13]
+constexpr int P_RQ = T, P_DB2 = T + 7;
+constexpr int OUT_LD = 17;  // lin2 outputs, then phase B's terms for F (odd: a lane per neighbour)
+constexpr int REDH_LD = 9;  // phase E's sums (RED_LD's columns; odd)
+constexpr int DW_LD = T + 8, DW2_LD = T + 1;  // dwhm, dW2 sums: a head's 8 g rows on distinct banks
+
+// Shared memory of the high backward: the bf16 sw128 tiles in bytes from a
+// 1024-byte aligned base, then the fp32 regions in floats from it.
+struct BHSmem {
+  static constexpr int WHM_H = 0;                      // whm hi [HEADS][T]: K-major (act), MN-major (d(hid))
+  static constexpr int WHM_L = WHM_H + HEADS * 128;    // whm lo
+  static constexpr int W2_H = WHM_L + HEADS * 128;     // lin2 hi [4 heads][16 rows][T]
+  static constexpr int W2_L = W2_H + 4 * 16 * 128;     // lin2 lo
+  static constexpr int HIDB = W2_L + 4 * 16 * 128;     // hid tiles [2 buffers][hi, lo][BT][T]
+  static constexpr int HID_HALF = BT * 128, HID_BUF = 2 * HID_HALF;
+  static constexpr int DOUTB = HIDB + 2 * HID_BUF;     // d(out) tiles [2 warpgroups][BT][128 bytes]
+  static constexpr int DOUT_SZ = BT * 128;
+  static constexpr int COEF = (DOUTB + 2 * DOUT_SZ) / 4;  // floats: [5][HEADS] extra-term c0..c3, cb
+  static constexpr int B2 = COEF + 5 * HEADS;             // [16]
+  static constexpr int DW = B2 + 16;                      // dwhm sums over the block's rows [HEADS][DW_LD]
+  static constexpr int DW2 = DW + HEADS * DW_LD;          // dW2 sums [NOUT][DW2_LD]
+  static constexpr int GEOS = DW2 + NOUT * DW2_LD + 3;    // per buffer: geometry records [2][BT][GEO_LD]
+  static constexpr int AI = GEOS + 2 * BT * GEO_LD;      // a_i [2][T]
+  static constexpr int TN = AI + 2 * T;                   // torsion node term + bt1 [2][T]
+  static constexpr int GH = TN + 2 * T;                   // d(HID) [2][T]
+  static constexpr int CT = GH + 2 * T;                   // m and the cotangents [2][CT_N]
+  static constexpr int NODE = CT + 2 * CT_N;              // q_i[4], t_i[3] [2][8]
+  static constexpr int OUTS = NODE + 2 * 8;               // per warpgroup: lin2 outputs, then B's terms [2][BT][OUT_LD]
+  static constexpr int REDS = OUTS + 2 * BT * OUT_LD;     // phase E's sums [2][BT][REDH_LD]
+  static constexpr int USUM = REDS + 2 * BT * REDH_LD;    // per-unit sums over its items [2][U_N]
+  static constexpr int DB2 = USUM + 2 * U_N;              // db2 sums over its items [2][16]
+  static constexpr int PART = DB2 + 2 * 16;               // an item's per-warp partials [2][4][P_N]
+  static constexpr int TOTAL = PART + 2 * 4 * P_N;
+  static constexpr size_t BYTES = TOTAL * sizeof(float) + 1024;
+  static_assert(HIDB % 1024 == 0 && DOUTB % 1024 == 0 && HID_HALF % 1024 == 0 && DOUT_SZ % 1024 == 0,
+                "wgmma operands need 1024-byte aligned tiles");
+  static_assert(COEF % 4 == 0 && DW % 4 == 0 && GEOS % 4 == 0 && USUM % 4 == 0 && PART % 4 == 0,
+                "16-byte regions");
+  static_assert(BYTES <= 232448, "high backward shared memory exceeds the H100's 227 KB");
+};
+
+// named barriers (0 is __syncthreads, 16 in all): FULL + buffer, EMPTY +
+// buffer, one per consumer warpgroup (WG + cw), the producer's own, and two
+// per head for the ordered adds (ADD + 2 head + parity: item it waits on
+// parity it & 1, where item it - 1 arrived, and arrives on the other; with
+// one id a head, a warpgroup's wait for item it + 2 could join the phase
+// that item it + 1's wait has not left yet)
+constexpr int BB_FULL = 1, BB_EMPTY = 3, BB_WG = 5, BB_PROD = 7, BB_ADD = 8;
+constexpr int BB_PRODUCER = 256;  // first producer thread (warps 8-11)
+// descriptor units: a head's 64 rows (K-major B / A), its 16 lin2 rows, a
+// 16-row k-step of an MN-major operand
+constexpr uint64_t D_HEAD = 64 * 128 >> 4, D_LIN2 = 16 * 128 >> 4, D_K16 = 16 * 128 >> 4;
+
+// The producer warpgroup (pt = thread - 256, pw = warp - 8): for each item
+// it (row row_lo + it / tiles, tile it % tiles), once its buffer's consumer
+// has released it (EMPTY; items 0 and 1 find it free), the row's inputs,
+// then the hid tile (relu(a_i + a_j + edge) split into hi and lo, rows
+// past the tile's neighbours zero; 8-byte loads of a_j and edge where both
+// are aligned, else 4-byte) and the geometry records, then FULL.
+__device__ __forceinline__ void bwd_high_producer(float* sm, char* tb, const Inputs& in, const BwdIO& io,
+                                                  int row_lo, int items, int tiles, int pw, int pt, int lane,
+                                                  RoleClock& clk) {
+  using S = BHSmem;
+  const int N = in.N, NP = in.NP;
+  const bool al2 = ((reinterpret_cast<uintptr_t>(in.aj) | reinterpret_cast<uintptr_t>(in.edge)) & 7) == 0;
+  for (int it = 0; it < items; ++it) {
+    const int buf = it & 1;
+    const int row = row_lo + it / tiles, tl = it % tiles, b = row / N, i = row - b * N;
+    const int j0 = tl * BT, nj = min(BT, NP - j0);
+    if (it >= 2) bar_sync(BB_EMPTY + buf, 256);
+    clk.mark(0);
+    if (pt < T) {
+      sm[S::AI + buf * T + pt] = in.ai[(size_t)row * T + pt];
+      sm[S::TN + buf * T + pt] = in.tor[(size_t)row * T + pt] + __ldg(in.w + O_BT1 + pt);
+      sm[S::GH + buf * T + pt] = io.gHID[(size_t)row * T + pt];
+    } else if (pt < T + CT_N) {
+      const int k = pt - T;
+      sm[S::CT + buf * CT_N + k] = k == CT_M ? io.m[row]
+                                   : k == CT_D ? io.gD[row]
+                                   : k < CT_TA ? io.gGD[(size_t)row * 4 + k - CT_GD]
+                                   : k < CT_TR ? io.gTA[(size_t)row * NTOR + k - CT_TA]
+                                               : io.gTR[(size_t)row * 3 + k - CT_TR];
+    } else if (pt < T + CT_N + 7) {
+      const int k = pt - T - CT_N;
+      sm[S::NODE + buf * 8 + k] = k < 4 ? in.qi[(size_t)row * 4 + k] : in.ti[(size_t)row * 3 + k - 4];
+    }
+    bar_sync(BB_PROD, 128);  // the row's inputs are in; the last item's build is done
+    clk.mark(1);
+    char* hh = tb + S::HIDB + buf * S::HID_BUF;
+    const float2 ai2 = *reinterpret_cast<const float2*>(sm + S::AI + buf * T + 2 * lane);
+#pragma unroll 4
+    for (int j = pw; j < BT; j += 4) {
+      float v0 = 0.f, v1 = 0.f;
+      if (j < nj) {
+        const float* x = in.aj + ((size_t)b * NP + j0 + j) * T + 2 * lane;
+        const float* y = in.edge + ((size_t)i * NP + j0 + j) * T + 2 * lane;
+        const float2 xv = al2 ? *reinterpret_cast<const float2*>(x) : float2{x[0], x[1]};
+        const float2 yv = al2 ? *reinterpret_cast<const float2*>(y) : float2{y[0], y[1]};
+        v0 = fmaxf(ai2.x + xv.x + yv.x, 0.f);
+        v1 = fmaxf(ai2.y + xv.y + yv.y, 0.f);
+      }
+      split_bf16x2(v0, v1, tile_word(hh, j, lane), tile_word(hh + S::HID_HALF, j, lane));
+    }
+    clk.mark(2);
+    if (pt < BT) {
+      float* gr = sm + S::GEOS + (buf * BT + pt) * GEO_LD;
+      if (pt < nj) {
+        const size_t at = (size_t)b * NP + j0 + pt;
+        geo_record<MODE_HIGH>(gr, in.qj + at * 4, in.tj + at * 3, in.mask[(size_t)row * NP + j0 + pt],
+                              sm + S::NODE + buf * 8, sm + S::NODE + buf * 8 + 4);
+      } else {
+        for (int cc = 0; cc < GEO; ++cc) gr[cc] = 0.f;
+      }
+    }
+    fence_proxy_async();  // the hid tile, for the consumers' wgmma reads
+    bar_arrive(BB_FULL + buf, 256);
+    clk.mark(3);
+  }
+}
+
+// Part 1, one head, rows = neighbours (the thread's rows g and g + 8 of
+// its warp's 16; warp 3's are dead): d(act) = d(out) w2, d(pre) = d(act)
+// where the forward half's act was positive (gate, bit k for element k),
+// phase E's sums into REDS, and d(hid) += d(pre) whm from d(pre)'s A
+// fragments (hi, lo), retired before the next head's fragments are built.
+template <int HEAD>
+__device__ __forceinline__ void part1_head(const float* sm, float (&dact)[32], float (&dhid)[32],
+                                           uint32_t (&fh)[4][4], uint32_t (&fl)[4][4], uint32_t gate,
+                                           uint64_t ddo, uint64_t w2h_mn, uint64_t w2l_mn, uint64_t whh_mn,
+                                           uint64_t whl_mn, float* reds, int r_lo, bool live, int c) {
+  using S = BHSmem;
+  constexpr int NS = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 0;
+  wgmma_fence();
+  wgmma_ss<64, 0, 1>(dact, ddo, w2h_mn + HEAD * D_LIN2, 0);
+  wgmma_ss<64, 0, 1>(dact, ddo, w2l_mn + HEAD * D_LIN2, 1);
+  wgmma_ss<64, 0, 1>(dact, ddo + 2, w2h_mn + HEAD * D_LIN2, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(dact);
+  const float* coef = sm + S::COEF + HEAD * T;
+  float ev[2][NS + 1];
+#pragma unroll
+  for (int h8 = 0; h8 < 2; ++h8)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) ev[h8][s] = 0.f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {
+      const int u = 16 * t + 8 * nn + 2 * c;  // the chunk's units u, u + 1 of the head
+      float c0[4], c1[4];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float2 cv = *reinterpret_cast<const float2*>(coef + s * HEADS + u);
+        c0[s] = cv.x;
+        c1[s] = cv.y;
+      }
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const int k = 4 * (2 * t + nn) + 2 * h8;
+        const float d0 = (gate >> k) & 1u ? dact[k] : 0.f;
+        const float d1 = (gate >> (k + 1)) & 1u ? dact[k + 1] : 0.f;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) ev[h8][s] = fmaf(c0[s], d0, fmaf(c1[s], d1, ev[h8][s]));
+        split_bf16x2(d0, d1, fh[t][2 * nn + h8], fl[t][2 * nn + h8]);
+      }
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {  // d(hid) += d(pre) whm: k = the head's units 16t .. 16t + 15
+    const uint64_t bh = whh_mn + HEAD * 4 * D_K16 + t * D_K16, bl = whl_mn + HEAD * 4 * D_K16 + t * D_K16;
+    wgmma_rs<64, 1>(dhid, fh[t], bh, HEAD > 0 || t > 0);
+    wgmma_rs<64, 1>(dhid, fh[t], bl, 1);
+    wgmma_rs<64, 1>(dhid, fl[t], bh, 1);
+  }
+  wgmma_commit();
+  if constexpr (NS > 0) {  // E: the row's sums over the head's units, over the 4 c lanes
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        ev[h8][s] += __shfl_xor_sync(0xffffffffu, ev[h8][s], 1);
+        ev[h8][s] += __shfl_xor_sync(0xffffffffu, ev[h8][s], 2);
+      }
+    if (live && c == 0) {
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8)
+#pragma unroll
+        for (int s = 0; s < NS; ++s) reds[(r_lo + 8 * h8) * REDH_LD + (HEAD == 0 ? 4 + s : s)] = ev[h8][s];
+    }
+  }
+  wgmma_wait<0>();
+  fence_operand(dhid);
+  fence_operand(fh);
+  fence_operand(fl);
+}
+
+// Part 2, one head, rows = the head's units (u0 = 16 w4 + g and u0 + 8),
+// columns = the item's 48 neighbours (8i + 2c + e, i < 6): act^T and
+// d(act)^T, relu and gate, the per-unit sums (us: bias, then head 0's -d2
+// and qdot^2 terms or head 1's local quat terms), and the A fragments of
+// act^T and d(pre)^T (k = neighbours) for dW2 and dwhm, issued into dw2 and
+// dwc and left in flight (ah .. dl hold until the caller's wait).
+template <int HEAD>
+__device__ __forceinline__ void part2_head(const float* sm, const float* geo, const float* tn, float (&accT)[24],
+                                           float (&dT)[24], float (&dw2)[8], float (&dwc)[32],
+                                           uint32_t (&ah)[3][4], uint32_t (&al)[3][4], uint32_t (&dh)[3][4],
+                                           uint32_t (&dl)[3][4], float (&us)[2][5], uint64_t dwh, uint64_t dwl,
+                                           uint64_t dah, uint64_t dal, uint64_t dah_mn, uint64_t dal_mn,
+                                           uint64_t ddo, uint64_t ddo_mn, uint64_t w2h_mn, uint64_t w2l_mn,
+                                           int u0, int c) {
+  using S = BHSmem;
+  constexpr int NE = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 0;  // the neighbour operands of the extra term
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    wgmma_ss<48, 0, 0>(accT, dwh + HEAD * D_HEAD + 2 * ks, dah + 2 * ks, ks > 0);
+    wgmma_ss<48, 0, 0>(accT, dwh + HEAD * D_HEAD + 2 * ks, dal + 2 * ks, 1);
+    wgmma_ss<48, 0, 0>(accT, dwl + HEAD * D_HEAD + 2 * ks, dah + 2 * ks, 1);
+  }
+  wgmma_ss<48, 1, 0>(dT, w2h_mn + HEAD * D_LIN2, ddo, 0);
+  wgmma_ss<48, 1, 0>(dT, w2h_mn + HEAD * D_LIN2, ddo + 2, 1);
+  wgmma_ss<48, 1, 0>(dT, w2l_mn + HEAD * D_LIN2, ddo, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(accT);
+  fence_operand(dT);
+  const float* coef = sm + S::COEF + HEAD * T;
+  float cu[2][5];
+#pragma unroll
+  for (int h8 = 0; h8 < 2; ++h8) {
+    const int u = u0 + 8 * h8;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) cu[h8][r] = r < (HEAD == 1 ? 4 : NE) ? coef[r * HEADS + u] : 0.f;
+    cu[h8][4] = HEAD == 2 ? tn[u] : coef[4 * HEADS + u];
+#pragma unroll
+    for (int s = 0; s < 5; ++s) us[h8][s] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float ej[4] = {0.f, 0.f, 0.f, 0.f};
+      pair_operands<HEAD>(geo, 8 * i + 2 * c + e, ej);
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const int k = 4 * i + 2 * h8 + e;
+        const float pre = accT[k] + extra_term<HEAD>(ej, cu[h8]);
+        const float dp = pre > 0.f ? dT[k] : 0.f;
+        accT[k] = fmaxf(pre, 0.f);
+        dT[k] = dp;
+        us[h8][0] += dp;
+#pragma unroll
+        for (int s = 0; s < NE; ++s) us[h8][1 + s] = fmaf(dp, ej[s], us[h8][1 + s]);
+      }
+    }
+  }
+#pragma unroll
+  for (int s3 = 0; s3 < 3; ++s3) {  // k-step s3: neighbours 16 s3 .. 16 s3 + 15 (chunks 2 s3, 2 s3 + 1)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 8 * s3 + 4 * (q >> 1) + 2 * (q & 1);
+      split_bf16x2(accT[k], accT[k + 1], ah[s3][q], al[s3][q]);
+      split_bf16x2(dT[k], dT[k + 1], dh[s3][q], dl[s3][q]);
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int s3 = 0; s3 < 3; ++s3) {  // dW2^T += act^T d(out): B = d(out) rows (k = neighbours), o along them
+    wgmma_rs<16, 1>(dw2, ah[s3], ddo_mn + s3 * D_K16, s3 > 0);
+    wgmma_rs<16, 1>(dw2, ah[s3], ddo_mn + 2 + s3 * D_K16, 1);
+    wgmma_rs<16, 1>(dw2, al[s3], ddo_mn + s3 * D_K16, 1);
+  }
+#pragma unroll
+  for (int s3 = 0; s3 < 3; ++s3) {  // dwhm += d(pre)^T hid: B = the hid tile's rows (k = neighbours)
+    wgmma_rs<64, 1>(dwc, dh[s3], dah_mn + s3 * D_K16, s3 > 0);
+    wgmma_rs<64, 1>(dwc, dh[s3], dal_mn + s3 * D_K16, 1);
+    wgmma_rs<64, 1>(dwc, dl[s3], dah_mn + s3 * D_K16, 1);
+  }
+  wgmma_commit();
+#pragma unroll
+  for (int h8 = 0; h8 < 2; ++h8)  // the unit sums over the 4 c lanes
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      us[h8][s] += __shfl_xor_sync(0xffffffffu, us[h8][s], 1);
+      us[h8][s] += __shfl_xor_sync(0xffffffffu, us[h8][s], 2);
+    }
+}
+
+// The item's dwhm and dW2 sums of head HEAD (rows u0, u0 + 8 of the head)
+// into DW and DW2, after the previous item's (ADD), before the next.
+template <int HEAD>
+__device__ __forceinline__ void add_head(float* sm, const float (&dwc)[32], const float (&dw2)[8], int it,
+                                         int items, int u0, int c) {
+  using S = BHSmem;
+  constexpr int R0 = row0_of(HEAD), R = rows_of(HEAD);
+  if (it > 0) bar_sync(BB_ADD + 2 * HEAD + (it & 1), 256);
+#pragma unroll
+  for (int h8 = 0; h8 < 2; ++h8) {
+    const int u = u0 + 8 * h8;
+    float* dw = sm + S::DW + (HEAD * T + u) * DW_LD + 2 * c;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float2 v = *reinterpret_cast<float2*>(dw + 8 * i);
+      v.x += dwc[4 * i + 2 * h8];
+      v.y += dwc[4 * i + 2 * h8 + 1];
+      *reinterpret_cast<float2*>(dw + 8 * i) = v;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int o = 8 * i + 2 * c + e;
+        if (o >= R0 && o < R0 + R) sm[S::DW2 + o * DW2_LD + u] += dw2[4 * i + 2 * h8 + e];
+      }
+  }
+  if (it + 1 < items) bar_arrive(BB_ADD + 2 * HEAD + ((it + 1) & 1), 256);
+}
+
+// The unit sums of head HEAD (us, rows u0 and u0 + 8, lane c == 0) into the
+// warpgroup's slots; head 2's bias sum is also the row's d(tor) partial.
+template <int HEAD>
+__device__ __forceinline__ void unit_sums(float* usum, const BwdIO& io, const float (&us)[2][5], int row, int u0,
+                                          int c) {
+  if (c != 0) return;
+#pragma unroll
+  for (int h8 = 0; h8 < 2; ++h8) {
+    const int u = u0 + 8 * h8;
+    usum[HEAD * T + u] += us[h8][0];
+    if constexpr (HEAD == 0) {
+      usum[U_WAD + u] += us[h8][1];
+      usum[U_WAQ + u] += us[h8][2];
+    } else if constexpr (HEAD == 1) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) usum[U_WRQ + 4 * u + s] += us[h8][1 + s];
+    } else if constexpr (HEAD == 2) {
+      atomicAdd(io.dtor + (size_t)row * T + u, us[h8][0]);
+    }
+  }
+}
+
+// A consumer warpgroup (cw = warp / 4; w4 = warp % 4, g, c): items cw,
+// cw + 2, ... in buffer cw.
+__device__ __forceinline__ void bwd_high_consumer(float* sm, char* tb, uint32_t tb_addr, const Inputs& in,
+                                                  const BwdIO& io, int row_lo, int items, int tiles, int warp,
+                                                  int lane, RoleClock& clk) {
+  using S = BHSmem;
+  const int cw = warp >> 2, w4 = warp & 3, g = lane >> 2, c = lane & 3, t128 = threadIdx.x & 127;
+  const int N = in.N, NP = in.NP;
+  const bool live = w4 < 3;
+  const int r_lo = 16 * w4 + g, r_hi = r_lo + 8;  // part 1: the thread's neighbour rows; part 2: its units
+  const int buf = cw;
+  const uint64_t dwh = desc_sw128(tb_addr + S::WHM_H), dwl = desc_sw128(tb_addr + S::WHM_L);
+  const uint64_t d2h = desc_sw128(tb_addr + S::W2_H), d2l = desc_sw128(tb_addr + S::W2_L);
+  const uint64_t whh_mn = desc_sw128_mn(tb_addr + S::WHM_H), whl_mn = desc_sw128_mn(tb_addr + S::WHM_L);
+  const uint64_t w2h_mn = desc_sw128_mn(tb_addr + S::W2_H), w2l_mn = desc_sw128_mn(tb_addr + S::W2_L);
+  const uint32_t hid_addr = tb_addr + S::HIDB + buf * S::HID_BUF, dout_addr = tb_addr + S::DOUTB + cw * S::DOUT_SZ;
+  const uint64_t dah = desc_sw128(hid_addr), dal = desc_sw128(hid_addr + S::HID_HALF);
+  const uint64_t dah_mn = desc_sw128_mn(hid_addr), dal_mn = desc_sw128_mn(hid_addr + S::HID_HALF);
+  const uint64_t ddo = desc_sw128(dout_addr), ddo_mn = desc_sw128_mn(dout_addr);
+  char* hh = tb + S::HIDB + buf * S::HID_BUF;
+  char* dout = tb + S::DOUTB + cw * S::DOUT_SZ;
+  const float* geo = sm + S::GEOS + buf * BT * GEO_LD;
+  const float* tn = sm + S::TN + buf * T;
+  const float* gh = sm + S::GH + buf * T;
+  float* outs = sm + S::OUTS + cw * BT * OUT_LD;
+  float* reds = sm + S::REDS + cw * BT * REDH_LD;
+  float* usum = sm + S::USUM + cw * U_N;
+  float* part = sm + S::PART + cw * 4 * P_N;
+  for (int it = cw; it < items; it += 2) {
+    const int row = row_lo + it / tiles, tl = it % tiles, b = row / N, i = row - b * N;
+    const int j0 = tl * BT, nj = min(BT, NP - j0);
+    bar_sync(BB_FULL + buf, 256);
+    clk.mark(0);
+
+    // -- forward half: act and the lin2 outputs (two head accumulators), and
+    // -- relu's gate of each head for part 1 --------------------------------
+    uint32_t gate[4] = {0u, 0u, 0u, 0u};
+    {
+      // the extra terms' operands (head 0: -d2, qdot^2; head 1: the local
+      // quat) read from the rows' geometry records (a dead warp's rows past
+      // the buffer's are never used)
+      const float* g_lo = geo + r_lo * GEO_LD;
+      const float* g_hi = geo + r_hi * GEO_LD;
+      float acc0[32], acc1[32], lacc[8];
+      uint32_t lh[4][4], ll[4][4];
+      issue_head(acc0, dah, dal, dwh, dwl);
+      issue_head(acc1, dah, dal, dwh + D_HEAD, dwl + D_HEAD);
+      wgmma_wait<1>();
+      epilogue_head<S, 0, true>(sm, acc0, d2h, d2l, g_lo + G_ND2, g_hi + G_ND2, tn, lh, ll, lacc, live, c, gate);
+      issue_head(acc0, dah, dal, dwh + 2 * D_HEAD, dwl + 2 * D_HEAD);
+      wgmma_wait<1>();
+      epilogue_head<S, 1, true>(sm, acc1, d2h + D_LIN2, d2l + D_LIN2, g_lo + G_LQ, g_hi + G_LQ, tn, lh, ll, lacc,
+                                live, c, gate + 1);
+      issue_head(acc1, dah, dal, dwh + 3 * D_HEAD, dwl + 3 * D_HEAD);
+      wgmma_wait<1>();
+      epilogue_head<S, 2, true>(sm, acc0, d2h + 2 * D_LIN2, d2l + 2 * D_LIN2, g_lo, g_hi, tn, lh, ll, lacc, live, c,
+                                gate + 2);
+      wgmma_wait<0>();
+      epilogue_head<S, 3, true>(sm, acc1, d2h + 3 * D_LIN2, d2l + 3 * D_LIN2, g_lo, g_hi, tn, lh, ll, lacc, live, c,
+                                gate + 3);
+      wgmma_wait<0>();
+      fence_operand(lacc);
+      fence_operand(lh);
+      fence_operand(ll);
+      if (live) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int o = 8 * (e >> 2) + 2 * c + (e & 1);
+          if (o < NOUT) outs[((e & 2) ? r_hi : r_lo) * OUT_LD + o] = lacc[e] + sm[S::B2 + o];
+        }
+      }
+    }
+    bar_sync(BB_WG + cw, 128);  // the lin2 outputs
+    clk.mark(1);
+
+    // -- phase B: lane = neighbour jl (12 a warp); d(out) to the DOUT tile,
+    // -- its d(t_i) term to the lin2 output row (OUTS 13-15, read by F), the
+    // -- warp's db2 partial --------------------------------------------------
+    const int jl = 12 * w4 + lane;
+    const bool nbr = lane < 12 && jl < nj;
+    {
+      float rq[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float dv[13];
+#pragma unroll
+      for (int o = 0; o < 13; ++o) dv[o] = 0.f;
+      if (nbr) {
+        phase_b(sm + S::CT + buf * CT_N, geo + jl * GEO_LD, outs + jl * OUT_LD, dv, rq);
+        outs[jl * OUT_LD + 13] = rq[4];
+        outs[jl * OUT_LD + 14] = rq[5];
+        outs[jl * OUT_LD + 15] = rq[6];
+      }
+      if (lane < 12) {  // row jl (zeros past nj): o < 16 hi at words 0-7, lo at words 8-15
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float x0 = 2 * q < 13 ? dv[2 * q] : 0.f, x1 = 2 * q + 1 < 13 ? dv[2 * q + 1] : 0.f;
+          split_bf16x2(x0, x1, tile_word(dout, jl, q), tile_word(dout, jl, 8 + q));
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < 13; ++o)
+#pragma unroll
+        for (int s = 16; s > 0; s >>= 1) dv[o] += __shfl_xor_sync(0xffffffffu, dv[o], s);
+      if (lane == 0) {
+#pragma unroll
+        for (int o = 0; o < 13; ++o) part[w4 * P_N + P_DB2 + o] = dv[o];
+      }
+    }
+    fence_proxy_async();  // the d(out) tile, for wgmma's reads
+    bar_sync(BB_WG + cw, 128);
+    clk.mark(2);
+
+    // -- part 1: rows = neighbours; d(hid), phase E ------------------------
+    float dhid[32];
+    {
+      float dact[32];
+      uint32_t fh[4][4], fl[4][4];
+      part1_head<0>(sm, dact, dhid, fh, fl, gate[0], ddo, w2h_mn, w2l_mn, whh_mn, whl_mn, reds, r_lo, live, c);
+      part1_head<1>(sm, dact, dhid, fh, fl, gate[1], ddo, w2h_mn, w2l_mn, whh_mn, whl_mn, reds, r_lo, live, c);
+      part1_head<2>(sm, dact, dhid, fh, fl, gate[2], ddo, w2h_mn, w2l_mn, whh_mn, whl_mn, reds, r_lo, live, c);
+      part1_head<3>(sm, dact, dhid, fh, fl, gate[3], ddo, w2h_mn, w2l_mn, whh_mn, whl_mn, reds, r_lo, live, c);
+    }
+    clk.mark(3);
+    // d(hid) + d(HID), relu-gated by hid: d(a_j), d(edge), the warp's d(a_i)
+    {
+      float dai[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) dai[k] = 0.f;
+      const size_t aj0 = ((size_t)b * NP + j0) * T, ed0 = ((size_t)i * NP + j0) * T;
+      if (live) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int col = 8 * q + 2 * c;
+          const float gh0 = gh[col], gh1 = gh[col + 1];
+#pragma unroll
+          for (int h8 = 0; h8 < 2; ++h8) {
+            const int j = h8 ? r_hi : r_lo;
+            if (j < nj) {
+              const uint32_t hw = tile_word(hh, j, 4 * q + c), lw = tile_word(hh + S::HID_HALF, j, 4 * q + c);
+              const float d0 = bf_lo(hw) + bf_lo(lw) > 0.f ? dhid[4 * q + 2 * h8] + gh0 : 0.f;
+              const float d1 = bf_hi(hw) + bf_hi(lw) > 0.f ? dhid[4 * q + 2 * h8 + 1] + gh1 : 0.f;
+              const size_t at = (size_t)j * T + col;
+              dpre_out2(io, aj0 + at, ed0 + at, float2{d0, d1}, dai[2 * q], dai[2 * q + 1]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {  // over the 8 g lanes: lanes 0-3 hold columns 8q + 2c (+ 1)
+        dai[k] += __shfl_xor_sync(0xffffffffu, dai[k], 4);
+        dai[k] += __shfl_xor_sync(0xffffffffu, dai[k], 8);
+        dai[k] += __shfl_xor_sync(0xffffffffu, dai[k], 16);
+      }
+      if (live && lane < 4) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          part[w4 * P_N + 8 * q + 2 * lane] = dai[2 * q];
+          part[w4 * P_N + 8 * q + 2 * lane + 1] = dai[2 * q + 1];
+        }
+      }
+    }
+    bar_sync(BB_WG + cw, 128);  // phase E's sums
+    clk.mark(4);
+
+    // -- phase F; then the item's d(a_i), d(q_i), d(t_i) and db2 ------------
+    {
+      float rq[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // d(q_i)[4], d(t_i)[3] of the lane's neighbour
+      if (nbr) {
+        const float* ov = outs + jl * OUT_LD;
+        rq[4] = ov[13];
+        rq[5] = ov[14];
+        rq[6] = ov[15];
+        phase_f(io, sm + S::NODE + buf * 8, geo + jl * GEO_LD, reds + jl * REDH_LD, ov, rq, b, NP, j0 + jl);
+      }
+#pragma unroll
+      for (int k = 0; k < 7; ++k)
+#pragma unroll
+        for (int s = 16; s > 0; s >>= 1) rq[k] += __shfl_xor_sync(0xffffffffu, rq[k], s);
+      if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < 7; ++k) part[w4 * P_N + P_RQ + k] = rq[k];
+      }
+    }
+    bar_sync(BB_WG + cw, 128);
+    if (t128 < T) {  // warp 3's rows are dead: no d(a_i) partial
+      const float s = part[t128] + part[P_N + t128] + part[2 * P_N + t128];
+      atomicAdd(io.dai + (size_t)row * T + t128, s);
+    } else if (t128 < T + 20) {
+      const int k = t128 - T;
+      const float s = part[P_RQ + k] + part[P_N + P_RQ + k] + part[2 * P_N + P_RQ + k] + part[3 * P_N + P_RQ + k];
+      if (k < 4) atomicAdd(io.dqi + (size_t)row * 4 + k, s);
+      else if (k < 7) atomicAdd(io.dti + (size_t)row * 3 + k - 4, s);
+      else sm[S::DB2 + cw * 16 + k - 7] += s;
+    }
+    clk.mark(4);
+
+    // -- part 2: rows = units; dW2, dwhm, the per-unit sums ------------------
+    {
+      float accT[24], dT[24], dw2[8], dwc[32], us[2][5];
+      uint32_t ah[3][4], al[3][4], dh[3][4], dl[3][4];
+#define PMHC_PART2(HEAD)                                                                                     \
+  part2_head<HEAD>(sm, geo, tn, accT, dT, dw2, dwc, ah, al, dh, dl, us, dwh, dwl, dah, dal, dah_mn, dal_mn, ddo, \
+                   ddo_mn, w2h_mn, w2l_mn, r_lo, c);                                                         \
+  unit_sums<HEAD>(usum, io, us, row, r_lo, c);                                                               \
+  wgmma_wait<0>();                                                                                           \
+  fence_operand(dw2);                                                                                        \
+  fence_operand(dwc);                                                                                        \
+  fence_operand(ah);                                                                                         \
+  fence_operand(al);                                                                                         \
+  fence_operand(dh);                                                                                         \
+  fence_operand(dl);                                                                                         \
+  clk.mark(5);                                                                                               \
+  add_head<HEAD>(sm, dwc, dw2, it, items, r_lo, c);                                                          \
+  clk.mark(6);
+      PMHC_PART2(0)
+      PMHC_PART2(1)
+      PMHC_PART2(2)
+      PMHC_PART2(3)
+#undef PMHC_PART2
+    }
+    if (it + 2 < items) bar_arrive(BB_EMPTY + buf, 256);  // the buffer's last read is done
+  }
+}
+
+template <>
+__global__ void __launch_bounds__(THREADS, 1)
+    egnn_loop_bwd_kernel<MODE_HIGH>(const Inputs in, const BwdIO io) {
+  using S = BHSmem;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t raw_addr = smem_addr(smem);
+  const uint32_t pad = (1024u - (raw_addr & 1023u)) & 1023u;
+  char* tb = reinterpret_cast<char*>(smem) + pad;  // 1024-byte aligned
+  float* sm = reinterpret_cast<float*>(tb);
+  const uint32_t tb_addr = raw_addr + pad;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rows = in.B * in.N;
+  const int per_block = (rows + gridDim.x - 1) / gridDim.x;
+  const int row_lo = min(rows, (int)blockIdx.x * per_block);
+  const int row_hi = min(rows, row_lo + per_block);
+  const int tiles = (in.NP + BT - 1) / BT;
+  const int items = (row_hi - row_lo) * tiles;
+  RoleClock clk;
+
+  stage_high<S>(sm, tb, loop_w(in.w), tid);
+  for (int e = tid; e < HEADS * DW_LD + NOUT * DW2_LD; e += THREADS) sm[S::DW + e] = 0.f;  // DW, DW2
+  for (int e = tid; e < 2 * U_N + 2 * 16; e += THREADS) sm[S::USUM + e] = 0.f;     // USUM, DB2
+  fence_proxy_async();  // the staged tiles, for wgmma's reads
+  __syncthreads();
+  clk.start();
+
+  if (tid >= BB_PRODUCER) {
+    bwd_high_producer(sm, tb, in, io, row_lo, items, tiles, warp - 8, tid - BB_PRODUCER, lane, clk);
+  } else {
+    bwd_high_consumer(sm, tb, tb_addr, in, io, row_lo, items, tiles, warp, lane, clk);
+  }
+  __syncthreads();
+
+  // -- this block's weight-gradient partials: the warpgroups' slots in order --
+  float* part = io.partial + (size_t)blockIdx.x * W_SIZE;
+  for (int e = tid; e < HEADS * T; e += THREADS) part[O_WHM + e] = sm[S::DW + (e / T) * DW_LD + e % T];
+  for (int e = tid; e < NOUT * T; e += THREADS) part[O_W2 + e] = sm[S::DW2 + (e / T) * DW2_LD + e % T];
+  const float* u0 = sm + S::USUM;
+  const float* u1 = u0 + U_N;
+  for (int u = tid; u < HEADS; u += THREADS) part[O_BA1 + u] = u0[u] + u1[u];  // ba1, br1, bt1, bl1 in a row
+  for (int e = tid; e < T; e += THREADS) {
+    part[O_WAD + e] = u0[U_WAD + e] + u1[U_WAD + e];
+    part[O_WAQ + e] = u0[U_WAQ + e] + u1[U_WAQ + e];
+  }
+  for (int e = tid; e < 4 * T; e += THREADS) part[O_WRQ + e] = u0[U_WRQ + e] + u1[U_WRQ + e];
+  if (tid < NOUT) part[O_B2 + tid] = sm[S::DB2 + tid] + sm[S::DB2 + 16 + tid];
+}
+
 // dw[k] = sum over blocks of partial[block][k], in block order
 __global__ void egnn_loop_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw,
                                         int blocks) {
@@ -1710,9 +2254,18 @@ __global__ void egnn_loop_reduce_kernel(const float* __restrict__ partial, float
 }
 
 template <int MODE>
+constexpr size_t fwd_smem_bytes() {
+  if constexpr (MODE == MODE_HIGH) {
+    return HighSmemL::BYTES;
+  } else {
+    return FSmem<MODE>::BYTES;
+  }
+}
+
+template <int MODE>
 int launch_fwd(Inputs in, FwdOut out, cudaStream_t stream) {
   static std::atomic<int> sms_of[MAX_DEVICES];
-  const int sms = persistent_sms(egnn_loop_fwd_kernel<MODE>, FSmem<MODE>::BYTES, sms_of);
+  const int sms = persistent_sms(egnn_loop_fwd_kernel<MODE>, fwd_smem_bytes<MODE>(), sms_of);
   if (sms < 0) return -sms;
   // one block per SM, each a contiguous run of query rows
   const int rows = in.B * in.N;
@@ -1720,16 +2273,25 @@ int launch_fwd(Inputs in, FwdOut out, cudaStream_t stream) {
   const int grid = (rows + per_block - 1) / per_block;
   void* args[] = {&in, &out, &per_block};
   const cudaError_t err = cudaLaunchKernel(egnn_loop_fwd_kernel<MODE>, dim3(grid), dim3(THREADS), args,
-                                           FSmem<MODE>::BYTES, stream);
+                                           fwd_smem_bytes<MODE>(), stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+constexpr size_t bwd_smem_bytes() {
+  if constexpr (MODE == MODE_HIGH) {
+    return BHSmem::BYTES;
+  } else {
+    return BSmem<MODE>::BYTES;
+  }
 }
 
 template <int MODE>
 int launch_bwd(Inputs in, BwdIO io, float* dw, int blocks, cudaStream_t stream) {
   if (in.NP > MAXNP) return (int)cudaErrorInvalidValue;
   static std::atomic<int> sms_of[MAX_DEVICES];
-  const int sms = persistent_sms(egnn_loop_bwd_kernel<MODE>, BSmem<MODE>::BYTES, sms_of);
+  const int sms = persistent_sms(egnn_loop_bwd_kernel<MODE>, bwd_smem_bytes<MODE>(), sms_of);
   if (sms < 0) return -sms;
   cudaError_t err;
   const size_t nbr = (size_t)in.B * in.NP;
@@ -1739,9 +2301,17 @@ int launch_bwd(Inputs in, BwdIO io, float* dw, int blocks, cudaStream_t stream) 
       (err = cudaMemsetAsync(io.dedge, 0, (size_t)in.N * in.NP * T * sizeof(float), stream)) !=
           cudaSuccess)
     return (int)err;
+  if constexpr (MODE == MODE_HIGH) {  // a row's tiles add their d(a_i), d(tor), d(q_i), d(t_i)
+    const size_t rows = (size_t)in.B * in.N;
+    if ((err = cudaMemsetAsync(io.dai, 0, rows * T * sizeof(float), stream)) != cudaSuccess ||
+        (err = cudaMemsetAsync(io.dtor, 0, rows * T * sizeof(float), stream)) != cudaSuccess ||
+        (err = cudaMemsetAsync(io.dqi, 0, rows * 4 * sizeof(float), stream)) != cudaSuccess ||
+        (err = cudaMemsetAsync(io.dti, 0, rows * 3 * sizeof(float), stream)) != cudaSuccess)
+      return (int)err;
+  }
   void* args[] = {&in, &io};
   err = cudaLaunchKernel(egnn_loop_bwd_kernel<MODE>, dim3(blocks), dim3(THREADS), args,
-                         BSmem<MODE>::BYTES, stream);
+                         bwd_smem_bytes<MODE>(), stream);
   if (err != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const float* partial = io.partial;

@@ -1,7 +1,7 @@
 // The neighbour-tile device code of the fused sampler layer (egnn_fused.cu,
-// TPU kernels #1/#2, fp32 and bf16; its high mode runs a wgmma pipeline of
-// its own there, reusing the helpers below) and of the training loop's
-// forward (egnn_loop.cu, #4/#5, every mode): one persistent block of
+// TPU kernels #1/#2) and of the training loop's forward (egnn_loop.cu,
+// #4/#5), fp32 and bf16 (their high modes run egnn_high.cuh's wgmma
+// pipeline, which reuses the helpers below): one persistent block of
 // WARPS = 12 warps per SM walks a
 // contiguous run of query rows (b, i), each row's NP neighbours in tiles of
 // TILE = 96, folded into the row's online-softmax state. What a kernel adds
@@ -9,8 +9,7 @@
 //
 // Per (row, tile), between barriers:
 //   build_tile     the hid tile relu(a_i + a_j + edge), rounded to bf16 in
-//                  bf16 mode, split into bf16 hi and lo tiles in high mode,
-//                  rows past the tile's neighbours zero; each
+//                  bf16 mode, rows past the tile's neighbours zero; each
 //                  warp's partial sums of HID (unrounded, over the tile's
 //                  neighbours); the geometry records, one thread per
 //                  neighbour;
@@ -24,8 +23,7 @@
 //                  epilogues differ: act = relu(whm @ hid + extra), then the
 //                  head's lin2 rows from the task's own registers;
 //                  head_task_bf16 on mma.sync m16n8k16 (the epilogue's C
-//                  fragments are the lin2's A fragments), head_task_high
-//                  the same with three mma.sync per product, head_task_fp32 in
+//                  fragments are the lin2's A fragments), head_task_fp32 in
 //                  8 x 8 FFMA register tiles (the lin2 partials through a
 //                  shuffle reduce-scatter);
 //   fold_tile      warps 0-2, 32 neighbours each: the masked logits'
@@ -34,8 +32,8 @@
 //   merge_tile     warp 0: the three partials into the row's running state
 //                  (online merge: a row of several tiles merges each).
 // stage_weights puts whm, the lin2 rows and the extra-term coefficients in
-// shared memory once per block (bf16: as mma B fragments; high: as hi and
-// lo B fragments), while the first tile's copies land.
+// shared memory once per block (bf16: as mma B fragments), while the first
+// tile's copies land.
 //
 // The extra terms of the head pre-activations (egnn_common.cuh's
 // geometry records supply their operands):
@@ -47,11 +45,9 @@
 // (round to nearest even): whm and hid, wrq and the local quat (rounded
 // once, in the geometry record), w2 and act. The attention's rank-1
 // terms, the biases, the node terms, geometry, softmax and every sum stay
-// fp32. high mode splits the operands of the two tensor-core products,
-// whm and hid, w2 and act, into bf16 hi + lo (split_bf16x2) and sums
-// hi*hi + hi*lo + lo*hi; the rotation term multiplies wrq and the local
-// quat unrounded in fp32 FMA (more exact than a split; the plain version
-// does the same).
+// fp32. (high mode, egnn_high.cuh, splits the operands of the two
+// tensor-core products into bf16 hi + lo and multiplies wrq and the local
+// quat unrounded in fp32 FMA; geo_record<MODE_HIGH> keeps it unrounded.)
 
 #pragma once
 
@@ -76,24 +72,23 @@ constexpr int O_LD = NOUT + 4;
 constexpr int STAGE_LD = T + 1;      // fp32 whm transpose staging
 
 // The shared memory of the tile loop, in floats (every region 16-byte
-// aligned); a kernel's own regions follow from END. high mode keeps the hi
-// B fragments, then the lo ones (WHM, W2F), and the hid tile's hi rows,
-// then its lo rows (HID).
+// aligned); a kernel's own regions follow from END. fp32 and bf16.
 template <int MODE>
 struct TileSmem {
-  static constexpr bool BF = MODE == MODE_BF16, HI = MODE == MODE_HIGH;
+  static_assert(MODE != MODE_HIGH, "high mode runs egnn_high.cuh's pipeline");
+  static constexpr bool BF = MODE == MODE_BF16;
   static constexpr int WHM = 0;    // bf16: B fragments [4 heads][8 n][4 k][32 lanes] uint2; fp32: whm^T [T][HEADS]
   static constexpr int COEF = WHM + (BF ? HEADS * T / 2 : HEADS * T);   // [5][HEADS] extra-term c0..c3, cb
   static constexpr int W2 = COEF + 5 * HEADS;                            // fp32: lin2 rows [NOUT][T]
   static constexpr int B2 = W2 + (MODE == MODE_FP32 ? NOUT * T : 0);     // [16]
   static constexpr int W2F = B2 + 16;  // bf16: lin2 B fragments [4 heads][4 k][32 lanes] uint2
-  static constexpr int AJ = W2F + (BF ? 4 * 4 * 32 * 2 : HI ? 2 * 4 * 4 * 32 * 2 : 0);  // the next tile's inputs (cp.async): a_j [TILE][T]
+  static constexpr int AJ = W2F + (BF ? 4 * 4 * 32 * 2 : 0);  // the next tile's inputs (cp.async): a_j [TILE][T]
   static constexpr int ED = AJ + TILE * T;                               // edge [TILE][T]
   static constexpr int QJ = ED + TILE * T;                               // q_j [TILE][4]
   static constexpr int TJ = QJ + TILE * 4;                               // t_j [TILE * 3]
   static constexpr int MK = TJ + TILE * 3;                               // mask [TILE]
   static constexpr int HID = MK + TILE;  // hid tile: bf16 [TILE][HB_LD] words; fp32 [TILE][HF_LD]
-  static constexpr int GEOS = HID + TILE * (BF ? HB_LD : HI ? 2 * HB_LD : HF_LD);  // [TILE][GEO_LD]
+  static constexpr int GEOS = HID + TILE * (BF ? HB_LD : HF_LD);  // [TILE][GEO_LD]
   static constexpr int OUTS = GEOS + TILE * GEO_LD;                      // lin2 outputs [TILE][O_LD]
   static constexpr int HSP = OUTS + TILE * O_LD;                         // HID partials [WARPS][T]
   static constexpr int FP = HSP + WARPS * T;                             // fold partials [3][FOLD]
@@ -336,116 +331,10 @@ __device__ __forceinline__ void head_task_bf16(float* sm, int jb, int lane) {
   }
 }
 
-// high task: head_task_bf16's tiles with every product split, hi*hi +
-// hi*lo + lo*hi on the tensor cores. The hid A fragments are loaded per
-// k-step (hi and lo, both m-tiles), not held for the whole task: held,
-// they would double the bf16 task's 32 registers of A fragments.
-template <int HEAD>
-__device__ __forceinline__ void head_task_high(float* sm, int jb, int lane) {
-  using S = TileSmem<MODE_HIGH>;
-  constexpr int R = rows_of(HEAD), R0 = row0_of(HEAD);
-  constexpr int NE = HEAD == 0 ? 2 : HEAD == 1 ? 4 : 1;
-  const int g = lane >> 2, c = lane & 3;
-  const uint32_t* hh = reinterpret_cast<const uint32_t*>(sm + S::HID);
-  const uint32_t* hl = hh + TILE * HB_LD;
-  const uint2* whh = reinterpret_cast<const uint2*>(sm + S::WHM);
-  const uint2* whl = whh + 4 * 8 * 4 * 32;
-  const uint2* w2h = reinterpret_cast<const uint2*>(sm + S::W2F) + HEAD * 4 * 32 + lane;
-  const uint2* w2l = w2h + 4 * 4 * 32;
-  const float* coef = sm + S::COEF;
-  float e[2][2][NE];  // [m-tile][row g, g + 8] extra-term operands
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    pair_operands<HEAD>(sm + S::GEOS, jb + 16 * mt + g, e[mt][0]);
-    pair_operands<HEAD>(sm + S::GEOS, jb + 16 * mt + g + 8, e[mt][1]);
-  }
-  float lacc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll 1
-  for (int t = 0; t < 4; ++t) {  // units 16t .. 16t + 15 of the head: n-tiles 2t, 2t + 1
-    float cc[2][2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) cc[mt][nn][r] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t ah[2][4], al[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int j = jb + 16 * mt + g;
-        const int at[4] = {j * HB_LD + ks * 8 + c, (j + 8) * HB_LD + ks * 8 + c, j * HB_LD + ks * 8 + 4 + c,
-                           (j + 8) * HB_LD + ks * 8 + 4 + c};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          ah[mt][r] = hh[at[r]];
-          al[mt][r] = hl[at[r]];
-        }
-      }
-#pragma unroll
-      for (int nn = 0; nn < 2; ++nn) {
-        const int f = ((HEAD * 8 + 2 * t + nn) * 4 + ks) * 32 + lane;
-        const uint2 bh = whh[f], bl = whl[f];
-        const uint32_t b_h[2] = {bh.x, bh.y}, b_l[2] = {bl.x, bl.y};
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_split_16816(cc[mt][nn], ah[mt], al[mt], b_h, b_l);
-      }
-    }
-    // epilogue on the C fragments: + extra, relu, split; the two n-tiles
-    // are the lin2's A fragments (hi, lo) for k-step t
-    uint32_t lh[2][4], ll[2][4];
-#pragma unroll
-    for (int nn = 0; nn < 2; ++nn) {
-      const int u = HEAD * T + 16 * t + 8 * nn + 2 * c;
-      float c0[5], c1[5];
-#pragma unroll
-      for (int r = 0; r < 5; ++r) {
-        c0[r] = coef[r * HEADS + u];
-        c1[r] = coef[r * HEADS + u + 1];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int h8 = 0; h8 < 2; ++h8) {
-          const float x0 = fmaxf(cc[mt][nn][2 * h8] + extra_term<HEAD>(e[mt][h8], c0), 0.f);
-          const float x1 = fmaxf(cc[mt][nn][2 * h8 + 1] + extra_term<HEAD>(e[mt][h8], c1), 0.f);
-          split_bf16x2(x0, x1, lh[mt][2 * nn + h8], ll[mt][2 * nn + h8]);
-        }
-      }
-    }
-    const uint2 vh = w2h[t * 32], vl = w2l[t * 32];
-    const uint32_t b2h[2] = {vh.x, vh.y}, b2l[2] = {vl.x, vl.y};
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) mma_split_16816(lacc[mt], lh[mt], ll[mt], b2h, b2l);
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int j = jb + 16 * mt + g;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int n = 2 * c + r;
-      if (n < R) {
-        sm[S::OUTS + j * O_LD + R0 + n] = lacc[mt][r] + sm[S::B2 + R0 + n];
-        sm[S::OUTS + (j + 8) * O_LD + R0 + n] = lacc[mt][2 + r] + sm[S::B2 + R0 + n];
-      }
-    }
-  }
-}
-
-// Two B fragment registers of whm / w2 at wr (elements 0, 1 and 8, 9):
-// bf16 rounded (hi), or hi and lo (high; lo at f[lo_at]).
-template <int MODE>
-__device__ __forceinline__ void stage_frag(uint2* f, int e, int lo_at, const float* wr) {
-  if constexpr (MODE == MODE_HIGH) {
-    uint32_t h0, l0, h1, l1;
-    split_bf16x2(wr[0], wr[1], h0, l0);
-    split_bf16x2(wr[8], wr[9], h1, l1);
-    f[e] = make_uint2(h0, h1);
-    f[lo_at + e] = make_uint2(l0, l1);
-  } else {
-    f[e] = make_uint2(pack_bf16x2(wr[0], wr[1]), pack_bf16x2(wr[8], wr[9]));
-  }
+// Two B fragment registers of whm / w2 at wr (elements 0, 1 and 8, 9),
+// bf16 rounded.
+__device__ __forceinline__ void stage_frag(uint2* f, int e, const float* wr) {
+  f[e] = make_uint2(pack_bf16x2(wr[0], wr[1]), pack_bf16x2(wr[8], wr[9]));
 }
 
 // whm, the lin2 rows and b2, and the extra-term coefficients of heads 0,
@@ -459,7 +348,7 @@ __device__ __forceinline__ void stage_weights(float* sm, const LoopW& w, int tid
 #pragma unroll
     for (int e = tid; e < 4 * 8 * 4 * 32; e += THREADS) {
       const int l = e & 31, ks = (e >> 5) & 3, nt = e >> 7;  // nt = head * 8 + n-tile
-      stage_frag<MODE>(whf, e, 4 * 8 * 4 * 32, w.whm + (nt * 8 + (l >> 2)) * T + 16 * ks + 2 * (l & 3));
+      stage_frag(whf, e, w.whm + (nt * 8 + (l >> 2)) * T + 16 * ks + 2 * (l & 3));
     }
     // the lin2 B fragments of each head, its rows padded to n = 8 with zeros
     uint2* w2f = reinterpret_cast<uint2*>(sm + S::W2F);
@@ -467,10 +356,9 @@ __device__ __forceinline__ void stage_weights(float* sm, const LoopW& w, int tid
       const int l = e & 31, t = (e >> 5) & 3, hd = e >> 7;
       const int n = l >> 2;
       if (n < rows_of(hd)) {
-        stage_frag<MODE>(w2f, e, 4 * 4 * 32, w.w2 + (row0_of(hd) + n) * T + 16 * t + 2 * (l & 3));
+        stage_frag(w2f, e, w.w2 + (row0_of(hd) + n) * T + 16 * t + 2 * (l & 3));
       } else {
         w2f[e] = make_uint2(0u, 0u);
-        if constexpr (MODE == MODE_HIGH) w2f[4 * 4 * 32 + e] = make_uint2(0u, 0u);
       }
     }
   } else {
@@ -615,9 +503,6 @@ __device__ __forceinline__ void build_tile(float* sm, const float* ai, const flo
     }
     if constexpr (MODE == MODE_BF16) {
       reinterpret_cast<uint32_t*>(sm + S::HID)[j * HB_LD + lane] = pack_bf16x2(v0, v1);
-    } else if constexpr (MODE == MODE_HIGH) {
-      uint32_t* hh = reinterpret_cast<uint32_t*>(sm + S::HID);
-      split_bf16x2(v0, v1, hh[j * HB_LD + lane], hh[(TILE + j) * HB_LD + lane]);
     } else {
       *reinterpret_cast<float2*>(sm + S::HID + j * HF_LD + 2 * lane) = float2{v0, v1};
     }
@@ -645,11 +530,6 @@ __device__ __forceinline__ void tile_product(float* sm, int nj, int warp, int la
       else if (hd == 1) head_task_bf16<1>(sm, jb, lane);
       else if (hd == 2) head_task_bf16<2>(sm, jb, lane);
       else head_task_bf16<3>(sm, jb, lane);
-    } else if constexpr (MODE == MODE_HIGH) {
-      if (hd == 0) head_task_high<0>(sm, jb, lane);
-      else if (hd == 1) head_task_high<1>(sm, jb, lane);
-      else if (hd == 2) head_task_high<2>(sm, jb, lane);
-      else head_task_high<3>(sm, jb, lane);
     } else {
       if (hd == 0) head_task_fp32<0>(sm, jb, lane);
       else if (hd == 1) head_task_fp32<1>(sm, jb, lane);

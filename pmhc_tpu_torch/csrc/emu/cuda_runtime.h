@@ -101,14 +101,16 @@ inline uint32_t emu_smem_addr(const void* p) {
 inline void* emu_smem_at(uint32_t addr) { return reinterpret_cast<char*>(emu_smem_ptr) + (addr - EMU_SMEM_BASE); }
 
 // an issued wgmma: D (n / 2 floats of this thread), its A fragment
-// registers (or null: A through desc_a), B's descriptor, scale_d; queued
-// until the wait_group that retires its group
+// registers (or null: A through desc_a), B's descriptor, scale_d, and
+// whether A and B are MN-major (transposed); queued until the wait_group
+// that retires its group
 struct EmuWgmma {
   float* d;
   int n;
   const uint32_t* a;
   uint64_t desc_a, desc_b;
   int scale_d;
+  int ta, tb;
 };
 struct EmuWgmmaQueue {
   std::vector<EmuWgmma> open;               // issued since the last commit

@@ -11,10 +11,10 @@
 //   split_bf16x2     the --fast-f32 split of two floats into bf16 halves:
 //                    hi = bf16_rn(x), lo = bf16_rn(x - hi), as two registers
 //                    laid out as pack_bf16x2's (x - hi is exact in fp32, so
-//                    hi + lo keeps ~16 significant bits of x)
-//   mma_split_16816  D += A * B from split operands: hi*hi + hi*lo + lo*hi,
-//                    three mma.sync (the lo*lo term, ~2^-16 relative, is
-//                    dropped, as in the JAX package's mm_maker("high"))
+//                    hi + lo keeps ~16 significant bits of x); the high
+//                    products sum hi*hi + hi*lo + lo*hi on wgmma (the lo*lo
+//                    term, ~2^-16 relative, is dropped, as in the JAX
+//                    package's mm_maker("high"))
 //   cp_async16 / cp_async4, cp_async_commit, cp_async_wait_all
 //                    global -> shared copies in flight while the block
 //                    computes (emulated: a plain copy; the waits do nothing)
@@ -86,13 +86,6 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, u
   lo = uint32_t(__float2bfloat16_rn(x0 - __bfloat162float(h0)).x) |
        (uint32_t(__float2bfloat16_rn(x1 - __bfloat162float(h1)).x) << 16);
 #endif
-}
-
-__device__ __forceinline__ void mma_split_16816(float d[4], const uint32_t ah[4], const uint32_t al[4],
-                                                const uint32_t bh[2], const uint32_t bl[2]) {
-  mma_bf16_16816(d, ah, bh);
-  mma_bf16_16816(d, ah, bl);
-  mma_bf16_16816(d, al, bh);
 }
 
 // 16 bytes, both addresses 16-byte aligned; bypasses L1 (.cg)

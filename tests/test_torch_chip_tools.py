@@ -82,16 +82,24 @@ def test_ablated_source_compiles(compiled, kernel, name):
 
 
 def test_loop_ablations_name_every_mode():
-    """The backward's per-mode products are each removed in high too."""
-    texts = {n: "".join(f for f, _ in e) for n, e in chip_ab.ABLATIONS["loop"].items()}
-    assert "mma_split_16816(cc[nn]" in texts["no_head_product"]
-    assert "p3_high(" in texts["no_dwhm_product"]
+    """The backward's per-mode products are each removed in high too (its
+    wgmma products, in egnn_loop.cu and the shared egnn_high.cuh), and the
+    forward's phases in the fp32 / bf16 tile loop and the high pipeline."""
+    texts = {n: "".join(e[-2] for e in edits) for n, edits in chip_ab.ABLATIONS["loop"].items()}
+    assert "wgmma_ss<64, 0, 0>(acc, da_h" in texts["no_head_product"]
+    assert "wgmma_ss<48, 0, 0>(accT" in texts["no_head_product"]
+    assert "wgmma_rs<64, 1>(dwc" in texts["no_dwhm_product"]
+    assert "wgmma_rs<64, 1>(dhid" in texts["no_dhid_product"]
     src = _source("loop")
-    for mode_fn in ("s1_high", "s3_high", "p2_high", "p3_high"):
+    for mode_fn in ("egnn_loop_bwd_kernel<MODE_HIGH>", "part1_head", "part2_head", "bwd_high_producer",
+                    "egnn_loop_fwd_kernel<MODE_HIGH>"):
         assert mode_fn in src
-    # the forward's phases are templates on MODE, one text for all three modes
+    # the forward's phases are templates on MODE, one text for fp32 and bf16,
+    # and egnn_high.cuh's for high
     for name in ("fwd_no_product", "fwd_no_fold", "fwd_no_build", "fwd_no_weight_staging"):
         assert "<MODE>" in texts[name]
+        assert any(len(e) == 3 and e[0] == "egnn_high.cuh" for e in chip_ab.ABLATIONS["loop"][name]) or \
+            "stage_high<S>" in texts[name]
 
 
 def test_missing_text_raises():

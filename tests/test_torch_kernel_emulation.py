@@ -182,30 +182,42 @@ def test_fused_kernel_emulated_two_tiles(mode):
 
 
 # One warpgroup runs the wgmma primitives of csrc/wgmma.cuh as the fused
-# kernel's high mode does: B [N][64] (bf16-rounded from fp32) staged in
-# shared memory by the kernel side's sw128 layout, 1024-byte aligned from
-# the emulated block's unaligned shared-memory base as the fused kernel
-# aligns it; A [64][64] beside it in the same layout (N = 64: m64n64k16
-# with A through its descriptor) or in registers (N = 16: m64n16k16, each
-# warp's m16n8k16 A fragments of its 16 rows); four k-steps into one
-# accumulator (scale_d 0, then 1), read before its wait_group (still the
-# start values) and after (the product).
+# kernel's and the loop backward's high modes do: B [N][64] (bf16-rounded
+# from fp32) staged in shared memory in the sw128 layout, 1024-byte aligned
+# from the emulated block's unaligned shared-memory base as the kernels
+# align it, K-major (row n) or MN-major (row k, B's N columns from element
+# BOFF of the row: the loop backward reads d(out)'s lo half 16 elements in);
+# A [64][64] beside it, K-major or MN-major (A through its descriptor) or in
+# registers (each warp's m16n8k16 A fragments of its 16 rows); four k-steps
+# into one accumulator (scale_d 0, then 1), read before its wait_group
+# (still the start values) and after (the product).
 _WGMMA_KERNEL = r"""
 #include "wgmma.cuh"
 #include "mma_bf16.cuh"
 namespace pmhc {
 namespace {
-template <int N>
+template <int N, int TA, int TB, int RS, int BOFF>
 __global__ void wgmma_probe(const float* a, const float* b, float* d, float* before) {
   extern __shared__ __align__(16) float smem[];
   const uint32_t raw = smem_addr(smem), pad = (1024u - (raw & 1023u)) & 1023u;
   char* tb = reinterpret_cast<char*>(smem) + pad;
+  char* ta = tb + 64 * 128;  // A [64][64] after B (64 rows of 128 bytes either way)
   const int t = threadIdx.x, w = t / 32, l = t % 32, g = l / 4, c = l % 4;
-  for (int e = t; e < N * 32; e += 128)
-    *reinterpret_cast<uint32_t*>(tb + sw128(e / 32, 4 * (e % 32))) = pack_bf16x2(b[2 * e], b[2 * e + 1]);
-  char* ta = tb + 64 * 128;  // A [64][64] after B (N * 128 bytes, 1024-byte aligned)
-  for (int e = t; e < 64 * 32; e += 128)
-    *reinterpret_cast<uint32_t*>(ta + sw128(e / 32, 4 * (e % 32))) = pack_bf16x2(a[2 * e], a[2 * e + 1]);
+  auto word = [](char* tile, int row, int wd) -> uint32_t& {
+    return *reinterpret_cast<uint32_t*>(tile + sw128(row, 4 * wd));
+  };
+  for (int e = t; e < 64 * 32; e += 128) {
+    const int row = e / 32, wd = e % 32;
+    if (TB == 0) {  // row n: k = 2wd, 2wd + 1
+      if (row < N) word(tb, row, wd) = pack_bf16x2(b[row * 64 + 2 * wd], b[row * 64 + 2 * wd + 1]);
+    } else {  // row k: n = 2wd - BOFF, + 1 (zero outside B)
+      const int n = 2 * wd - BOFF;
+      word(tb, row, wd) = pack_bf16x2(n >= 0 && n < N ? b[n * 64 + row] : 0.f,
+                                      n + 1 >= 0 && n + 1 < N ? b[(n + 1) * 64 + row] : 0.f);
+    }
+    if (TA == 0) word(ta, row, wd) = pack_bf16x2(a[row * 64 + 2 * wd], a[row * 64 + 2 * wd + 1]);
+    else word(ta, row, wd) = pack_bf16x2(a[(2 * wd) * 64 + row], a[(2 * wd + 1) * 64 + row]);
+  }
   fence_proxy_async();
   __syncthreads();
   uint32_t af[4][4];
@@ -216,11 +228,13 @@ __global__ void wgmma_probe(const float* a, const float* b, float* d, float* bef
     }
   float acc[N / 2];
   for (int e = 0; e < N / 2; ++e) acc[e] = -1.f;
-  const uint64_t da = desc_sw128(smem_addr(ta)), db = desc_sw128(smem_addr(tb));
+  const uint64_t da = TA ? desc_sw128_mn(smem_addr(ta)) : desc_sw128(smem_addr(ta));
+  const uint64_t db = TB ? desc_sw128_mn(smem_addr(tb) + 2 * BOFF) : desc_sw128(smem_addr(tb));
+  const int sa = TA ? 128 : 2, sb = TB ? 128 : 2;  // a k-step: 16 rows (MN-major) or 32 bytes (K-major)
   wgmma_fence();
   for (int ks = 0; ks < 4; ++ks) {
-    if constexpr (N == 64) wgmma_64x64_ss(acc, da + 2 * ks, db + 2 * ks, ks > 0);
-    else wgmma_64x16_rs(acc, af[ks], db + 2 * ks, ks > 0);
+    if constexpr (RS) wgmma_rs<N, TB>(acc, af[ks], db + sb * ks, ks > 0);
+    else wgmma_ss<N, TA, TB>(acc, da + sa * ks, db + sb * ks, ks > 0);
   }
   wgmma_commit();
   for (int e = 0; e < N / 2; ++e) before[t * (N / 2) + e] = acc[e];
@@ -231,40 +245,57 @@ __global__ void wgmma_probe(const float* a, const float* b, float* d, float* bef
     d[row * N + col] = acc[e];
   }
 }
-template <int N>
+template <int N, int TA, int TB, int RS, int BOFF>
 int run(const float* a, const float* b, float* d, float* before) {
   void* args[] = {&a, &b, &d, &before};
-  return (int)cudaLaunchKernel(wgmma_probe<N>, dim3(1), dim3(128), args, 1024 + 2 * 64 * 128, nullptr);
+  return (int)cudaLaunchKernel(wgmma_probe<N, TA, TB, RS, BOFF>, dim3(1), dim3(128), args,
+                               1024 + 2 * 64 * 128, nullptr);
 }
 }  // namespace
 }  // namespace pmhc
-extern "C" int wgmma_probe_launch(const float* a, const float* b, float* d, float* before, int n) {
-  return n == 64 ? pmhc::run<64>(a, b, d, before) : pmhc::run<16>(a, b, d, before);
+extern "C" int wgmma_probe_launch(const float* a, const float* b, float* d, float* before, int variant) {
+  using namespace pmhc;
+  switch (variant) {
+    case 0: return run<64, 0, 0, 0, 0>(a, b, d, before);   // the head product
+    case 1: return run<16, 0, 0, 1, 0>(a, b, d, before);   // the lin2
+    case 2: return run<64, 0, 1, 0, 0>(a, b, d, before);   // d(act) = d(out) w2
+    case 3: return run<48, 0, 0, 0, 0>(a, b, d, before);   // act^T
+    case 4: return run<48, 1, 0, 0, 0>(a, b, d, before);   // d(act)^T = w2^T d(out)^T
+    case 5: return run<64, 0, 1, 1, 0>(a, b, d, before);   // d(hid), dwhm
+    case 6: return run<16, 0, 1, 1, 16>(a, b, d, before);  // dW2 on d(out)'s lo half
+  }
+  return -1;
 }
 """
+# case id -> (variant, N): ss / rs, N, transposes, B's offset along N
+_WGMMA_CASES = {"64": (0, 64), "16": (1, 16), "64-ss-tb": (2, 64), "48-ss": (3, 48), "48-ss-ta": (4, 48),
+                "64-rs-tb": (5, 64), "16-rs-tb-off16": (6, 16)}
 
 
-@pytest.mark.parametrize("n", [64, 16])
-def test_wgmma_emulated_matches_numpy(tmp_path, n):
-    """The emulated wgmma (m64n64k16 with A and B through their
-    descriptors and the 128-byte swizzle; m64n16k16 with A from registers)
-    against numpy's product of the same bf16-rounded operands: a wrong
-    descriptor field, swizzle, k-step advance or fragment layout moves
-    elements of D."""
+@pytest.mark.parametrize("case", list(_WGMMA_CASES))
+def test_wgmma_emulated_matches_numpy(tmp_path, case):
+    """The emulated wgmma against numpy's product of the same bf16-rounded
+    operands, in every form the kernels issue: m64n64k16 and m64n48k16 with
+    A and B through their descriptors (K-major, or MN-major by the transpose
+    bits), m64n16k16 and m64n64k16 with A from registers and B K-major or
+    MN-major (``-off16``: B's columns 16 elements into its rows). A wrong
+    descriptor field, swizzle, transpose, k-step advance or fragment layout
+    moves elements of D."""
     if _emulate.gxx_path() is None:
         pytest.skip("needs g++ to compile the kernels for the CPU")
     import ctypes
 
+    variant, n = _WGMMA_CASES[case]
     src = tmp_path / "wgmma_probe.cu"
     src.write_text(_WGMMA_KERNEL)
     lib = _emulate.build_emulated("wgmma_probe", str(src))
     lib.wgmma_probe_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
-    rng = np.random.default_rng(n)
+    rng = np.random.default_rng(n + variant)
     a = rng.standard_normal((64, 64)).astype(np.float32)
     b = rng.standard_normal((n, 64)).astype(np.float32)
     d = np.zeros((64, n), np.float32)
     before = np.zeros((128, n // 2), np.float32)
-    assert lib.wgmma_probe_launch(a.ctypes.data, b.ctypes.data, d.ctypes.data, before.ctypes.data, n) == 0
+    assert lib.wgmma_probe_launch(a.ctypes.data, b.ctypes.data, d.ctypes.data, before.ctypes.data, variant) == 0
     bf = lambda x: torch.from_numpy(x).to(torch.bfloat16).double().numpy()  # noqa: E731
     np.testing.assert_allclose(d, bf(a) @ bf(b).T, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(before, -1.0)  # the accumulator moves only at wait_group
