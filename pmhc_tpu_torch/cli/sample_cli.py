@@ -179,15 +179,14 @@ def _run(args, on_mesh: bool):
 
     def write(pending) -> None:
         """Wait for a dispatched batch's arrays; write its PDBs."""
-        handle, out_names, stat = pending
-        t0 = time.monotonic()
-        handle.wait()
-        t1 = time.monotonic()
+        handle, out_names = pending
         # on a mesh every rank holds the batch; rank 0 writes it
-        for name, pdb in zip(out_names, SamplerService.finalize(handle) if writer else ()):
+        if not writer:
+            handle.wait()
+            return
+        for name, pdb in zip(out_names, SamplerService.finalize(handle)):
             with open(os.path.join(output_path, f"{name}.pdb"), "wb") as f:
                 f.write(pdb)
-        stats.append({**stat, "wait_s": t1 - t0, "pdb_s": time.monotonic() - t1})
 
     counter = 0
     pending = None  # the batch dispatched last, its PDBs not yet written
@@ -198,13 +197,12 @@ def _run(args, on_mesh: bool):
                    for i in range(len(names))]
         for si in range(args.num_samples):
             # each sample: its own generator, so independent noise
-            t0 = time.monotonic()
-            handle = service.dispatch(entries, service.batch_generator(counter))
-            stat = {"batch": counter, "entries": handle.n, "dispatch_s": time.monotonic() - t0}
+            handle = service.dispatch(entries, service.batch_generator(counter), id=counter)
+            stats.append({"batch": counter, "entries": handle.n})
             if pending is not None:
                 write(pending)  # while this batch samples
             out_names = names if args.num_samples == 1 else [f"{x}.{si + 1}" for x in names]
-            pending = (handle, out_names, stat)
+            pending = (handle, out_names)
             counter += 1
     if pending is not None:
         write(pending)

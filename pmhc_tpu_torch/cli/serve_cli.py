@@ -8,7 +8,10 @@ shape:
 - ``GET /healthz``: JSON service status and configuration (the JAX
   server's keys; ``precision`` is what the layers run at: ``"bf16"``,
   ``"fast-f32"`` or ``"f32"``; the ``pallas``, ``blockwise`` and ``xla``
-  backends run fp32 whatever ``--bf16`` / ``--fast-f32`` ask).
+  backends run fp32 whatever ``--bf16`` / ``--fast-f32`` ask), and
+  ``counters``: the process's counters (``utils/profiling.py::counters``:
+  ``serve.batches``, ``serve.padded_rows``, ``graphs.captures``,
+  ``ops.builds`` and the kernels' launches).
 - ``POST /sample``: body, an ``.npz`` archive with the single-complex entry
   arrays (``pmhc_tpu_torch.serve.ENTRY_SPECS``). Response: the sampled
   complex as PDB text (chains P and M). ``?samples=N`` returns N
@@ -115,6 +118,7 @@ def create_server(args) -> ThreadingHTTPServer:
     so tests can drive the server's lifecycle in-process)."""
     from pmhc_tpu_torch.models.import_params import load_params
     from pmhc_tpu_torch.serve import BatchingSampler, Overloaded, SamplerService, frame_models
+    from pmhc_tpu_torch.utils.profiling import counters
 
     service = SamplerService(
         load_params(args.model),
@@ -180,7 +184,7 @@ def create_server(args) -> ThreadingHTTPServer:
 
         def do_GET(self):  # noqa: N802 — http.server API
             if urlparse(self.path).path == "/healthz":
-                self._json(200, health)
+                self._json(200, {**health, "counters": counters()})
             else:
                 self._json(404, {"error": "unknown path"})
 

@@ -73,6 +73,7 @@ from pmhc_tpu_torch.ops.egnn_pallas import pallas_context
 from pmhc_tpu_torch.parallel.comm import all_gather_flat
 from pmhc_tpu_torch.parallel.mesh import data_rows, take_rows
 from pmhc_tpu_torch.utils.graphs import GraphCache, Step, own_batch, use_graphs
+from pmhc_tpu_torch.utils.profiling import span
 
 
 # Steps a graph holds. With one step a graph, a T=1000 chain's replays (and
@@ -250,16 +251,18 @@ class _Graphed:
         self.steps: Dict[int, Step] = {}
 
     def run(self, n: int) -> None:
-        """``n`` steps: one replay of the n-step graph (captured at its first use)."""
-        step = self.steps.get(n)
-        if step is None:
-            def body():
-                for _ in range(n):
-                    self.chain.step(self.forward,
-                                    _noise(self.generator, self.shape, self.config, self.rows))
+        """``n`` steps: one replay of the n-step graph (captured at its first
+        use), the span ``sampler.replay``."""
+        with span("sampler.replay"):
+            step = self.steps.get(n)
+            if step is None:
+                def body():
+                    for _ in range(n):
+                        self.chain.step(self.forward,
+                                        _noise(self.generator, self.shape, self.config, self.rows))
 
-            step = self.steps[n] = Step(body, [self.generator])
-        step()
+                step = self.steps[n] = Step(body, [self.generator])
+            step()
 
 
 @torch.no_grad()
@@ -289,7 +292,10 @@ def sample(
     ``injected_noise``) runs the chain from CUDA graphs of
     ``STEPS_PER_GRAPH`` steps kept in ``graph_cache`` (a new cache per call
     when None); a failed capture raises. Returns ``batch`` with ``frames``
-    and ``torsions`` replaced.
+    and ``torsions`` replaced. The chain, from its start state to its end
+    state, is the span ``sampler.chain``; from graphs, its children are
+    ``sampler.context`` (the batch's static context, start state and
+    generator state into the graph's) and a ``sampler.replay`` per replay.
 
     ``mesh``: ``batch`` (and ``injected_noise``) are this rank's ``data``
     rows of a global batch split evenly over the mesh; the noise is drawn
@@ -319,37 +325,40 @@ def sample(
     if mesh is not None:
         d = mesh.get_coordinate()[0]
         rows = (shape[0] * mesh.size(0), slice(d * shape[0], (d + 1) * shape[0]))
-    if not graphs:
-        forward = build(batch)
-        chain = Chain(batch, xs, sched)
-        for k in range(len(ts)):
-            if injected_noise is None:
-                rand = _noise(generator, shape, config, rows)
-            else:
-                rf = injected_noise["frames"]
-                rand = {"frames": RigidArray(rf.quats[k], rf.trans[k]),
-                        "torsions": injected_noise["torsions"][k]}
-            chain.step(forward, rand)
-        q, t, tors = chain.q, chain.t, chain.tors
-    else:
-        cache = GraphCache() if graph_cache is None else graph_cache
-        key = ("sample", id(model), backend, mode_of(bf16) if backend == "fused" else "fp32", config,
-               model_config, shape, tuple(batch["pocket_mask"].shape), ts.tobytes(), id(mesh))
-        entry = cache.get(key)
-        if entry is None:
-            own = own_batch(batch)
-            entry = _Graphed(build(own), Chain(own, xs, sched), shape, config, rows)
-            cache.put(key, entry)
+    with span("sampler.chain"):
+        if not graphs:
+            forward = build(batch)
+            chain = Chain(batch, xs, sched)
+            for k in range(len(ts)):
+                if injected_noise is None:
+                    rand = _noise(generator, shape, config, rows)
+                else:
+                    rf = injected_noise["frames"]
+                    rand = {"frames": RigidArray(rf.quats[k], rf.trans[k]),
+                            "torsions": injected_noise["torsions"][k]}
+                chain.step(forward, rand)
+            q, t, tors = chain.q, chain.t, chain.tors
         else:
-            for dst, src in zip(entry.forward.static, build(batch).static):
-                dst.copy_(src)
-            entry.chain.restart(batch)
-        entry.generator.set_state(generator.get_state())
-        K, S = len(ts), STEPS_PER_GRAPH
-        for n in [S] * (K // S) + ([K % S] if K % S else []):
-            entry.run(n)
-        generator.set_state(entry.generator.get_state())
-        q, t, tors = entry.chain.q.clone(), entry.chain.t.clone(), entry.chain.tors.clone()
+            cache = GraphCache() if graph_cache is None else graph_cache
+            key = ("sample", id(model), backend,
+                   mode_of(bf16) if backend == "fused" else "fp32", config, model_config,
+                   shape, tuple(batch["pocket_mask"].shape), ts.tobytes(), id(mesh))
+            with span("sampler.context"):
+                entry = cache.get(key)
+                if entry is None:
+                    own = own_batch(batch)
+                    entry = _Graphed(build(own), Chain(own, xs, sched), shape, config, rows)
+                    cache.put(key, entry)
+                else:
+                    for dst, src in zip(entry.forward.static, build(batch).static):
+                        dst.copy_(src)
+                    entry.chain.restart(batch)
+                entry.generator.set_state(generator.get_state())
+            K, S = len(ts), STEPS_PER_GRAPH
+            for n in [S] * (K // S) + ([K % S] if K % S else []):
+                entry.run(n)
+            generator.set_state(entry.generator.get_state())
+            q, t, tors = entry.chain.q.clone(), entry.chain.t.clone(), entry.chain.tors.clone()
 
     result = dict(batch)
     result["frames"] = RigidArray(q, t)

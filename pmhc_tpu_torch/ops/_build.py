@@ -17,7 +17,9 @@ never loaded. ``install`` loads a library that is already built, from a
 given path, without a compiler (the AOT loader, ``aot.py``). A process
 holds one library per name: loading a second one of another digest
 raises, so one process never runs two versions of a kernel. A failed build
-raises with the compiler's output. Nothing here runs at import.
+raises with the compiler's output. Nothing here runs at import. A first
+``load`` of a name is the span ``ops.build`` (its id the name); the
+counter ``ops.builds`` counts the compiles.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import subprocess
 import threading
 import time
 from typing import List, NamedTuple, Optional
+
+from pmhc_tpu_torch.utils.profiling import count, span
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
@@ -108,6 +112,7 @@ def build(name: str, ptxas_verbose: bool = False, src_dir: str = CSRC) -> dict:
     else:
         cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
                "-o", tmp, src]
+    count("ops.builds")
     t0 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.monotonic() - t0
@@ -147,7 +152,8 @@ def load(name: str) -> ctypes.CDLL:
     have = _LIBS.get(name)
     if have is not None:
         return have.lib
-    return install(name, build(name)["path"])
+    with span("ops.build", name):
+        return install(name, build(name)["path"])
 
 
 def loaded(name: str) -> Optional[Loaded]:

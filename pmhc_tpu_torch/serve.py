@@ -35,6 +35,13 @@ depends on the batch it lands in, as in the JAX package. The graphed
 chain draws from a generator registered with its graph, into which the
 caller's generator state is copied per batch, so its noise is the eager
 chain's.
+
+Spans (``utils/profiling.py``; ``PERF.md`` §3 names what reads them):
+``sampler.dispatch`` (its children ``sampler.stage``, ``sampler.chain``,
+``sampler.pin``) and ``sampler.finalize`` (``sampler.wait``,
+``sampler.pdb``) share the ``id`` the caller gives ``dispatch`` (the
+batcher's and ``sample_cli``'s batch number). The batcher counts
+``serve.batches`` and ``serve.padded_rows``.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from pmhc_tpu_torch.diffusion import DiffusionConfig, ScheduleTables, gen_noise,
 from pmhc_tpu_torch.io.pdb import convert_batch_for_pdb, fetch_pdb_arrays, pdb_bytes
 from pmhc_tpu_torch.models.score import ScoreNetwork, ScoreNetworkConfig, resolve_backend
 from pmhc_tpu_torch.utils.graphs import GraphCache, use_graphs
+from pmhc_tpu_torch.utils.profiling import count, span
 
 _log = logging.getLogger(__name__)
 
@@ -150,16 +158,19 @@ def resolve_device(device) -> torch.device:
 
 class Dispatched(NamedTuple):
     """A dispatched batch: its PDB arrays (host tensors, filled once
-    ``done`` has passed on the card) and its count of real entries."""
+    ``done`` has passed on the card), its count of real entries and the id
+    of its spans."""
 
     conv: Dict[str, Any]
     n: int
     done: Optional[torch.cuda.Event]
+    id: Optional[int] = None
 
     def wait(self) -> None:
         """Wait until the arrays are on the host."""
-        if self.done is not None:
-            self.done.synchronize()
+        with span("sampler.wait"):
+            if self.done is not None:
+                self.done.synchronize()
 
 
 class SamplerService:
@@ -242,12 +253,13 @@ class SamplerService:
         replaced by pure noise. Returns ``(model_batch, protein_arrays)``."""
         if not 0 < len(entries) <= self.batch_size:
             raise ValueError(f"{len(entries)} entries for a batch-{self.batch_size} service")
-        batch, protein = _stack_pad([validate_entry(e) for e in entries], self.batch_size)
-        model_batch = prepare_batch(batch, self.device)
-        model_batch["aatype"] = torch.as_tensor(batch["aatype"], device=self.device)
-        noise = gen_noise(generator, model_batch["frames"].shape, self.diffusion_config)
-        model_batch["frames"] = noise["frames"]
-        model_batch["torsions"] = noise["torsions"]
+        with span("sampler.stage"):
+            batch, protein = _stack_pad([validate_entry(e) for e in entries], self.batch_size)
+            model_batch = prepare_batch(batch, self.device)
+            model_batch["aatype"] = torch.as_tensor(batch["aatype"], device=self.device)
+            noise = gen_noise(generator, model_batch["frames"].shape, self.diffusion_config)
+            model_batch["frames"] = noise["frames"]
+            model_batch["torsions"] = noise["torsions"]
         return model_batch, protein
 
     def sample_model_batch(self, model_batch: Dict[str, Any], generator: torch.Generator,
@@ -262,24 +274,28 @@ class SamplerService:
                       graph_cache=self.graph_cache, injected_noise=injected_noise)
 
     def dispatch(self, entries: Sequence[Dict[str, np.ndarray]],
-                 generator: torch.Generator | None = None) -> Dispatched:
+                 generator: torch.Generator | None = None, id: int | None = None) -> Dispatched:
         """Queue sampling, the PDB-prep conversion and, on the card, its
         copies into pinned host memory for up to ``batch_size`` entries;
-        no wait for the card. Returns a handle for :meth:`finalize`."""
+        no wait for the card. Returns a handle for :meth:`finalize`; ``id``
+        labels the batch's spans."""
         generator = self.generator if generator is None else generator
-        model_batch, protein = self.build_model_batch(entries, generator)
-        pred = self.sample_model_batch(model_batch, generator)
-        pred.update(protein)
-        conv = convert_batch_for_pdb(pred)
-        if self.device.type != "cuda":
-            return Dispatched(conv, len(entries), None)
-        # the copies queue behind this batch's sampling, so a caller waits
-        # for this batch only, not for one dispatched after it
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
-                if isinstance(v, torch.Tensor) else v for k, v in conv.items()}
-        done = torch.cuda.Event()
-        done.record()
-        return Dispatched(host, len(entries), done)
+        with span("sampler.dispatch", id):
+            model_batch, protein = self.build_model_batch(entries, generator)
+            pred = self.sample_model_batch(model_batch, generator)
+            with span("sampler.pin"):
+                pred.update(protein)
+                conv = convert_batch_for_pdb(pred)
+                if self.device.type != "cuda":
+                    return Dispatched(conv, len(entries), None, id)
+                # the copies queue behind this batch's sampling, so a caller
+                # waits for this batch only, not for one dispatched after it
+                host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                        .copy_(v, non_blocking=True)
+                        if isinstance(v, torch.Tensor) else v for k, v in conv.items()}
+                done = torch.cuda.Event()
+                done.record()
+        return Dispatched(host, len(entries), done, id)
 
     # -- host side ---------------------------------------------------------
 
@@ -287,9 +303,11 @@ class SamplerService:
     def finalize(handle: Dispatched) -> List[bytes]:
         """Wait for a :meth:`dispatch` handle's arrays and serialize each
         real entry."""
-        handle.wait()
-        pc = fetch_pdb_arrays(handle.conv)
-        return [pdb_bytes(None, i, precomputed=pc) for i in range(handle.n)]
+        with span("sampler.finalize", handle.id):
+            handle.wait()
+            with span("sampler.pdb"):
+                pc = fetch_pdb_arrays(handle.conv)
+                return [pdb_bytes(None, i, precomputed=pc) for i in range(handle.n)]
 
     def sample_entries(self, entries, generator: torch.Generator | None = None) -> List[bytes]:
         """Blocking dispatch + finalize."""
@@ -411,10 +429,13 @@ class BatchingSampler:
                     break
             entries = [e for e, _ in batch]
             futures = [f for _, f in batch]
-            generator = self.service.batch_generator(self.batches)
+            k = self.batches
+            generator = self.service.batch_generator(k)
             self.batches += 1
+            count("serve.batches")
+            count("serve.padded_rows", B - len(batch))
             try:
-                handle = self.service.dispatch(entries, generator)
+                handle = self.service.dispatch(entries, generator, id=k)
             except Exception as e:  # noqa: BLE001 — propagate to callers
                 for f in futures:
                     f.set_exception(e)

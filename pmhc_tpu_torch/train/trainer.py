@@ -51,6 +51,12 @@ over ``model`` (``tp_shard_``), the clipping norm sums the split tensors'
 squares over ``model``, and the files hold the whole tensors, gathered.
 Only rank 0 writes. On the card the all-reduces are captured in the
 step's graph.
+
+Spans (``utils/profiling.py``): ``trainer.call`` around a ``train_batch`` or
+``train_indices`` call; in it ``trainer.step`` per optimizer step (id: the
+step's number, ``global_step`` after it), which holds ``trainer.replay``
+(launching the step's graph) and, on the steps that check,
+``trainer.nan_check`` (the host's wait for the NaN flag).
 """
 
 from __future__ import annotations
@@ -85,6 +91,7 @@ from pmhc_tpu_torch.parallel.mesh import (
 from pmhc_tpu_torch.serve import resolve_device
 from pmhc_tpu_torch.train.ema import ema_init, ema_update_
 from pmhc_tpu_torch.utils.graphs import GraphCache, Step, batch_tensors, own_batch, use_graphs
+from pmhc_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -614,12 +621,16 @@ class Trainer:
         if metrics is not None:
             metrics.add_batch(sums, B)
         every = self.train_config.nan_check_every
-        if every and self.global_step % every == 0 and bool(self._nan):
-            raise RuntimeError("NaN loss")
+        if every and self.global_step % every == 0:
+            with span("trainer.nan_check"):
+                nan = bool(self._nan)
+            if nan:
+                raise RuntimeError("NaN loss")
 
     def _replay(self, entry: _TrainGraph) -> Dict[str, torch.Tensor]:
         self._write_t(entry.t, entry.global_batch, entry.rows)
-        entry.step()
+        with span("trainer.replay"):
+            entry.step()
         return dict(zip(LOSS_NAMES, entry.sums.clone().unbind()))
 
     def _rows(self, batch: Mapping[str, Any]):
@@ -633,23 +644,25 @@ class Trainer:
         loss sums (device scalars). Raises ``RuntimeError("NaN loss")``
         at the periodic check if any step since the last one gave NaN. On a
         mesh ``batch`` is the global batch, the same on every rank."""
-        G, rows = self._rows(batch)
-        model_batch = prepare_batch(batch if rows is None else take_rows(batch, rows), self.device)
-        B = model_batch["mask"].shape[0]
-        update = self.optimizer.updates_next
-        if self.graphs:
-            entry = self._graph(("batch", _signature(model_batch), G),
-                                lambda: _TrainGraph(own_batch(model_batch), None, None, B,
-                                                    self.device, G, rows),
-                                update)
-            for dst, src in zip(batch_tensors(entry.batch), batch_tensors(model_batch)):
-                dst.copy_(src)
-            sums = self._replay(entry)
-        else:
-            t = torch.empty(B, dtype=torch.int64, device=self.device)
-            self._write_t(t, G, rows)
-            sums = self._sums(model_batch, t, update, G, rows)
-        self._finish(sums, G, update, metrics)
+        with span("trainer.call"), span("trainer.step", self.global_step + 1):
+            G, rows = self._rows(batch)
+            model_batch = prepare_batch(batch if rows is None else take_rows(batch, rows),
+                                        self.device)
+            B = model_batch["mask"].shape[0]
+            update = self.optimizer.updates_next
+            if self.graphs:
+                entry = self._graph(("batch", _signature(model_batch), G),
+                                    lambda: _TrainGraph(own_batch(model_batch), None, None, B,
+                                                        self.device, G, rows),
+                                    update)
+                for dst, src in zip(batch_tensors(entry.batch), batch_tensors(model_batch)):
+                    dst.copy_(src)
+                sums = self._replay(entry)
+            else:
+                t = torch.empty(B, dtype=torch.int64, device=self.device)
+                self._write_t(t, G, rows)
+                sums = self._sums(model_batch, t, update, G, rows)
+            self._finish(sums, G, update, metrics)
         return sums
 
     def train_batches(self, batches, metrics=None) -> List[Dict[str, torch.Tensor]]:
@@ -670,25 +683,28 @@ class Trainer:
         idx = torch.as_tensor(np.asarray(idx, np.int64))
         if idx.ndim != 2:
             raise ValueError(f"train_indices takes a [K, B] index matrix, got shape {tuple(idx.shape)}")
-        if self.device.type == "cuda":
-            idx = idx.pin_memory()
-        idx = idx.to(self.device, non_blocking=True)
-        K, B = idx.shape
-        out = []
-        for k in range(K):
-            update = self.optimizer.updates_next
-            if self.graphs:
-                entry = self._graph(("indices", data, B),
-                                    lambda: _TrainGraph(None, data, idx[k].clone(), B, self.device),
-                                    update)
-                entry.idx.copy_(idx[k])
-                sums = self._replay(entry)
-            else:
-                t = torch.empty(B, dtype=torch.int64, device=self.device)
-                self._write_t(t)
-                sums = self._sums(self._gather(data, idx[k]), t, update)
-            self._finish(sums, B, update, metrics)
-            out.append(sums)
+        with span("trainer.call"):
+            if self.device.type == "cuda":
+                idx = idx.pin_memory()
+            idx = idx.to(self.device, non_blocking=True)
+            K, B = idx.shape
+            out = []
+            for k in range(K):
+                with span("trainer.step", self.global_step + 1):
+                    update = self.optimizer.updates_next
+                    if self.graphs:
+                        entry = self._graph(("indices", data, B),
+                                            lambda: _TrainGraph(None, data, idx[k].clone(), B,
+                                                                self.device),
+                                            update)
+                        entry.idx.copy_(idx[k])
+                        sums = self._replay(entry)
+                    else:
+                        t = torch.empty(B, dtype=torch.int64, device=self.device)
+                        self._write_t(t)
+                        sums = self._sums(self._gather(data, idx[k]), t, update)
+                    self._finish(sums, B, update, metrics)
+                out.append(sums)
         return out
 
     def eval_batch(self, batch: Dict[str, Any], generator: torch.Generator, metrics=None,

@@ -40,6 +40,7 @@ from typing import Any, Callable, Dict, Hashable, List, Sequence
 import torch
 
 from pmhc_tpu_torch.geometry import RigidArray
+from pmhc_tpu_torch.utils.profiling import count, launch_counters, span
 
 
 def use_graphs(graphs: bool | None, device: torch.device) -> bool:
@@ -73,20 +74,13 @@ def own_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
             for k, v in batch.items()}
 
 
-def _counters() -> List[Dict[str, int]]:
-    """The kernel wrappers' launch counters."""
-    from pmhc_tpu_torch.ops import egnn_fused, egnn_loop, egnn_pallas
-
-    return [egnn_fused.LAUNCHES, egnn_loop.LAUNCHES, egnn_pallas.LAUNCHES]
-
-
 class Graph:
     """A captured step body and the kernel launches of one replay."""
 
     def __init__(self, graph: "torch.cuda.CUDAGraph", launches: List[Dict[str, int]]):
         self.graph = graph
         self.launches = launches  # per counter, the launches of one replay
-        self._counters = _counters()
+        self._counters = list(launch_counters().values())
 
     def replay(self) -> None:
         self.graph.replay()
@@ -114,27 +108,30 @@ def capture(body: Callable[[], None], generators: Sequence[torch.Generator] = ()
     off during it: a collection inside the capture frees the memory of
     dead reference cycles, and on the card that invalidated a capture at
     its next allocation (``torch.cuda.graph`` no longer collects on entry
-    unless ``torch.compiler.config.force_cudagraph_gc`` is set)."""
-    g = torch.cuda.CUDAGraph()
-    for gen in generators:
-        g.register_generator_state(gen)
-    counters = _counters()
-    before = [dict(c) for c in counters]
-    collecting = gc.isenabled()
-    gc.collect()
-    gc.disable()
-    try:
-        # thread_local: a server thread may fetch results while another
-        # thread captures
-        with torch.cuda.graph(g, capture_error_mode="thread_local"):
-            body()
-    finally:
-        if collecting:
-            gc.enable()
-        launches = [{k: c[k] - b[k] for k in c} for c, b in zip(counters, before)]
-        for c, b in zip(counters, before):
-            c.update(b)  # the capture launched nothing
-    return Graph(g, launches)
+    unless ``torch.compiler.config.force_cudagraph_gc`` is set). The span
+    ``graphs.capture`` covers it; the counter ``graphs.captures`` counts it."""
+    count("graphs.captures")
+    with span("graphs.capture"):
+        g = torch.cuda.CUDAGraph()
+        for gen in generators:
+            g.register_generator_state(gen)
+        counters = list(launch_counters().values())
+        before = [dict(c) for c in counters]
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            # thread_local: a server thread may fetch results while another
+            # thread captures
+            with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                body()
+        finally:
+            if collecting:
+                gc.enable()
+            launches = [{k: c[k] - b[k] for k in c} for c, b in zip(counters, before)]
+            for c, b in zip(counters, before):
+                c.update(b)  # the capture launched nothing
+        return Graph(g, launches)
 
 
 class Step:

@@ -18,7 +18,8 @@ from pmhc_tpu_torch import constants as trc
 from pmhc_tpu_torch.geometry import RigidArray as TRigid
 from pmhc_tpu_torch.io.atoms import frames_to_atom14_positions, torsion_angles_to_frames
 from pmhc_tpu_torch.io.pdb import pdb_bytes
-from pmhc_tpu_torch.serve import SamplerService, dummy_entry, validate_entry
+from pmhc_tpu_torch.serve import BatchingSampler, SamplerService, dummy_entry, validate_entry
+from pmhc_tpu_torch.utils.profiling import counters
 from tests.test_torch_egnn import params_pair
 
 torch.set_num_threads(1)
@@ -98,6 +99,22 @@ def test_service_warmup_and_dense_backend():
         svc = SamplerService(model, batch_size=2, noise_step_count=2, backend=backend,
                              bf16=backend == "g8", device="cpu")
         assert svc.warmup() > 0.0
+
+
+def test_batcher_counts_batches_and_padded_rows():
+    """One request at batch 3 makes one short batch: ``serve.batches``
+    moves by one and ``serve.padded_rows`` by its two padded rows."""
+    _, model = params_pair(seed=4)
+    svc = SamplerService(model.state_dict(), batch_size=3, noise_step_count=2, device="cpu")
+    before = counters()
+    batcher = BatchingSampler(svc, max_wait_ms=5)
+    try:
+        assert batcher.submit(dummy_entry()).result(timeout=120).endswith(b"END\n")
+    finally:
+        batcher.close()
+    after = counters()
+    assert after["serve.batches"] - before.get("serve.batches", 0) == 1
+    assert after["serve.padded_rows"] - before.get("serve.padded_rows", 0) == 2
 
 
 def test_validate_entry_rejects_wrong_shape():

@@ -210,7 +210,7 @@ def test_http_server_end_to_end(tmp_path, model, monkeypatch):
         resp = conn.getresponse()
         health = json.loads(resp.read())
         assert resp.status == 200
-        assert set(health) == jax_keys
+        assert set(health) == jax_keys | {"counters"}
         assert health["status"] == "ok" and health["batch_size"] == 4
         assert health["backend"] == "pallas"
         assert health["precision"] == "f32"  # --bf16 does not reach the pallas kernel
@@ -264,7 +264,9 @@ def test_http_server_end_to_end(tmp_path, model, monkeypatch):
         resp = conn.getresponse()
         assert resp.status == 404 and b"unknown path" in resp.read()
         conn.request("GET", "/healthz")  # the connection survives the unread body
-        assert conn.getresponse().status == 200
+        resp = conn.getresponse()
+        assert resp.status == 200
+        assert json.loads(resp.read())["counters"]["serve.batches"] >= 2
         conn.close()
     finally:
         _stop(server, thread)
