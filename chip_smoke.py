@@ -16,7 +16,8 @@ Phases (any failure exits non-zero):
    kernel and of the loop forward and backward, none in their fp32 ones,
    and in their high ones (``--fast-f32``: each product three passes on
    wgmma) HGMMA only, no HMMA, every HGMMA shape a multiple of three and
-   at least 2.5 times the bf16 tensor-core FLOP;
+   at least 2.5 times the bf16 tensor-core FLOP; the sampler step's
+   kernels (``csrc/sampler_step.cu``) must not spill;
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (batch 64, both layer shapes, fp32, bf16 and high
    modes), with the tolerances stated below: the fused sampler layer, the
@@ -33,7 +34,9 @@ Phases (any failure exits non-zero):
    fused layer and the loop forward with 40 neighbours more, NP = 136 (two
    96-neighbour tiles per query row, merged online; the loop backward
    takes NP <= 96); the fused layer also on inputs 4 bytes off 16-byte
-   alignment (``unaligned_case``);
+   alignment (``unaligned_case``); the sampler step's two kernels
+   (``sampler_step_case``: a chain's first, middle and last step, in every
+   mode; ``SAMPLER_STEP_TOL``);
 4. the main paths, which run from CUDA graphs (``utils/graphs.py``: a
    step captured once per shape and mode, then replayed; each replay adds
    the captured launches to the counters, so the counts below are
@@ -41,7 +44,8 @@ Phases (any failure exits non-zero):
    noise_step_count=1000)`` answers 3 requests, then two full batches of
    64, in fp32, bf16 and fast-f32; checks the PDBs parse with finite coordinates
    and the right chains, the quats are unit, and the kernel ran exactly
-   2 x 1000 times per batch. Then a batch-64 strided 100-step trajectory
+   2 x 1000 times per batch, the sampler step's kernels as often, in the
+   mode (none on the mesh's sharded sampling, phase 6). Then a batch-64 strided 100-step trajectory
    from graphs is held against the eager one from the same batch
    generator (fused fp32, bf16 and high, pallas; ``TRAJ_TOL``, and logged
    whether bit-identical). Before it, a 4-step trajectory through the
@@ -111,7 +115,8 @@ Phases (any failure exits non-zero):
    neighbours a block); the native PDB formatter (``finalize`` of a batch
    of 64 takes it, 2 calls an entry, with the Python path's bytes; both
    timed); the HDF5 decoder logged as skipped without a libhdf5;
-5. times: each kernel and its plain version per launch (``time_ms``:
+5. times: each kernel (the sampler step's two: their sum a step) and its
+   plain version per launch (``time_ms``:
    N launches captured in a CUDA graph, its replay timed between CUDA
    events, so no wrapper's host work is in it), beside the bound reckoned
    from this run's shapes (for the
@@ -215,6 +220,20 @@ PALLAS_TOL = TOL["fp32"]
 PALLAS_REPLACES = "pmhc_tpu/ops/egnn_pallas.py:84"
 # peptide lengths of kernel #3's check batches (padded rows fully masked)
 PALLAS_LENGTHS = (9, 5, 1, 16, 12, 3, 9, 14)
+# the sampler step's two kernels against their plain versions
+# (ops/sampler_step.py), absolute: the inter-layer kernel's projection
+# sums its 64 products in another order (~1e-6 of a_j ~ 1), its relu and
+# copies are exact; the step kernel's new state comes from the same
+# accurate sqrtf / acosf / sinf / cosf and IEEE divisions as PyTorch's
+# CUDA kernels, where nvcc may contract a product and a sum into one FMA
+# (under the CPU emulation: glibc's functions against PyTorch's vectorised
+# ones), an ulp of a quaternion or an angle, grown where acos is steep;
+# hence the fused layer's fp32 tolerances. The next step's a_j and time
+# column, the counter and the copies: exact (0)
+SAMPLER_STEP_TOL = {"h2": 0.0, "aj2": TOL["fp32"]["feat"], "qj2": 0.0, "tj2": 0.0, "k": 0.0,
+                    "q": TOL["fp32"]["q"], "t": TOL["fp32"]["t"], "tors": TOL["fp32"]["tors"],
+                    "h1": 0.0, "aj1": 0.0, "qj1": TOL["fp32"]["q"], "tj1": TOL["fp32"]["t"],
+                    "ticket": 0.0}
 TRAIN_STEPS = 20
 # 5-step kernel trajectory vs the dense autograd path (Adam, lr 1e-3):
 # losses relative; parameters loosely, absolute: Adam moves a parameter by
@@ -359,6 +378,90 @@ def unaligned_case(args):
         return v
 
     return (args[0],) + tuple(off(x) for x in args[1:])
+
+
+def sampler_step_case(model, seed: int, device, batch_size: int = B, bf16=False, k: int = 0,
+                      steps: int = STEPS, pocket=None) -> dict:
+    """The sampler step kernels' inputs, from a real chain at step ``k`` of
+    T = ``steps`` (the last when ``k`` = steps - 1): a noised batch of
+    9-residue peptides (row 1 of 4: padded rows), its ``FusedForward``
+    with the step's inputs written (``start``), layer 1's outputs on its
+    state and layer 2's predictions on those (the main path's layer), and
+    the step's draws; ``pocket`` cuts the pocket to that many residues.
+    The kernels' outputs (h2, the peptide rows of both layers' neighbour
+    inputs, h1's time column) hold a sentinel. Returns ``{"inter": the
+    inter-layer arguments, "step": the step's, "bf16": the mode flag}``."""
+    import torch
+
+    from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
+    from pmhc_tpu_torch.diffusion import DiffusionConfig, gen_noise
+    from pmhc_tpu_torch.diffusion.noise import draw_noise
+    from pmhc_tpu_torch.diffusion.sampler import Chain, fused_forward, model_time
+    from pmhc_tpu_torch.diffusion.schedule import step_tables
+    from pmhc_tpu_torch.models import ScoreNetworkConfig
+
+    nb = synthetic_batch(batch_size=batch_size, seed=seed)
+    nb["mask"][1 % batch_size, 4:] = False
+    if pocket is not None:
+        for key in ("pocket_frames", "pocket_mask", "pocket_features"):
+            nb[key] = nb[key][:, :pocket]
+    mb = prepare_batch(nb, device)
+    cfg = DiffusionConfig(noise_step_count=steps)
+    g = torch.Generator(device=device).manual_seed(seed)
+    start = gen_noise(g, (batch_size, 16), cfg)
+    mb["frames"], mb["torsions"] = start["frames"], start["torsions"]
+    ts, sched = step_tables(cfg)
+    with torch.no_grad():
+        fwd = fused_forward(model, mb, ScoreNetworkConfig(noise_step_count=steps), bf16)
+        chain = Chain(mb, model_time("fused", ts, steps), sched)
+        chain.k.fill_(k)
+        fwd.start(chain)
+        c1, c2 = fwd.ctx1, fwd.ctx2
+        q1, t1, tors1, inner = c1.run(fwd.h1, chain.q, chain.t, chain.tors)
+        h2 = torch.relu(inner)
+        q2, t2, tors2, _ = c2(h2, q1, t1, tors1, c2.project(h2))
+        draws = draw_noise(g, (batch_size, 16), cfg)
+        for ctx in (c1, c2):
+            for x in (ctx.aj, ctx.qj, ctx.tj):
+                x[:, :16] = -7.0
+        fwd.h1[..., -1] = -7.0
+        fwd.h2.fill_(-7.0)
+    return {"inter": (inner, q1, t1, c2.wj_t, fwd.h2, c2.aj, c2.qj, c2.tj),
+            "step": (chain.k, chain.xs, chain.sched, chain.q, chain.t, chain.tors, q2, t2, tors2,
+                     draws, fwd.h1, fwd.aj1_static, fwd.wj1_time, c1.aj, c1.qj, c1.tj, fwd.ticket),
+            "bf16": c1.bf16}
+
+
+def copy_args(args) -> tuple:
+    """A copy of a sampler step kernel's arguments (a ``Draws``' tensors too)."""
+    from pmhc_tpu_torch.diffusion.noise import Draws
+
+    return tuple(Draws(*(x.clone() for x in a[:3]), a.scale) if isinstance(a, Draws)
+                 else a.clone() for a in args)
+
+
+def sampler_step_errors(case: dict, run_inter, run_step) -> dict:
+    """Both sampler step kernels, ``run_inter(*args)`` and
+    ``run_step(*args)``, against their plain versions, each side on its own
+    copy of ``case``'s inputs: the largest absolute difference of each
+    output they write (names of ``SAMPLER_STEP_TOL``)."""
+    import torch
+
+    from pmhc_tpu_torch.ops import sampler_step as ss
+
+    got_i, want_i, got_s, want_s = (copy_args(case[k]) for k in ("inter", "inter", "step", "step"))
+    run_inter(*got_i)
+    ss.inter_layer_plain(*want_i, bf16=case["bf16"])
+    run_step(*got_s)
+    ss.step_plain(*want_s[:-1])
+    if got_s[0].device.type == "cuda":
+        torch.cuda.synchronize()
+    err = lambda g, w: float((g.double() - w.double()).abs().max())  # noqa: E731
+    out = {n: err(got_i[i], want_i[i]) for n, i in (("h2", 4), ("aj2", 5), ("qj2", 6), ("tj2", 7))}
+    out.update({n: err(got_s[i], want_s[i]) for n, i in (
+        ("k", 0), ("q", 3), ("t", 4), ("tors", 5), ("h1", 10), ("aj1", 13), ("qj1", 14),
+        ("tj1", 15), ("ticket", 16))})
+    return out
 
 
 def bound_of(split_flops: float, other_flops: float, nbytes: float, mode: str):
@@ -898,6 +1001,101 @@ def check_pallas_build(info: dict) -> dict:
     if res["fp32"]["spill_bytes"]:
         raise AssertionError(f"egnn_pallas spills registers: {res}")
     return res["fp32"]
+
+
+def check_sampler_step_build(info: dict) -> dict:
+    """Phase 2, the sampler step's kernels: the inter-layer kernel's two
+    instantiations (fp32 and high: ``false``; bf16: ``true``) and the step
+    kernel must be reported by ``ptxas -v`` and must not spill."""
+    def kind_of(name):
+        if "sampler_inter_kernel" in name:
+            return "inter_bf16" if "ILb1E" in name else "inter_fp32"
+        return "step" if "sampler_step_kernel" in name else None
+
+    res = ptxas_entries(info["log"], kind_of)
+    log(f"build sampler_step kernels: {json.dumps(res)}")
+    if set(res) != {"inter_fp32", "inter_bf16", "step"} or any(
+            r["registers"] is None for r in res.values()):
+        raise AssertionError(f"sampler_step: ptxas did not report every kernel: {res}")
+    if any(r["spill_bytes"] for r in res.values()):
+        raise AssertionError(f"sampler_step spills registers: {res}")
+    return res
+
+
+def check_sampler_step(model, dev) -> float:
+    """Phase 3: both sampler step kernels against their plain versions at
+    batch 64 in every mode, at the chain's first step, a middle one and its
+    last (``SAMPLER_STEP_TOL``). Returns the largest error."""
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import sampler_step as ss
+
+    worst = 0.0
+    for mode in MODES:
+        for k in (0, STEPS // 2, STEPS - 1):
+            case = sampler_step_case(model, seed=30 + k, device=dev, bf16=ef.FLAGS[mode], k=k)
+            errs = sampler_step_errors(case, lambda *a: ss.inter_layer(*a, bf16=case["bf16"]),
+                                       lambda *a: ss.step(*a, bf16=case["bf16"]))
+            bad = sorted(n for n, e in errs.items() if not e <= SAMPLER_STEP_TOL[n])
+            log(json.dumps({"check": "sampler_step", "mode": mode, "k": k, "max_abs_err": errs,
+                            "ok": not bad}))
+            if bad:
+                raise AssertionError(f"sampler_step {mode} k={k}: {bad} disagree with the plain "
+                                     f"version")
+            worst = max(worst, max(errs.values()))
+    return worst
+
+
+def work_of_sampler_step(case: dict) -> dict:
+    """{kernel: (FLOP, bytes)} of one launch of each sampler step kernel on
+    ``case``'s inputs: each input element read once, each output element
+    written once (the rows it writes), the projection's MACs as 2 FLOP."""
+    inner, q1, t1, wj_t, h2, aj2, qj2, tj2 = case["inter"]
+    (k, xs, sched, q, t, tors, q_p, t_p, tors_p, draws, h1, aj_static, wj_time, aj1, qj1, tj1,
+     ticket) = case["step"]
+    R, H = inner.shape[0] * inner.shape[1], inner.shape[2]
+    T = aj2.shape[2]
+    inter = (2 * R * H * T, 4 * (R * H + R * 7 + H * T + R * H + R * T + R * 7))
+    state = q.numel() + t.numel() + tors.numel()
+    step = (0, 4 * (2 * state + state + sum(d.numel() for d in draws[:3]) + 6 + 1 + T
+                    + aj_static.numel() + R * T + R * 7 + R) + 8 + 4)
+    return {"inter": inter, "step": step}
+
+
+def sampler_step_times(model, dev, launches: int, err: float, card: str) -> dict:
+    """Phase 5: each sampler step kernel's ms per launch (``time_ms``) at
+    batch 64 beside its plain version's (captured the same way) and its
+    bound (the bytes at 3.35 TB/s; the projection's FLOP at the fp32 peak
+    are below it); the kernels line's row, their sums per step."""
+    from pmhc_tpu_torch.ops import _build
+    from pmhc_tpu_torch.ops import sampler_step as ss
+    from pmhc_tpu_torch.tools.flops import PEAK_BYTES, PEAK_FP32
+
+    import torch
+
+    lib = ss._lib()
+    cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731 (a capture's own)
+    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for name in ("inter", "step"):
+        # a fresh chain at k = 0 for each side: 203 kernel and 23 plain steps, all below T
+        case, plain = (sampler_step_case(model, seed=40, device=dev) for _ in range(2))
+        if name == "inter":
+            ms = time_ms(lambda: ss.launch_inter(lib, *case["inter"], bf16=False, stream=cur()), 100)
+            plain_ms = time_ms(lambda: ss.inter_layer_plain(*plain["inter"]), 10)
+        else:
+            ms = time_ms(lambda: ss.launch_step(lib, *case["step"], stream=cur()), 100)
+            plain_ms = time_ms(lambda: ss.step_plain(*plain["step"][:-1]), 10)
+        flops, nbytes = work_of_sampler_step(case)[name]
+        bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3
+        log(json.dumps({"metric": "sampler_step_ms", "kernel": name, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes", "mbytes": nbytes / 1e6,
+                        "mflop": flops / 1e6, "card": card}))
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["bound_ms"] += bound_ms
+    return {"name": "sampler_step", "route": "cuda", "source": "pmhc_tpu_torch/csrc/sampler_step.cu",
+            "replaces": None,  # XLA's fusions of sample_lane's scan body
+            "launches": launches, "max_abs_err": err, **row, "bound_by": "bytes",
+            "library_ms": None, "digest": _build.digest("sampler_step")}
 
 
 # tensor-core FLOP of one SASS instruction: mma.sync m16n8k16 (HMMA.16816)
@@ -2110,6 +2308,7 @@ def mesh_sampling(world: int, card: str, model, backend: str) -> float:
     from pmhc_tpu_torch.diffusion.sampler import sample_sharded
     from pmhc_tpu_torch.geometry import RigidArray
     from pmhc_tpu_torch.models import ScoreNetworkConfig
+    from pmhc_tpu_torch.ops import sampler_step as ss
     from pmhc_tpu_torch.parallel import make_mesh
     from pmhc_tpu_torch.serve import SamplerService
 
@@ -2151,6 +2350,8 @@ def mesh_sampling(world: int, card: str, model, backend: str) -> float:
     if dist.get_rank() == 0:
         for pdb, e in zip(pdbs, entries64):
             check_pdb(pdb, e)
+    if any(ss.LAUNCHES.values()):
+        raise AssertionError(f"mesh {backend}: the sampler step kernels ran: {dict(ss.LAUNCHES)}")
     mesh_say(f"mesh {backend} {tuple(mesh.shape)}: batch {B}, T={STEPS}, {len(pdbs)} PDBs "
              f"checked, chain {wall:.3f} s")
     dist.barrier()
@@ -2434,9 +2635,10 @@ def main() -> int:
 
     from pmhc_tpu_torch.ops import _build
     from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import sampler_step as ss
 
     # -- 2. build: one nvcc per source, all started together -------------------------
-    sources = ("egnn_fused", "egnn_loop", "egnn_pallas")
+    sources = ("egnn_fused", "egnn_loop", "egnn_pallas", "sampler_step")
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as pool:
         infos = dict(zip(sources, pool.map(lambda n: _build.build(n, ptxas_verbose=True), sources)))
@@ -2449,6 +2651,7 @@ def main() -> int:
     check_fused_build(infos["egnn_fused"])
     check_loop_build(infos["egnn_loop"])
     check_pallas_build(infos["egnn_pallas"])
+    check_sampler_step_build(infos["sampler_step"])
 
     # -- 3. kernel vs plain version ---------------------------------------------
     model = random_model(seed=0).to(dev).eval()
@@ -2502,6 +2705,7 @@ def main() -> int:
     # and a partial last neighbour block: layer 2's neighbours cut to NP = 90
     pallas_err = check_pallas_kernel({**pallas_cases, "gnn2 NP=90": (
         pallas_ragged(pallas_cases["gnn2"][0]), pallas_cases["gnn2"][1])})
+    step_err = check_sampler_step(model, dev)
 
     # -- 4. the main paths ----------------------------------------------------------
     from pmhc_tpu_torch.serve import SamplerService
@@ -2523,6 +2727,7 @@ def main() -> int:
                                ("batch of 64", entries64)):
             torch.cuda.synchronize()
             ef.reset_launches()
+            ss.reset_launches()
             t0 = time.monotonic()
             handle = svc.dispatch(entries, gen)
             t_ret = time.monotonic()
@@ -2540,6 +2745,10 @@ def main() -> int:
                 walls.append((t1 - t0, t2 - t1, t_ret - t0))
             if count != 2 * STEPS or other != 0:
                 raise AssertionError(f"{mode}: {count} kernel launches, expected {2 * STEPS}")
+            # the sampler step's kernels: as many as the layer's, in the mode
+            if ss.LAUNCHES != {m: count if m == mode else 0 for m in ss.LAUNCHES}:
+                raise AssertionError(f"{mode}: sampler step launches {dict(ss.LAUNCHES)}, "
+                                     f"expected {count}")
             if len(pdbs) != len(entries):
                 raise AssertionError("one PDB per request expected")
             for pdb, e in zip(pdbs, entries):
@@ -2622,6 +2831,7 @@ def main() -> int:
             "gemm_ms": float(np.mean(per["gemm_ms"])),
         })
 
+    kernels.append(sampler_step_times(model, dev, launches["fp32"], step_err, card))
     kernels += loop_times(loop_cases, loop_err, train_launches, card)
     kernels.append(pallas_times(pallas_cases, pallas_launches, pallas_err, card))
 

@@ -10,8 +10,9 @@ the weights. Two formats, one loader (``load_sampler`` reads the magic):
 
 - ``executable`` (``MAGIC_XC``, the default), the JAX compiled-executable
   format's counterpart: the built ``.so`` of every library the service
-  runs (``LIBRARIES``: the backend's CUDA kernel and the PDB formatter of
-  ``finalize``), the weights as the 48 reference-named arrays
+  runs (``LIBRARIES``: the backend's CUDA kernels, for ``fused`` the
+  layer's and the sampler step's, and the PDB formatter of ``finalize``),
+  the weights as the 48 reference-named arrays
   (``np.savez``, no pickle) and a JSON header. Pinned to the exporting
   process's torch and CUDA versions, platform and device name: a load
   elsewhere raises ``ValueError`` (``cannot load under``). Loading runs no
@@ -70,7 +71,7 @@ MAGIC = b"PMHCAOT1"     # portable: the libraries' sources, built at load
 MAGIC_XC = b"PMHCAOTX"  # executable: the built libraries
 # the libraries a service runs: its backend's CUDA kernel, and the PDB
 # formatter of finalize (host code)
-LIBRARIES = {"fused": ("egnn_fused", "pdb_formatter"), "pallas": ("egnn_pallas", "pdb_formatter"),
+LIBRARIES = {"fused": ("egnn_fused", "sampler_step", "pdb_formatter"), "pallas": ("egnn_pallas", "pdb_formatter"),
              "dense": ("pdb_formatter",), "blockwise": ("pdb_formatter",)}
 CONFIG_KEYS = ("backend", "batch_size", "noise_step_count", "num_steps", "precision")
 PINNED_KEYS = ("torch_version", "cuda_version", "device_name")

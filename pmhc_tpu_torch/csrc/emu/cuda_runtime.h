@@ -136,6 +136,9 @@ inline float2 atomicAdd(float2* p, float2 v) {
 inline float4 atomicAdd(float4* p, float4 v) {
   return {atomicAdd(&p->x, v.x), atomicAdd(&p->y, v.y), atomicAdd(&p->z, v.z), atomicAdd(&p->w, v.w)};
 }
+inline unsigned atomicAdd(unsigned* p, unsigned v) { return std::atomic_ref<unsigned>(*p).fetch_add(v); }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline float __fmul_rn(float a, float b) { return a * b; }  // never contracted on the card
 inline float __ldg(const float* p) { return *p; }
 inline float __uint_as_float(unsigned u) {
   float f;

@@ -9,36 +9,67 @@ composition is a Hamilton product. Randomness comes from an explicit
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from pmhc_tpu_torch.diffusion.schedule import DiffusionConfig, ScheduleTables
 from pmhc_tpu_torch.geometry import (
     RigidArray,
+    angle_to_sin_cos,
     inverse_sin_cos,
     multiply_sin_cos,
     partial_rot,
     partial_sin_cos,
     quat_invert,
     quat_multiply,
-    random_quat,
-    random_sin_cos,
+    shoemake_quat,
 )
 
 Noise = Dict[str, Any]  # {"frames": RigidArray, "torsions": [..., 7, 2]}
+PI = math.pi
+
+
+class Draws(NamedTuple):
+    """One step's raw draws, in ``gen_noise``'s order and shapes, and the
+    translations' scale (``position_noise_scale``) that turns them into
+    ``Noise`` (``noise_of``)."""
+
+    normal: torch.Tensor    # [..., 3] standard normal: translations
+    shoemake: torch.Tensor  # [..., 3] uniform: Shoemake coordinates of the rotation
+    angles: torch.Tensor    # [..., 7] uniform: torsion angles over 2 pi
+    scale: float
+
+
+def draw_noise(generator: torch.Generator, shape, config: DiffusionConfig,
+               out: Optional[Draws] = None) -> Draws:
+    """The raw draws of ``gen_noise`` for batch shape ``shape``, from the
+    generator on its device: ``randn`` [..., 3], ``rand`` [..., 3], ``rand``
+    [..., 7], in that order; into ``out``'s tensors when given."""
+    shape = tuple(shape)
+
+    def one(fn, i, n):
+        if out is None:
+            return fn(shape + (n,), generator=generator, device=generator.device,
+                      dtype=torch.float32)
+        return fn(shape + (n,), generator=generator, out=out[i])
+
+    return Draws(one(torch.randn, 0, 3), one(torch.rand, 1, 3), one(torch.rand, 2, 7),
+                 config.position_noise_scale)
+
+
+def noise_of(draws: Draws) -> Noise:
+    """The noise of ``draws``: translations ~ N(0, scale^2), rotations
+    uniform on SO(3) (Shoemake), torsions uniform angles as (sin, cos)."""
+    return {"frames": RigidArray(shoemake_quat(draws.shoemake), draws.normal * draws.scale),
+            "torsions": angle_to_sin_cos(draws.angles * (2.0 * PI))}
 
 
 def gen_noise(generator: torch.Generator, shape, config: DiffusionConfig) -> Noise:
-    """Pure noise of batch shape ``shape`` on the generator's device:
-    translations ~ N(0, 5^2), rotations uniform on SO(3) (Shoemake),
-    torsions uniform angles as (sin, cos)."""
-    shape = tuple(shape)
-    trans = torch.randn(shape + (3,), generator=generator, device=generator.device,
-                        dtype=torch.float32) * config.position_noise_scale
-    quats = random_quat(generator, shape)
-    torsions = random_sin_cos(generator, shape + (7,))
-    return {"frames": RigidArray(quats, trans), "torsions": torsions}
+    """Pure noise of batch shape ``shape`` on the generator's device
+    (``noise_of`` of ``draw_noise``)."""
+    return noise_of(draw_noise(generator, shape, config))
 
 
 def add_noise(signal: Dict[str, Any], noise: Noise, t, tables: ScheduleTables) -> Dict[str, Any]:

@@ -7,20 +7,28 @@ backend the static context is built once before the chain:
 - the packed (folded) weights of both layers;
 - the edge terms, zero toward the pocket, and the message mask;
 - the pocket-side neighbour projections a_j of both layers;
-- the static 22-dim part of layer 1's peptide a_j plus its time row.
+- the static 22-dim part of layer 1's peptide a_j plus its time row;
+- the kernel's neighbour inputs of both layers, which persist over the
+  chain: their pocket rows are written once, their peptide rows each step.
 
-Each step then runs the layer-2 peptide projection relu(inner) @ W1[H:2H]
-(a plain ``torch.matmul``), two fused-layer launches, and
-``remove_noise``. In bf16 mode the neighbour projections take one bf16
-pass (operands rounded, fp32 sums), as ``sample_lane``'s DEFAULT-precision
-XLA matmuls do on the TPU; in high mode (``--fast-f32``) the kernel splits
-its products into bf16 halves and the projections stay IEEE fp32, what
-``sample_lane``'s ``Precision.HIGH`` matmuls give on the CPU. The dense
-backend evaluates ``score_network_forward`` per step instead (the oracle
-path). The ``pallas`` backend runs the JAX
-package's generic sampler step, two ``ops/egnn_pallas.py`` launches per
-step, with its static context (packed weights, message mask, edge terms,
-the pocket halves of ``h_all``, ``q_j`` and ``t_j``) built once.
+On the card a chain with a generator (``FusedForward.kernel_step``) then
+takes a step in the three generator calls of its raw draws and four
+launches: layer 1, the inter-layer kernel (h2 = relu(inner), layer 2's
+peptide neighbour inputs with the projection relu(inner) @ W1[H:2H]),
+layer 2, and the step kernel (``remove_noise`` into the state and layer
+1's peptide neighbour inputs, the next step's time inputs, the counter;
+``ops/sampler_step.py``). Elsewhere (the CPU, ``injected_noise``) a step
+runs the plain composition of the same inputs and ``remove_noise``. In
+bf16 mode the neighbour projections take one bf16 pass (operands rounded,
+fp32 sums), as ``sample_lane``'s DEFAULT-precision XLA matmuls do on the
+TPU; in high mode (``--fast-f32``) the kernel splits its products into
+bf16 halves and the projections stay IEEE fp32, what ``sample_lane``'s
+``Precision.HIGH`` matmuls give on the CPU. The dense backend evaluates
+``score_network_forward`` per step instead (the oracle path). The
+``pallas`` backend runs the JAX package's generic sampler step, two
+``ops/egnn_pallas.py`` launches per step, with its static context (packed
+weights, message mask, edge terms, the pocket halves of ``h_all``, ``q_j``
+and ``t_j``) built once.
 
 A step reads its model time and its six schedule scalars from tables on
 the device (``schedule.step_tables``) at a step counter kept there and
@@ -58,7 +66,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from pmhc_tpu_torch.diffusion.noise import gen_noise, remove_noise_scalars
+from pmhc_tpu_torch.diffusion.noise import Draws, draw_noise, gen_noise, remove_noise_scalars
 from pmhc_tpu_torch.diffusion.schedule import DiffusionConfig, ScheduleTables, step_tables
 from pmhc_tpu_torch.geometry import RigidArray
 from pmhc_tpu_torch.models.score import (
@@ -68,7 +76,8 @@ from pmhc_tpu_torch.models.score import (
     resolve_backend,
     score_network_forward,
 )
-from pmhc_tpu_torch.ops.egnn_fused import layer_context, mode_of
+from pmhc_tpu_torch.ops import sampler_step
+from pmhc_tpu_torch.ops.egnn_fused import LayerContext, layer_context, mode_of
 from pmhc_tpu_torch.ops.egnn_pallas import pallas_context
 from pmhc_tpu_torch.parallel.comm import all_gather_flat
 from pmhc_tpu_torch.parallel.mesh import data_rows, take_rows
@@ -112,9 +121,66 @@ class Forward:
         return self.fn(q, t, tors, x)
 
 
+class FusedForward(Forward):
+    """The fused backend's score network over inputs that persist over the
+    chain: layer 1's node input ``h1`` [B, N, 23] (the 22 static features
+    and the time column), layer 2's ``h2`` [B, N, H2], and each layer's
+    neighbour inputs (``LayerContext``: pocket rows written once, peptide
+    rows each step). Calling it runs the plain composition, which writes
+    those rows itself. On the card a chain with a generator steps by
+    ``kernel_step`` instead (``Chain.step`` given ``Draws``), from the
+    step's draws generated into buffers of its own (``draw``), after
+    ``start`` has written the first step's inputs."""
+
+    def __init__(self, ctx1: LayerContext, ctx2: LayerContext, h1: torch.Tensor,
+                 aj1_static: torch.Tensor, wj1_time: torch.Tensor, T: int):
+        super().__init__(self._plain, [h1, aj1_static, wj1_time, *ctx1.tensors(),
+                                       *ctx2.tensors()], "fused", T)
+        self.ctx1, self.ctx2, self.h1 = ctx1, ctx2, h1
+        self.aj1_static, self.wj1_time = aj1_static, wj1_time
+        B, N, _ = h1.shape
+        dev = h1.device
+        self.h2 = torch.empty((B, N, ctx2.w.H), device=dev)
+        self.draws = tuple(torch.empty((B, N, n), device=dev) for n in (3, 3, 7))
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)  # the step kernel's
+
+    def _plain(self, q, t, tors, tf):
+        self.h1[..., -1:] = tf
+        q1, t1, tors1, inner = self.ctx1(self.h1, q, t, tors,
+                                         self.aj1_static + tf * self.wj1_time)
+        h2 = torch.relu(inner)
+        q2, t2, tors2, _ = self.ctx2(h2, q1, t1, tors1, self.ctx2.project(h2))
+        return q2, t2, tors2
+
+    def draw(self, generator: torch.Generator, config: DiffusionConfig) -> Draws:
+        """The step's raw draws (``draw_noise``) into this forward's buffers."""
+        return draw_noise(generator, self.h1.shape[:2], config, out=self.draws)
+
+    def start(self, chain: "Chain") -> None:
+        """The inputs of the chain's next step that ``kernel_step`` writes
+        for the step after it: the time column of h1 and layer 1's peptide
+        a_j at the chain's counter, its peptide q_j and t_j."""
+        N = chain.q.shape[1]
+        x = chain.xs.index_select(0, chain.k)
+        self.h1[..., -1:] = x
+        self.ctx1.aj[:, :N] = self.aj1_static + x * self.wj1_time
+        self.ctx1.qj[:, :N] = chain.q
+        self.ctx1.tj[:, :N] = chain.t
+
+    def kernel_step(self, chain: "Chain", draws: Draws) -> None:
+        """Step k -> k + 1 in four launches (``ops/sampler_step.py``)."""
+        c1, c2 = self.ctx1, self.ctx2
+        q1, t1, tors1, inner = c1.run(self.h1, chain.q, chain.t, chain.tors)
+        sampler_step.inter_layer(inner, q1, t1, c2.wj_t, self.h2, c2.aj, c2.qj, c2.tj, c2.bf16)
+        q2, t2, tors2, _ = c2.run(self.h2, q1, t1, tors1)
+        sampler_step.step(chain.k, chain.xs, chain.sched, chain.q, chain.t, chain.tors,
+                          q2, t2, tors2, draws, self.h1, self.aj1_static, self.wj1_time,
+                          c1.aj, c1.qj, c1.tj, self.ticket, c1.bf16)
+
+
 def fused_forward(model: ScoreNetwork, batch: Dict[str, Any], model_config: ScoreNetworkConfig,
-                  bf16) -> Forward:
-    """Build both layers' static context once; return its ``Forward``."""
+                  bf16) -> FusedForward:
+    """Build both layers' static context once; return its ``FusedForward``."""
     mask = batch["mask"].float()
     pocket_mask = batch["pocket_mask"].float()
     B, N = mask.shape
@@ -123,7 +189,7 @@ def fused_forward(model: ScoreNetwork, batch: Dict[str, Any], model_config: Scor
     g1, g2 = model.gnn1, model.gnn2
     dev = mask.device
 
-    feats22 = batch["features"].float()
+    h1 = F.pad(batch["features"].float(), (0, 1)).contiguous()  # the time column last
     pocket_h = torch.cat(
         (batch["pocket_features"].float(), torch.zeros((B, P, 1), device=dev)), dim=-1)
     pocket_inner = F.pad(pocket_h, (0, H2 - H1))
@@ -133,18 +199,9 @@ def fused_forward(model: ScoreNetwork, batch: Dict[str, Any], model_config: Scor
         ctx2 = layer_context(g2, relpos_edge_pre(g2, N), mask, pocket_inner, pf, pocket_mask, bf16)
         # layer 1's peptide a_j: the static 22-dim part (time slot 0) plus the
         # time row, added in fp32 each step
-        aj1_static = ctx1.project(F.pad(feats22, (0, 1)))          # [B, N, T]
+        aj1_static = ctx1.project(h1)                               # [B, N, T]
         wj1_time = ctx1.wj_t[-1].contiguous()                       # [T]
-
-    def forward(q, t, tors, tf):
-        h1 = torch.cat((feats22, tf.expand(B, N, 1)), dim=-1)
-        q1, t1, tors1, inner = ctx1(h1, q, t, tors, aj1_static + tf * wj1_time)
-        h2 = torch.relu(inner)
-        q2, t2, tors2, _ = ctx2(h2, q1, t1, tors1, ctx2.project(h2))
-        return q2, t2, tors2
-
-    return Forward(forward, [feats22, aj1_static, wj1_time, *ctx1.tensors(), *ctx2.tensors()],
-                   "fused", model_config.noise_step_count)
+    return FusedForward(ctx1, ctx2, h1, aj1_static, wj1_time, model_config.noise_step_count)
 
 
 def pallas_forward(model: ScoreNetwork, batch: Dict[str, Any],
@@ -216,8 +273,13 @@ class Chain:
         self.tors.copy_(batch["torsions"])
         self.k.zero_()
 
-    def step(self, forward: Forward, rand: Dict[str, Any]) -> None:
-        """Step k -> k + 1 with the noise ``rand``."""
+    def step(self, forward: Forward, rand: Dict[str, Any] | Draws) -> None:
+        """Step k -> k + 1 with the noise ``rand``; from ``Draws``, the
+        step's raw draws, by the fused backend's kernels
+        (``FusedForward.kernel_step``)."""
+        if isinstance(rand, Draws):
+            forward.kernel_step(self, rand)
+            return
         x = self.xs.index_select(0, self.k)
         scalars = self.sched.index_select(0, self.k)[0].unbind()
         q_p, t_p, tors_p = forward(self.q, self.t, self.tors, x)
@@ -241,12 +303,11 @@ def _noise(generator: torch.Generator, shape: Tuple[int, ...], config: Diffusion
 
 class _Graphed:
     """A chain with its own static context (``forward.static``) and noise
-    generator, and its captured steps by steps per graph."""
+    generator, its step's noise drawn from that by ``draw``, and its
+    captured steps by steps per graph."""
 
-    def __init__(self, forward: Forward, chain: Chain, shape: Tuple[int, ...],
-                 config: DiffusionConfig, rows: Tuple[int, slice] | None = None):
-        self.forward, self.chain = forward, chain
-        self.shape, self.config, self.rows = shape, config, rows
+    def __init__(self, forward: Forward, chain: Chain, draw: Callable[[torch.Generator], Any]):
+        self.forward, self.chain, self.draw = forward, chain, draw
         self.generator = torch.Generator(device=chain.q.device)
         self.steps: Dict[int, Step] = {}
 
@@ -258,8 +319,7 @@ class _Graphed:
             if step is None:
                 def body():
                     for _ in range(n):
-                        self.chain.step(self.forward,
-                                        _noise(self.generator, self.shape, self.config, self.rows))
+                        self.chain.step(self.forward, self.draw(self.generator))
 
                 step = self.steps[n] = Step(body, [self.generator])
             step()
@@ -311,6 +371,8 @@ def sample(
     ts, sched = step_tables(config, num_steps, tables)
     backend = resolve_backend(model_config.backend)
     xs = model_time(backend, ts, config.noise_step_count)
+    # the fused backend's chain on the card steps by its kernels, from raw draws
+    kernels = backend == "fused" and dev.type == "cuda" and injected_noise is None
 
     def build(b):
         if backend == "fused":
@@ -325,13 +387,22 @@ def sample(
     if mesh is not None:
         d = mesh.get_coordinate()[0]
         rows = (shape[0] * mesh.size(0), slice(d * shape[0], (d + 1) * shape[0]))
+
+    def drawer(forward: Forward) -> Callable[[torch.Generator], Any]:
+        if kernels:
+            return lambda g: forward.draw(g, config)
+        return lambda g: _noise(g, shape, config, rows)
+
     with span("sampler.chain"):
         if not graphs:
             forward = build(batch)
             chain = Chain(batch, xs, sched)
+            draw = drawer(forward)
+            if kernels:
+                forward.start(chain)
             for k in range(len(ts)):
                 if injected_noise is None:
-                    rand = _noise(generator, shape, config, rows)
+                    rand = draw(generator)
                 else:
                     rf = injected_noise["frames"]
                     rand = {"frames": RigidArray(rf.quats[k], rf.trans[k]),
@@ -347,12 +418,15 @@ def sample(
                 entry = cache.get(key)
                 if entry is None:
                     own = own_batch(batch)
-                    entry = _Graphed(build(own), Chain(own, xs, sched), shape, config, rows)
+                    forward = build(own)
+                    entry = _Graphed(forward, Chain(own, xs, sched), drawer(forward))
                     cache.put(key, entry)
                 else:
                     for dst, src in zip(entry.forward.static, build(batch).static):
                         dst.copy_(src)
                     entry.chain.restart(batch)
+                if kernels:
+                    entry.forward.start(entry.chain)
                 entry.generator.set_state(generator.get_state())
             K, S = len(ts), STEPS_PER_GRAPH
             for n in [S] * (K // S) + ([K % S] if K % S else []):

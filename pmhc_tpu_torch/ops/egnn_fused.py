@@ -396,16 +396,20 @@ def _project(x: torch.Tensor, w_t: torch.Tensor, bf16) -> torch.Tensor:
 class LayerContext:
     """One layer's inputs that stay fixed over a trajectory, checked once:
     the packed weights, the neighbour projection ``wj_t`` = W1[H:2H].T
-    [H, T], the pocket's a_j [B, P, T] and frames, the edge terms [N, NP, T]
-    (zero toward the pocket) and the message mask [B, N, NP]. Calling it
-    with the peptide state and the peptide a_j runs the layer; only those
-    per-step tensors are checked then."""
+    [H, T], the edge terms [N, NP, T] (zero toward the pocket), the message
+    mask [B, N, NP], and the kernel's neighbour inputs a_j [B, NP, T], q_j
+    [B, NP, 4] and t_j [B, NP, 3], which persist over the trajectory: their
+    pocket rows (after the N peptide rows) are written here, their peptide
+    rows each step. Calling it with the peptide state and the peptide a_j
+    writes those rows and runs the layer; ``run`` runs it on the rows as
+    they stand (written by the sampler's step kernels). Only the per-step
+    tensors are checked then."""
 
     w: PackedLayer
     wj_t: torch.Tensor
-    aj_pocket: torch.Tensor
-    q_pocket: torch.Tensor
-    t_pocket: torch.Tensor
+    aj: torch.Tensor
+    qj: torch.Tensor
+    tj: torch.Tensor
     edge: torch.Tensor
     msg_mask: torch.Tensor
     bf16: bool | str  # False, True or "high" (mode_of)
@@ -417,24 +421,37 @@ class LayerContext:
     def tensors(self) -> Tuple[torch.Tensor, ...]:
         """The device tensors a call reads (a captured step's static
         inputs, refreshed in place for another batch)."""
-        return (self.w.buf, self.wj_t, self.aj_pocket, self.q_pocket, self.t_pocket, self.edge,
-                self.msg_mask)
+        return (self.w.buf, self.wj_t, self.aj, self.qj, self.tj, self.edge, self.msg_mask)
 
     def inputs(self, h, q, t, tors, aj_pep):
-        """The kernel's ten inputs for this peptide state (peptide
-        neighbours first, then the pocket)."""
-        return (self.w, h, q, t, tors, torch.cat((aj_pep, self.aj_pocket), dim=1),
-                torch.cat((q, self.q_pocket), dim=1), torch.cat((t, self.t_pocket), dim=1),
-                self.edge, self.msg_mask)
+        """The kernel's ten inputs for this peptide state: its rows written
+        into the neighbour inputs (peptide neighbours first, then the
+        pocket)."""
+        N = self.msg_mask.shape[1]
+        self.aj[:, :N] = aj_pep
+        self.qj[:, :N] = q
+        self.tj[:, :N] = t
+        return (self.w, h, q, t, tors, self.aj, self.qj, self.tj, self.edge, self.msg_mask)
 
-    def __call__(self, h, q, t, tors, aj_pep):
+    def _check_step(self, h, q, t, tors) -> None:
         B, N, _ = self.msg_mask.shape
         dev = self.edge.device
         for name, x, shape in (
                 ("h", h, (B, N, self.w.H)), ("q_i", q, (B, N, 4)), ("t_i", t, (B, N, 3)),
-                ("tors", tors, (B, N, N_TORSIONS, 2)), ("a_j", aj_pep, (B, N, T))):
+                ("tors", tors, (B, N, N_TORSIONS, 2))):
             _check(name, x, shape, dev)
+
+    def __call__(self, h, q, t, tors, aj_pep):
+        self._check_step(h, q, t, tors)
+        B, N, _ = self.msg_mask.shape
+        _check("a_j", aj_pep, (B, N, T), self.edge.device)
         return _run(*self.inputs(h, q, t, tors, aj_pep), bf16=self.bf16)
+
+    def run(self, h, q, t, tors):
+        """The layer on the neighbour inputs' peptide rows as they stand."""
+        self._check_step(h, q, t, tors)
+        return _run(self.w, h, q, t, tors, self.aj, self.qj, self.tj, self.edge, self.msg_mask,
+                    bf16=self.bf16)
 
 
 def layer_context(layer: EGNNLayer, edge_pre, mask, pocket_features,
@@ -443,25 +460,26 @@ def layer_context(layer: EGNNLayer, edge_pre, mask, pocket_features,
     [N, N, T], ``mask`` [B, N], ``pocket_features`` [B, P, H] (the layer's
     input width), ``pocket_mask`` [B, P]; ``bf16`` selects the kernel's
     mode (``mode_of``): True its bf16 mode and one bf16 pass for the
-    neighbour projections, ``"high"`` its high mode and fp32 projections."""
+    neighbour projections, ``"high"`` its high mode and fp32 projections.
+    The neighbour inputs' peptide rows start as zeros."""
     N, P, H = mask.shape[-1], pocket_mask.shape[-1], pocket_features.shape[-1]
     B = mask.shape[0]
     NP = N + P
+    pep = lambda x: torch.nn.functional.pad(x, (0, 0, N, 0)).contiguous()  # noqa: E731
     with torch.no_grad():
         w = pack_layer_weights(layer, H, NP)
         wj_t = layer.message_mlp[0].weight[:, H:2 * H].T.contiguous()
         ctx = LayerContext(
-            w=w, wj_t=wj_t,
-            aj_pocket=_project(pocket_features, wj_t, bf16).contiguous(),
-            q_pocket=pocket_frames.quats.contiguous(), t_pocket=pocket_frames.trans.contiguous(),
+            w=w, wj_t=wj_t, aj=pep(_project(pocket_features, wj_t, bf16)),
+            qj=pep(pocket_frames.quats), tj=pep(pocket_frames.trans),
             edge=torch.nn.functional.pad(edge_pre, (0, 0, 0, P)).contiguous(),
             msg_mask=message_mask(mask, pocket_mask).contiguous(), bf16=FLAGS[mode_of(bf16)])
     dev = ctx.edge.device
     _check_weights(ctx.w, dev)
     for name, x, shape in (
-            ("wj_t", ctx.wj_t, (H, T)), ("aj_pocket", ctx.aj_pocket, (B, P, T)),
-            ("q_pocket", ctx.q_pocket, (B, P, 4)), ("t_pocket", ctx.t_pocket, (B, P, 3)),
-            ("edge", ctx.edge, (N, NP, T)), ("msg_mask", ctx.msg_mask, (B, N, NP))):
+            ("wj_t", ctx.wj_t, (H, T)), ("aj", ctx.aj, (B, NP, T)), ("qj", ctx.qj, (B, NP, 4)),
+            ("tj", ctx.tj, (B, NP, 3)), ("edge", ctx.edge, (N, NP, T)),
+            ("msg_mask", ctx.msg_mask, (B, N, NP))):
         _check(name, x, shape, dev)
     return ctx
 

@@ -26,8 +26,8 @@ And the port's one recorder of host spans and counters:
 - ``count(name, n=1)``: a counter, always on (counters are bumped off the
   per-step path). ``counters()`` reports them beside the kernel wrappers'
   launch counts (``LAUNCHES`` of ``ops/egnn_fused.py``, ``egnn_loop.py``,
-  ``egnn_pallas.py``, as ``<module>.launches.<key>``), which stay where they
-  are.
+  ``egnn_pallas.py``, ``sampler_step.py``, as ``<module>.launches.<key>``),
+  which stay where they are.
 - ``spans()`` / ``counters()`` / ``clear()``: the readers. ``clear`` drops
   the spans and this module's counters (not the launch counts).
 
@@ -136,10 +136,10 @@ def count(name: str, n: int = 1) -> None:
 
 def launch_counters() -> Dict[str, Dict[str, int]]:
     """The kernel wrappers' launch counters by module (the dicts themselves)."""
-    from pmhc_tpu_torch.ops import egnn_fused, egnn_loop, egnn_pallas
+    from pmhc_tpu_torch.ops import egnn_fused, egnn_loop, egnn_pallas, sampler_step
 
     return {"egnn_fused": egnn_fused.LAUNCHES, "egnn_loop": egnn_loop.LAUNCHES,
-            "egnn_pallas": egnn_pallas.LAUNCHES}
+            "egnn_pallas": egnn_pallas.LAUNCHES, "sampler_step": sampler_step.LAUNCHES}
 
 
 def spans() -> List[Span]:

@@ -103,7 +103,7 @@ def test_layer_context_bf16_projection_and_step_checks():
     ctx32 = ef.layer_context(model.gnn2, edge_pre, mask, ph, pf, pm)
     ctx16 = ef.layer_context(model.gnn2, edge_pre, mask, ph, pf, pm, bf16=True)
     np.testing.assert_allclose(ctx16.project(h).numpy(), (r(h) @ r(wj).T).numpy(), atol=1e-6)
-    np.testing.assert_allclose(ctx16.aj_pocket.numpy(), (r(ph) @ r(wj).T).numpy(), atol=1e-6)
+    np.testing.assert_allclose(ctx16.aj[:, 16:].numpy(), (r(ph) @ r(wj).T).numpy(), atol=1e-6)
     np.testing.assert_allclose(ctx32.project(h).numpy(), (h @ wj.T).numpy(), atol=1e-6)
     assert float((ctx16.project(h) - ctx32.project(h)).abs().max()) > 1e-4
 

@@ -31,7 +31,11 @@ split the same operands into the same bf16 halves), the loop forward 5e-5
 (the tensor cores' own summation order, amplified by the softmax's exp).
 Round-1 fused layer: the
 fused layer's fp32 tolerances (``PALLAS_TOL``); its sampler against the
-dense one: ``TRAJ_TOL``.
+dense one: ``TRAJ_TOL``. The sampler step's two kernels against their
+plain versions: ``SAMPLER_STEP_TOL``; the fused chain they step against
+the plain composition's (the body before them): ``TRAJ_TOL``, a T = 12
+chain end to end and a T = 1000 chain per 10-step segment from the same
+state (whole float32 chains drift apart on summation order alone).
 """
 
 import numpy as np
@@ -42,6 +46,7 @@ from chip_smoke import (
     GRAPH_TRAIN_TOL,
     LOOP_TOL,
     PALLAS_TOL,
+    SAMPLER_STEP_TOL,
     TOL,
     TRAJ_TOL,
     change_close,
@@ -59,6 +64,8 @@ from chip_smoke import (
     ragged_case,
     random_model,
     request_entry,
+    sampler_step_case,
+    sampler_step_errors,
     trainer_state,
     trajectory_check,
 )
@@ -71,6 +78,7 @@ from pmhc_tpu_torch.models import ScoreNetworkConfig
 from pmhc_tpu_torch.ops import egnn_fused as ef
 from pmhc_tpu_torch.ops import egnn_loop as el
 from pmhc_tpu_torch.ops import egnn_pallas as ep
+from pmhc_tpu_torch.ops import sampler_step as ss
 from pmhc_tpu_torch.serve import SamplerService, dummy_entry
 from pmhc_tpu_torch.train import TrainConfig, Trainer
 from pmhc_tpu_torch.utils.graphs import GraphCache, Step
@@ -124,10 +132,12 @@ def test_service_launches_the_kernel_twice_per_step(bf16):
                          fast_f32=bf16 == "high")
     assert svc.device.type == dev.type
     ef.reset_launches()
+    ss.reset_launches()
     handle = svc.dispatch([dummy_entry(seed=i) for i in range(3)],
                           torch.Generator(device=dev).manual_seed(0))
     handle.wait()
     assert ef.LAUNCHES == {m: 10 if m == ef.mode_of(bf16) else 0 for m in ef.LAUNCHES}
+    assert ss.LAUNCHES == ef.LAUNCHES  # the sampler step's kernels, as often
     q = handle.conv["quats"][:handle.n]
     assert torch.isfinite(q).all()
     torch.testing.assert_close(q.norm(dim=-1), torch.ones(q.shape[:-1]), atol=1e-5, rtol=0)
@@ -346,6 +356,7 @@ def test_graphed_sampler_matches_eager(backend, bf16, monkeypatch):
             gen = torch.Generator(device=dev).manual_seed(100 + seed)
             ef.reset_launches()
             ep.reset_launches()
+            ss.reset_launches()
             monkeypatch.setattr(sampler, "STEPS_PER_GRAPH", S)
             runs[graphs] = sample(model, mb, cfg, mc, generator=gen, bf16=bf16, num_steps=K,
                                   graphs=graphs, graph_cache=cache)
@@ -353,12 +364,103 @@ def test_graphed_sampler_matches_eager(backend, bf16, monkeypatch):
             states[graphs] = gen.get_state()
             if counter is not None:
                 assert counter[mode] == 2 * steps, (graphs, dict(counter))
+            # the sampler step's kernels: on the fused chain only, 2 a step
+            want = {m: 2 * steps if backend == "fused" and m == mode else 0 for m in ss.LAUNCHES}
+            assert ss.LAUNCHES == want, (graphs, dict(ss.LAUNCHES))
         assert torch.equal(states[True], states[False])
         for name, get in (("q", lambda r: r["frames"].quats), ("t", lambda r: r["frames"].trans),
                           ("tors", lambda r: r["torsions"])):
             err = float((get(runs[True]) - get(runs[False])).abs().max())
             assert err <= TRAJ_TOL[name], (seed, name, err)
     assert len(cache) == 2  # T = 12 (1 and 4 steps a graph) and K = 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,k", [("fp32", 0), ("bf16", 500), ("high", 500), ("fp32", 999)])
+def test_sampler_step_kernels_match_plain(mode, k):
+    """Both kernels of ``csrc/sampler_step.cu`` at batch 64 (the main
+    path's shapes) against their plain versions, at the chain's first step,
+    a middle one and its last (the next step's inputs left as they were);
+    each counted once under the chain's mode."""
+    dev = _card()
+    case = sampler_step_case(random_model(seed=0).to(dev), seed=11, device=dev,
+                             bf16=ef.FLAGS[mode], k=k)
+    ss.reset_launches()
+    errs = sampler_step_errors(case, lambda *a: ss.inter_layer(*a, bf16=case["bf16"]),
+                               lambda *a: ss.step(*a, bf16=case["bf16"]))
+    for name, err in errs.items():
+        assert err <= SAMPLER_STEP_TOL[name], (name, err)
+    assert ss.LAUNCHES == {m: 2 if m == mode else 0 for m in ss.LAUNCHES}
+
+
+# per 10-step segment of a T = 1000 chain: the two bodies differ by ulps
+# each step (the projection's sum order, FMA contraction in the step
+# kernel), which grow through acos where a normalised cosine or quaternion
+# w lies near +-1 (a change of 2^-24 there moves the angle by up to
+# 3.5e-4); measured up to 2.45e-4 in tors (high, H100), against TRAJ_TOL's
+# 2e-4 for 4-step trajectories
+SEGMENT_TOL = {name: 5 * tol for name, tol in TRAJ_TOL.items()}
+
+
+def _plain_steps(model, mb, cfg, mc, bf16, chain, generator, n):
+    """``n`` steps of the fused chain's plain composition (``Chain.step``
+    with ``gen_noise``'s noise: the body before the sampler step kernels)."""
+    fwd = sampler.fused_forward(model, mb, mc, bf16)
+    for _ in range(n):
+        chain.step(fwd, sampler._noise(generator, tuple(mb["mask"].shape), cfg, None))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, "high"])
+def test_kernel_chain_matches_plain_composition(bf16):
+    """A batch-64 T = 12 chain from graphs (four launches a step) against
+    the plain composition from the same generator seed, end to end; then a
+    T = 1000 chain stepped by the kernels eagerly against the plain
+    composition per 10-step segment, both from the kernels' state and the
+    same generator state at each segment's start (``SEGMENT_TOL``). fp32
+    and high, whose
+    projections are IEEE fp32: in bf16 mode the projection's other sum
+    order (~1e-7) flips bf16 roundings inside #1 that a chain grows (0.025
+    in q after 12 steps on the H100; the benchmark's bf16 control reads
+    chain gaps of 0.25-1.7), so bf16 is held per kernel
+    (``test_sampler_step_kernels_match_plain``)."""
+    dev = _card()
+    model = random_model(seed=2).to(dev)
+    for T in (12, 1000):
+        cfg = DiffusionConfig(noise_step_count=T)
+        mc = ScoreNetworkConfig(noise_step_count=T)
+        mb = _noised_batch(dev, 64, seed=T)
+        ts, sched = step_tables(cfg)
+        xs = sampler.model_time("fused", ts, T)
+        plain = sampler.Chain(mb, xs, sched)
+        if T == 12:
+            got = sample(model, mb, cfg, mc, generator=torch.Generator(device=dev).manual_seed(5),
+                         bf16=bf16)
+            _plain_steps(model, mb, cfg, mc, bf16, plain,
+                         torch.Generator(device=dev).manual_seed(5), T)
+            pairs = [((got["frames"].quats, got["frames"].trans, got["torsions"]),
+                      (plain.q, plain.t, plain.tors))]
+        else:
+            fwd = sampler.fused_forward(model, mb, mc, bf16)
+            chain = sampler.Chain(mb, xs, sched)
+            fwd.start(chain)
+            g, g_plain = (torch.Generator(device=dev).manual_seed(6) for _ in range(2))
+            pairs = []
+            for _ in range(T // 10):
+                g_plain.set_state(g.get_state())
+                for x, y in zip((plain.q, plain.t, plain.tors), (chain.q, chain.t, chain.tors)):
+                    x.copy_(y)
+                for _ in range(10):
+                    chain.step(fwd, fwd.draw(g, cfg))
+                _plain_steps(model, mb, cfg, mc, bf16, plain, g_plain, 10)
+                pairs.append(((chain.q.clone(), chain.t.clone(), chain.tors.clone()),
+                              (plain.q.clone(), plain.t.clone(), plain.tors.clone())))
+            assert int(chain.k) == int(plain.k) == T
+        tol = TRAJ_TOL if T == 12 else SEGMENT_TOL
+        for got_s, want_s in pairs:
+            for name, x, y in zip(("q", "t", "tors"), got_s, want_s):
+                err = float((x - y).abs().max())
+                assert err <= tol[name], (T, name, err)
 
 
 @pytest.mark.gpu
@@ -496,9 +598,10 @@ def test_a_capture_that_cannot_succeed_raises():
 @pytest.mark.parametrize("backend,bf16", [("fused", False), ("fused", True), ("pallas", False)])
 @pytest.mark.parametrize("fmt", ["executable", "stablehlo"])
 def test_aot_roundtrip_on_card(tmp_path, backend, bf16, fmt):
-    """An artifact of a service on the card (its kernel library and the PDB
-    formatter, or their sources) loads into a service with other weights,
-    which then samples the exporter's bytes."""
+    """An artifact of a service on the card (its kernel libraries, for
+    ``fused`` the layer's and the sampler step's, and the PDB formatter, or
+    their sources) loads into a service with other weights, which then
+    samples the exporter's bytes."""
     from pmhc_tpu_torch.aot import load_sampler, read_artifact, save_sampler
     from pmhc_tpu_torch.ops import _build
 
@@ -510,12 +613,12 @@ def test_aot_roundtrip_on_card(tmp_path, backend, bf16, fmt):
     path = str(tmp_path / "sampler.aot")
     save_sampler(svc, path, fmt=fmt)
     _, meta, _ = read_artifact(path)
-    kernel = "egnn_fused" if backend == "fused" else "egnn_pallas"
+    kernels = ("egnn_fused", "sampler_step") if backend == "fused" else ("egnn_pallas",)
     assert meta["platform"] == "cuda" and meta["device_name"] == torch.cuda.get_device_name(0)
     if fmt == "executable":
-        assert {lib["name"] for lib in meta["libraries"]} == {kernel, "pdb_formatter"}
+        assert {lib["name"] for lib in meta["libraries"]} == {*kernels, "pdb_formatter"}
         assert {lib["digest"] for lib in meta["libraries"]} == {
-            _build.loaded(n).digest for n in (kernel, "pdb_formatter")}
+            _build.loaded(n).digest for n in (*kernels, "pdb_formatter")}
     fresh = SamplerService(random_model(seed=5), **kw)
     load_sampler(path, fresh)
     assert fresh.sample_entries(entries, fresh.batch_generator(0)) == want

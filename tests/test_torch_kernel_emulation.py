@@ -22,7 +22,8 @@ backward's second 48-neighbour tile partly padding), batch 2 (blocks that
 cross a batch element), unaligned inputs, and the forward two neighbour
 tiles per query row (NP = 136, batch 2);
 kernel #3 runs blocks that cross a batch element (batch 2) and a ragged
-NP = 90.
+NP = 90. The sampler step's two kernels (``csrc/sampler_step.cu``) run at
+N = 16, P = 8 against their plain versions within ``SAMPLER_STEP_TOL``.
 Skips without g++.
 """
 
@@ -33,6 +34,7 @@ import torch
 from chip_smoke import (
     LOOP_TOL,
     PALLAS_TOL,
+    SAMPLER_STEP_TOL,
     TOL,
     layer_case,
     loop_case,
@@ -45,11 +47,14 @@ from chip_smoke import (
     pallas_ragged,
     random_model,
     ragged_case,
+    sampler_step_case,
+    sampler_step_errors,
 )
 from pmhc_tpu_torch.ops import _emulate
 from pmhc_tpu_torch.ops import egnn_fused as ef
 from pmhc_tpu_torch.ops import egnn_loop as el
 from pmhc_tpu_torch.ops import egnn_pallas as ep
+from pmhc_tpu_torch.ops import sampler_step as ss
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -325,3 +330,22 @@ def test_pallas_kernel_emulated_matches_plain(layer, q_scale, batch_size, n_neig
     want = ep.egnn_pallas_plain(*args)
     for name, g, w in zip(("q", "t", "tors", "feat"), got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=PALLAS_TOL[name], err_msg=name)
+
+
+@pytest.mark.parametrize("batch_size,k,mode", [
+    (2, 5, "fp32"), (2, 5, "bf16"), (2, 5, "high"), (2, 11, "fp32"), (3, 5, "fp32")])
+def test_sampler_step_emulated_matches_plain(batch_size, k, mode):
+    """Both kernels of ``csrc/sampler_step.cu`` on a T = 12 chain's inputs
+    (``sampler_step_case``: N = 16, P = 8, row 1 a 4-residue peptide) at a
+    middle step and at the last (k = 11: the next step's inputs left as
+    they were). Batch 2: two inter-layer blocks of 16 rows, one step block
+    of 32; batch 3: a partial last block of each and two step blocks, the
+    last of which advances the counter. The mode reaches the projection
+    only (bf16: operands rounded)."""
+    lib = _lib("sampler_step", ss.bind)
+    case = sampler_step_case(random_model(seed=0), seed=4, device=CPU, batch_size=batch_size,
+                             bf16=ef.FLAGS[mode], k=k, steps=12, pocket=8)
+    errs = sampler_step_errors(case, lambda *a: ss.launch_inter(lib, *a, bf16=case["bf16"]),
+                               lambda *a: ss.launch_step(lib, *a))
+    for name, err in errs.items():
+        assert err <= SAMPLER_STEP_TOL[name], (name, err)

@@ -37,7 +37,7 @@ from pmhc_tpu_torch.data.realistic import realistic_packed
 from pmhc_tpu_torch.diffusion import DiffusionConfig
 from pmhc_tpu_torch.diffusion import sampler as sampler_module
 from pmhc_tpu_torch.models import ScoreNetwork, ScoreNetworkConfig
-from pmhc_tpu_torch.ops import egnn_fused, egnn_loop, egnn_pallas
+from pmhc_tpu_torch.ops import egnn_fused, egnn_loop, egnn_pallas, sampler_step
 from pmhc_tpu_torch.serve import BatchingSampler, SamplerService, dummy_entry
 from pmhc_tpu_torch.train import TrainConfig, Trainer
 from pmhc_tpu_torch.train import trainer as trainer_module
@@ -235,7 +235,7 @@ def test_sample_cli_numbers_its_batches(recorder, tmp_path):
 
 def test_counters_hold_launch_counts_and_captures(recorder, monkeypatch):
     launches = {"egnn_fused": egnn_fused.LAUNCHES, "egnn_loop": egnn_loop.LAUNCHES,
-                "egnn_pallas": egnn_pallas.LAUNCHES}
+                "egnn_pallas": egnn_pallas.LAUNCHES, "sampler_step": sampler_step.LAUNCHES}
     counts = recorder.counters()
     for mod, per in launches.items():
         assert all(counts[f"{mod}.launches.{k}"] == n for k, n in per.items())
