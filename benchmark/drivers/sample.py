@@ -25,6 +25,9 @@ from benchmark.reference import check as ref_check
 from benchmark.reference import model as ref
 from benchmark.trace import Tracer
 
+# the traffic's sizes cut to what the CPU runs in seconds (``benchmark/tests/tiny.py``)
+TINY_TRAFFIC = {"batch": 4, "pool": 8, "warmup_batches": 2}
+
 
 def batch_generator_seed(seed: int, i: int) -> int:
     return (int(seed) * 1_000_003 + i) % (2 ** 63)

@@ -37,6 +37,10 @@ from benchmark.loadgen import LoadGenerator
 from benchmark.reference import model as ref
 from benchmark.trace import Tracer
 
+# the traffic's sizes cut to what the CPU runs in seconds (``benchmark/tests/tiny.py``)
+TINY_TRAFFIC = {"batch": 4, "pool": 8, "rate": 12.0, "max_wait_ms": 25.0,
+                "warmup_seconds": 0.5}
+
 
 def schedule(seed: int, salt: int, rate: float, seconds: float, pool: int,
              burst_period_s: float = 0.0, burst_duty: float = 1.0):

@@ -34,6 +34,9 @@ PACKED_KEYS = ("mask", "frames", "features", "aatype", "torsions", "torsions_mas
                "pocket_atom14_positions", "pocket_atom14_exists")
 CHECK_STEPS = 3
 
+# the traffic's sizes cut to what the CPU runs in seconds (``benchmark/tests/tiny.py``)
+TINY_TRAFFIC = {"batch": 4, "entries": 16, "steps_per_dispatch": 2}
+
 
 def index_rows(seed: int, n: int, batch: int) -> Iterator[np.ndarray]:
     """Rows of each step: the pool in a fresh order every epoch, ``batch`` at

@@ -14,18 +14,21 @@ warms up, and times a few steps to fix the window's step count, which rank 0
 broadcasts so that every rank runs the same steps. The window runs from a
 barrier to the end of the last step on every card. A traced run then traces
 ``trace_seconds`` more on every card; ``busy_s`` and ``window_s`` are the
-cards' means.
+cards' means, and every card's trace goes into the record. Each rank reports
+the modules of JAX or the JAX package it loaded, once its work is done, for
+the result to be refused on.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import time
 
 import numpy as np
 
 from benchmark.drivers.train import CHECK_STEPS, index_rows, make_trainer, readings, trainer_seed
-from benchmark.harness import Record
+from benchmark.harness import Record, forbidden_modules
 from benchmark.inputs import make_pool
 from benchmark.reference import check as ref_check
 from benchmark.reference import model as ref
@@ -34,10 +37,14 @@ from benchmark.trace import Tracer, span
 BATCH_KEYS = ("mask", "frames", "features", "torsions", "torsions_mask", "pocket_features",
               "pocket_mask", "pocket_frames")
 
+# the traffic's sizes cut to what the CPU runs in seconds (``benchmark/tests/tiny.py``)
+TINY_TRAFFIC = {"batch_per_rank": 2, "entries": 16, "ranks": 2, "batches": 2,
+                "warmup_steps": 1, "calibration_steps": 2}
+
 
 def rank_main(cell, seed: int, seconds: float, trace: bool, mode, prepare):
     """One rank's run; rank 0 returns the run's readings, the others their
-    card's trace shares and memory peak."""
+    card's trace and memory peak; each the forbidden modules it loaded."""
     import torch
     import torch.distributed as dist
 
@@ -90,16 +97,16 @@ def rank_main(cell, seed: int, seconds: float, trace: bool, mode, prepare):
         steps(max(1, math.ceil(n * tr["trace_seconds"] / seconds)))
         tracer.stop()
         out.update(busy_s=tracer.trace.busy_s, trace_window_s=tracer.trace.window_s,
-                   trace=tracer.trace if dist.get_rank() == 0 else None)
+                   trace=tracer.trace)
     out["memory_peak_bytes"] = torch.cuda.max_memory_allocated(dev) if on_card else 0
-    if dist.get_rank() != 0:
-        return out
-    del trainer
-    if on_card:
-        torch.cuda.empty_cache()
-    out["checks"] = ref_check.check_training(
-        w, pool, first, trainer_seed(seed), trainer_seed(seed) + 1, dev, losses, grads, delta,
-        tr["lr"], cell.config["noise_step_count"])
+    if dist.get_rank() == 0:
+        del trainer
+        if on_card:
+            torch.cuda.empty_cache()
+        out["checks"] = ref_check.check_training(
+            w, pool, first, trainer_seed(seed), trainer_seed(seed) + 1, dev, losses, grads,
+            delta, tr["lr"], cell.config["noise_step_count"])
+    out["forbidden"] = forbidden_modules(sys.modules)
     return out
 
 
@@ -120,8 +127,10 @@ def run(cell, seed: int, seconds: float, trace: bool, t0: float, device="cuda", 
     rec.counters.update(steps=r0["steps"], batch=tr["batch_per_rank"])
     if trace:
         rec.trace = r0["trace"]
+        rec.card_traces = [o["trace"] for o in outs]
         rec.counters.update(busy_s=sum(o["busy_s"] for o in outs) / len(outs),
                             trace_window_s=sum(o["trace_window_s"] for o in outs) / len(outs))
     rec.memory_peak_bytes = max(o["memory_peak_bytes"] for o in outs)
     rec.checks = r0["checks"]
+    rec.forbidden = sorted({m for o in outs for m in o["forbidden"]})
     return rec

@@ -98,7 +98,7 @@ class ServiceTap:
         self._dispatch, self._finalize = service.dispatch, service.finalize
         service.dispatch, service.finalize = self.dispatch, self.finalize
 
-    def dispatch(self, entries, generator=None):
+    def dispatch(self, entries, generator=None, id=None):
         i = len(self.batches)
         rec = {"keys": [entry_key(e) for e in entries], "n": len(entries),
                "seed": None if generator is None else generator.initial_seed(), "states": None}
@@ -110,7 +110,7 @@ class ServiceTap:
         t0 = time.monotonic()
         try:
             with span("dispatch"):
-                handle = self._dispatch(entries, generator)
+                handle = self._dispatch(entries, generator, id=id)
         finally:
             if follow:
                 rec["states"] = self.chain.disarm()

@@ -11,7 +11,8 @@ profiles a span of the window and reports its per-layer metrics, ``device``'s
 are compared with the plain reference (``benchmark/reference``); the numbers
 compared and their limits are the last lines on standard error and the last
 key of the result. Exits non-zero without a result when the cell's cards are
-not there, or when JAX or the JAX package were loaded.
+not there, or when JAX or the JAX package were loaded, in this process or in
+one the driver started.
 """
 
 from __future__ import annotations
@@ -70,6 +71,14 @@ def result(record, trace: bool, card: str) -> dict:
     return out
 
 
+def forbidden(record) -> list:
+    """Modules of JAX or the JAX package loaded in this process or in one the
+    driver started (a mesh's ranks)."""
+    from benchmark import harness
+
+    return sorted(set(harness.forbidden_modules(sys.modules)) | set(record.forbidden))
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from benchmark import harness
@@ -85,7 +94,7 @@ def main(argv=None) -> int:
     record = harness.driver(cell.traffic["driver"]).run(
         cell, seed=args.seed, seconds=args.seconds, trace=bool(args.trace), t0=T0)
     card = torch.cuda.get_device_name(0)
-    bad = harness.forbidden_modules(sys.modules)
+    bad = forbidden(record)
     if bad:
         print(f"modules of JAX or the JAX package were loaded: {bad}", file=sys.stderr)
         return 3

@@ -43,3 +43,4 @@ def test_mesh_program_matches_reference():
     rec = harness.driver("train_mesh").run(cell, seed=2 ** 31 + 31, seconds=1.0, trace=False,
                                            t0=time.monotonic(), device="cpu")
     assert harness.verdict(rec), rec.checks
+    assert rec.forbidden == []

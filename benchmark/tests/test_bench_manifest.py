@@ -2,6 +2,8 @@
 files each entry names, and that every metric's cells report the end-to-end
 metric it moves."""
 
+import copy
+import glob
 import json
 import os
 import re
@@ -9,6 +11,7 @@ import re
 import pytest
 
 from benchmark import harness
+from benchmark.tests.tiny import KEPT_OUT, tiny_cell
 
 M = json.load(open(harness.MANIFEST))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -64,7 +67,7 @@ def test_configs_and_cells():
     for c in M["configs"]:
         assert c["file"].startswith("benchmark/") and os.path.isfile(
             os.path.join(harness.ROOT, c["file"]))
-        assert TEXT.match(c["source"]) and c["reduced"] == []
+        assert TEXT.match(c["source"])
         assert any(w["config"] == c["name"] for w in M["workloads"])
     pairs = [(w["config"], w["traffic"]) for w in M["workloads"]]
     assert len(set(pairs)) == len(pairs)
@@ -72,8 +75,67 @@ def test_configs_and_cells():
     for w in M["workloads"]:
         assert w["chips"] in (1, 4) and TEXT.match(w["why"]) and NAME.match(w["traffic"])
         cell = harness.load_cell(w["name"])
-        assert cell.traffic["driver"] in ("sample", "serve", "train", "train_mesh")
+        assert os.path.isfile(os.path.join(harness.HERE, "drivers", f"{cell.traffic['driver']}.py"))
+        assert callable(getattr(harness.driver(cell.traffic["driver"]), "run", None))
         assert cell.limits
+
+
+TRAFFIC = sorted(os.path.basename(p)[:-5] for p in glob.glob(
+    os.path.join(harness.HERE, "traffic", "*.json")))
+
+
+@pytest.mark.parametrize("traffic", TRAFFIC)
+def test_every_traffic_names_a_driver_with_tiny_sizes(traffic):
+    """Each mix (kept-out ones too) names ``drivers/<driver>.py``, which defines
+    ``run`` and the mix's CPU sizes; each cell of it, in the manifest or kept
+    out, cuts to them."""
+    with open(os.path.join(harness.HERE, "traffic", f"{traffic}.json")) as f:
+        mix = json.load(f)
+    assert NAME.match(mix["driver"]), traffic
+    assert os.path.isfile(os.path.join(harness.HERE, "drivers", f"{mix['driver']}.py")), traffic
+    drv = harness.driver(mix["driver"])
+    assert callable(getattr(drv, "run", None)), mix["driver"]
+    assert isinstance(getattr(drv, "TINY_TRAFFIC", None), dict), mix["driver"]
+    cells = [w["name"] for w in M["workloads"] + list(KEPT_OUT.values())
+             if w["traffic"] == traffic]
+    for name in cells:
+        cell = tiny_cell(name)
+        assert cell.traffic == {**mix, **drv.TINY_TRAFFIC} and cell.limits, name
+
+
+def _with_config(tmp_path, reduced_entry, reduced_file, cell="ff32.train.b64"):
+    """The manifest with ``cell``'s configuration moved to a file of its own
+    under ``tmp_path``."""
+    m = copy.deepcopy(M)
+    conf = next(c for c in m["configs"] if c["name"] == CELLS[cell]["config"])
+    with open(os.path.join(harness.ROOT, conf["file"])) as f:
+        config = json.load(f)
+    config["reduced"] = reduced_file
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(config))
+    conf.update(file=str(path), reduced=reduced_entry)
+    return m
+
+
+@pytest.mark.parametrize("reduced", [[], ["layers"], ["layers", "max_len", "pocket_len"],
+                                     ["num_hidden_layers", "x" * 200]])
+def test_reduced_may_list_cuts(tmp_path, reduced):
+    cell = harness.load_cell("ff32.train.b64", _with_config(tmp_path, reduced, reduced))
+    assert cell.config["reduced"] == reduced
+
+
+@pytest.mark.parametrize("entry,file", [
+    (["x" * 201], ["x" * 201]),                 # longer than 200 characters
+    ([""], [""]),
+    (["layers", 3], ["layers", 3]),             # not a list of strings
+    ("layers", "layers"),
+    (["layers"], []),                           # the file and the entry differ
+    ([], ["layers"]),
+    (["layers"], None),
+])
+def test_reduced_refused(tmp_path, entry, file):
+    with pytest.raises(ValueError):
+        harness.load_cell("ff32.train.b64", _with_config(tmp_path, entry, file))
 
 
 def _reports(cell, metric):

@@ -64,6 +64,15 @@ def test_loop_and_mesh_readers():
                window_s=1.0, cards=4)
     assert harness.read_metric("egnn_loop_roofline", r) == pytest.approx(100.0)
     assert harness.read_metric("allreduce_ms.train", r) == pytest.approx(0.1)
+    # on a mesh each all-reduce is taken on the card where it ran shortest
+    card = lambda a, b: Trace(ks[:3] + [("ncclDevKernel_AllReduce", 0, a),  # noqa: E731
+                                        ("ncclDevKernel_AllReduce", 500, 500 + b)])
+    r.card_traces = [card(100.0, 20.0), card(30.0, 90.0), card(60.0, 60.0)]
+    r.trace = r.card_traces[0]
+    assert harness.read_metric("allreduce_ms.train", r) == pytest.approx(0.05)
+    r.card_traces[1] = Trace(ks)
+    assert harness.read_metric("allreduce_ms.train", r) is None
+    r.trace = r.card_traces[0] = Trace(ks)
     mfu = harness.read_metric("mfu.train", r)
     assert mfu == pytest.approx(100 * 3 * roofline.forward_flops(B) * 10 / (989e12 / 3))
 
