@@ -948,6 +948,211 @@ def training_graphs_vs_eager(card: str, steps: int = 5) -> None:
                                  f"parameters' change {change}")
 
 
+# the IPA attention kernel against its plain version: a share of each output
+# part's largest magnitude (o, o_pt, its norms, o_pair) on the real query
+# rows. Both sum in fp32 in other orders (the 128-term pair bias, the L-term
+# outputs), which the softmax's exp carries into the probabilities: ~2e-6 of
+# each part measured under the CPU emulation; operands rounded to bf16
+# (~4e-3) fail it.
+IPA_TOL = 1e-4
+IPA_PARTS = {"o": slice(0, 192), "o_pt": slice(192, 480), "norm": slice(480, 576),
+             "pair": slice(576, 2112)}
+STRUCTURE_STEPS = 20  # the graphed-vs-eager structure chain's strided steps
+
+
+def ipa_case(seed: int, device, batch_size: int = B, rows: int = 96):
+    """The IPA attention kernel's inputs at the published widths: random
+    projections, points a few A apart in the global frame, unit frames, z
+    of unit scale (after ``layer_norm_z``), the published init's bounds on
+    the weights; row 1 keeps 40 real rows, row 2's last 30 keys padding."""
+    import torch
+
+    from pmhc_tpu_torch.geometry.quat import quat_to_rot, torch_normalize
+    from pmhc_tpu_torch.ops import ipa_attention as ia
+
+    g = torch.Generator().manual_seed(seed)
+    H, C, Pq, Pv, Cz = ia.HEADS, ia.HIDDEN, ia.QK_POINTS, ia.V_POINTS, ia.PAIR
+    r = lambda *shape, scale=1.0: (torch.randn(*shape, generator=g) * scale).to(device)  # noqa: E731
+    Bn, L = batch_size, rows
+    quats = torch_normalize(torch.randn(Bn, L, 4, generator=g))
+    mask = torch.ones(Bn, L)
+    if Bn > 2:
+        mask[1, 40:] = 0.0
+        mask[2, L - 30:] = 0.0
+    return (r(Bn, L, H * C), r(Bn, L, 2 * H * C), r(Bn, L, H * Pq, 3, scale=3.0),
+            r(Bn, L, H * (Pq + Pv), 3, scale=3.0), quat_to_rot(quats).contiguous().to(device),
+            r(Bn, L, 3, scale=2.0), mask.to(device), r(Bn, L, L, Cz),
+            r(H, Cz, scale=Cz ** -0.5), r(H, scale=Cz ** -0.5), r(H))
+
+
+def ipa_errors(got, want, mask) -> dict:
+    """Per output part, the largest error over the part's largest magnitude,
+    on the real query rows (``mask`` 1). A padded row's logits all carry
+    the mask's -inf (-1e5), which leaves them an fp32 resolution of ~8e-3:
+    its outputs differ with the order of the sums, and no real row reads
+    them (their keys are masked)."""
+    real = mask > 0.5
+    return {name: float((got[real][:, sl] - want[real][:, sl]).abs().max()
+                        / want[real][:, sl].abs().max().clamp(min=1e-30))
+            for name, sl in IPA_PARTS.items()}
+
+
+def check_ipa_attention_build(info: dict) -> dict:
+    """Phase 2, the IPA attention kernel: reported by ``ptxas -v``, no spills."""
+    res = ptxas_entries(info["log"], lambda n: "fp32" if "ipa_attention_kernel" in n else None)
+    log(f"build ipa_attention kernel: {json.dumps(res)}")
+    if set(res) != {"fp32"} or res["fp32"]["registers"] is None:
+        raise AssertionError(f"ipa_attention: ptxas did not report the kernel: {res}")
+    if res["fp32"]["spill_bytes"]:
+        raise AssertionError(f"ipa_attention spills registers: {res}")
+    return res["fp32"]
+
+
+def check_ipa_attention(dev) -> float:
+    """Phase 3: the IPA attention kernel against its plain version at batch
+    64, L = 96 (with padded rows and keys) and a ragged L = 90, within
+    ``IPA_TOL``; the same inputs with the projections rounded to bf16 must
+    fail it. Returns the largest error."""
+    import torch
+
+    from pmhc_tpu_torch.ops import ipa_attention as ia
+
+    worst = 0.0
+    for rows in (96, 90):
+        args = ipa_case(seed=50 + rows, device=dev, rows=rows)
+        got = ia.ipa_attention(*args)
+        want = ia.ipa_attention_plain(*args)
+        torch.cuda.synchronize()
+        errs = ipa_errors(got, want, args[6])
+        ok = all(e <= IPA_TOL for e in errs.values()) and bool(torch.isfinite(got).all())
+        log(json.dumps({"check": "ipa_attention", "rows": rows, "rel_err": errs, "tol": IPA_TOL,
+                        "ok": ok}))
+        if not ok:
+            raise AssertionError(f"ipa_attention L={rows} disagrees with the plain version: {errs}")
+        worst = max(worst, max(errs.values()))
+    rounded = tuple(a.to(torch.bfloat16).float() if i < 4 else a for i, a in enumerate(args))
+    errs = ipa_errors(ia.ipa_attention(*rounded), want, args[6])
+    log(json.dumps({"sensitivity": "ipa_attention bf16 operands", "rel_err": errs}))
+    if all(e <= IPA_TOL for e in errs.values()):
+        raise AssertionError("IPA_TOL cannot tell bf16 operands from fp32")
+    return worst
+
+
+def ipa_attention_times(dev, launches: int, err: float, card: str) -> dict:
+    """Phase 5: the IPA attention kernel's ms a launch (``time_ms``) at batch
+    64, L = 96, beside its plain version's and its bound (the larger of its
+    bytes at 3.35 TB/s and its FLOP at the fp32 peak)."""
+    from pmhc_tpu_torch.ops import _build
+    from pmhc_tpu_torch.ops import ipa_attention as ia
+    from pmhc_tpu_torch.tools.flops import ipa_attention_bound
+
+    import torch
+
+    args = ipa_case(seed=60, device=dev)
+    lib = ia._lib()
+    out = torch.empty((B, 96, ia.OUT), device=dev)
+    cur = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731 (a capture's own)
+    ms = time_ms(lambda: ia.launch(lib, *args, out, 1e5, 1e-8, stream=cur()), 20)
+    plain_ms = time_ms(lambda: ia.ipa_attention_plain(*args), 5)
+    bound = ipa_attention_bound(B, 96)
+    bound_ms, by, flops, nbytes = (bound["bound_s"] * 1e3, bound["bound_by"], bound["flops"],
+                                   bound["bytes"])
+    log(json.dumps({"metric": "ipa_attention_ms", "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "gflop": flops / 1e9,
+                    "mbytes": nbytes / 1e6, "roofline_pct": 100 * bound_ms / ms, "card": card}))
+    return {"name": "ipa_attention", "route": "cuda", "source": "pmhc_tpu_torch/csrc/ipa_attention.cu",
+            "replaces": None,  # the JAX package has no structure network
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "digest": _build.digest("ipa_attention")}
+
+
+def structure_main_path(card: str) -> int:
+    """Phase 4: the structure network through ``SamplerService`` (fp32, CUDA
+    graphs): a batch of 64 over the full T = 1000 chain, the PDBs parsed,
+    the IPA attention kernel launched 8 times a step and no EGNN kernel;
+    then a ``STRUCTURE_STEPS``-step strided chain from graphs against the
+    eager one from the same generator (``TRAJ_TOL``, and logged whether
+    bit-identical). Returns the launches of the T = 1000 batch."""
+    import torch
+
+    from pmhc_tpu_torch.models.structure import StructureNetwork
+    from pmhc_tpu_torch.ops import egnn_fused as ef
+    from pmhc_tpu_torch.ops import ipa_attention as ia
+    from pmhc_tpu_torch.ops import sampler_step as ss
+    from pmhc_tpu_torch.serve import SamplerService
+
+    model = StructureNetwork(generator=torch.Generator().manual_seed(3))
+    entries = [request_entry(seed=300 + i) for i in range(B)]
+    svc = SamplerService(model, architecture="structure", batch_size=B, noise_step_count=STEPS,
+                         seed=7)
+    t0 = time.monotonic()
+    svc.sample_entries(entries[:1])  # the kernel's first load and the captures
+    warm = time.monotonic() - t0
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ia.reset_launches()
+        ef.reset_launches()
+        ss.reset_launches()
+        t0 = time.monotonic()
+        handle = svc.dispatch(entries, svc.batch_generator(1))
+        handle.wait()
+        t1 = time.monotonic()
+        pdbs = svc.finalize(handle)
+        walls.append((t1 - t0, time.monotonic() - t1))
+        count = ia.LAUNCHES["f32"]
+        if count != 8 * STEPS or sum(ef.LAUNCHES.values()) or sum(ss.LAUNCHES.values()):
+            raise AssertionError(f"structure sampling: {count} IPA launches (expected "
+                                 f"{8 * STEPS}), EGNN {dict(ef.LAUNCHES)} {dict(ss.LAUNCHES)}")
+        for pdb, e in zip(pdbs, entries):
+            check_pdb(pdb, e)
+    log(json.dumps({"metric": "structure_chain_s", "batch": B, "steps": STEPS, "warmup_s": warm,
+                    "sampling_s": [a for a, _ in walls], "pdb_s": [b for _, b in walls],
+                    "peak_bytes": torch.cuda.max_memory_allocated(), "card": card}))
+    k = STRUCTURE_STEPS
+    tol = {"quats": TRAJ_TOL["q"], "trans": TRAJ_TOL["t"], "atom14": TRAJ_TOL["t"]}
+    out = {}
+    for graphs in (True, False):
+        svc = SamplerService(model, architecture="structure", batch_size=B, noise_step_count=STEPS,
+                             num_steps=k, seed=7, graphs=graphs)
+        ia.reset_launches()
+        handle = svc.dispatch(entries, svc.batch_generator(5))
+        handle.wait()
+        if ia.LAUNCHES["f32"] != 8 * k:
+            raise AssertionError(f"structure graphs={graphs}: {ia.LAUNCHES} launches, "
+                                 f"expected {8 * k}")
+        out[graphs] = handle.conv
+    diffs = {n: float((out[True][n] - out[False][n]).abs().max()) for n in tol}
+    same = all(torch.equal(out[True][n], out[False][n]) for n in tol)
+    log(json.dumps({"metric": "graphs_vs_eager_sampling", "architecture": "structure",
+                    "batch": B, "steps": k, "max_abs_diff": diffs, "bit_identical": same,
+                    "tol": tol, "card": card}))
+    if any(diffs[n] > tol[n] for n in tol):
+        raise AssertionError(f"graphed structure sampling disagrees with eager: {diffs}")
+    return 8 * STEPS
+
+
+def structure_smoke(card: str) -> dict:
+    """The structure network's phases alone (build, kernel check, main path,
+    times), for a call that runs nothing else."""
+    import torch
+
+    from pmhc_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = _build.build("ipa_attention", ptxas_verbose=True)
+    log(f"build ipa_attention: {info['seconds']:.1f} s")
+    check_ipa_attention_build(info)
+    dev = torch.device("cuda")
+    err = check_ipa_attention(dev)
+    launches = structure_main_path(card)
+    row = ipa_attention_times(dev, launches, err, card)
+    print(json.dumps({"kernels": [row]}))
+    return row
+
+
 def cuobjdump_path() -> str:
     """``cuobjdump`` beside ``nvcc``, else the copy in Triton's package."""
     from pmhc_tpu_torch.ops import _build
@@ -2638,7 +2843,7 @@ def main() -> int:
     from pmhc_tpu_torch.ops import sampler_step as ss
 
     # -- 2. build: one nvcc per source, all started together -------------------------
-    sources = ("egnn_fused", "egnn_loop", "egnn_pallas", "sampler_step")
+    sources = ("egnn_fused", "egnn_loop", "egnn_pallas", "sampler_step", "ipa_attention")
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as pool:
         infos = dict(zip(sources, pool.map(lambda n: _build.build(n, ptxas_verbose=True), sources)))
@@ -2652,6 +2857,7 @@ def main() -> int:
     check_loop_build(infos["egnn_loop"])
     check_pallas_build(infos["egnn_pallas"])
     check_sampler_step_build(infos["sampler_step"])
+    check_ipa_attention_build(infos["ipa_attention"])
 
     # -- 3. kernel vs plain version ---------------------------------------------
     model = random_model(seed=0).to(dev).eval()
@@ -2706,6 +2912,7 @@ def main() -> int:
     pallas_err = check_pallas_kernel({**pallas_cases, "gnn2 NP=90": (
         pallas_ragged(pallas_cases["gnn2"][0]), pallas_cases["gnn2"][1])})
     step_err = check_sampler_step(model, dev)
+    ipa_err = check_ipa_attention(dev)
 
     # -- 4. the main paths ----------------------------------------------------------
     from pmhc_tpu_torch.serve import SamplerService
@@ -2766,6 +2973,7 @@ def main() -> int:
                         "dispatch_return_s": [r for _, _, r in walls], "card": card}))
 
     sampling_graphs_vs_eager(model, entries64, card)
+    ipa_launches = structure_main_path(card)
 
     train_trajectory_check(dev)
     train_trajectory_check(dev, "high")
@@ -2834,6 +3042,7 @@ def main() -> int:
     kernels.append(sampler_step_times(model, dev, launches["fp32"], step_err, card))
     kernels += loop_times(loop_cases, loop_err, train_launches, card)
     kernels.append(pallas_times(pallas_cases, pallas_launches, pallas_err, card))
+    kernels.append(ipa_attention_times(dev, ipa_launches, ipa_err, card))
 
     # device busy and idle share over a strided K=100 batch-64 run (same
     # per-step work as T=1000, a trace 10x shorter)

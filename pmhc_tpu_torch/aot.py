@@ -183,11 +183,17 @@ def export_sampler(service) -> bytes:
     return _pack(MAGIC, meta, blobs)
 
 
+def _refuse_structure(service) -> None:
+    if getattr(service, "architecture", "egnn") != "egnn":
+        raise ValueError("AOT artifacts hold the EGNN sampler: the structure network has none")
+
+
 def save_sampler(service, path: str, fmt: str = "executable") -> None:
     """Write an artifact: ``fmt="executable"`` (default: loads with no
     compiler) or ``fmt="stablehlo"`` (portable: the loader builds)."""
     if fmt not in ("executable", "stablehlo"):
         raise ValueError(f"unknown AOT format {fmt!r}")
+    _refuse_structure(service)
     data = export_compiled(service) if fmt == "executable" else export_sampler(service)
     with open(path, "wb") as f:
         f.write(data)
@@ -295,6 +301,8 @@ def load_sampler(path: str, service=None) -> Callable:
     """
     from pmhc_tpu_torch.serve import SamplerService
 
+    if service is not None:
+        _refuse_structure(service)
     magic, meta, blobs = read_artifact(path)
     if service is not None:
         device = service.device

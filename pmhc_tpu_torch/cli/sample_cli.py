@@ -27,6 +27,10 @@ the CPU). Under ``torchrun`` each rank joins the group, else the CLI
 starts the ranks itself; every rank builds the same noised batches, and
 rank 0 writes every PDB.
 
+``--score-network structure`` samples with the second score network,
+ESMFold's structure module (``models/structure.py``; a ``.pth`` of its
+``state_dict``), in fp32 or with ``--bf16``, on one device.
+
 ``main`` returns the whole call's wall seconds (weights and data loaded,
 every PDB written) and PDBs per second, and per batch the host seconds
 queueing the sampler, the seconds then waited for its arrays (after the
@@ -64,6 +68,10 @@ def build_parser() -> ArgumentParser:
                             "blockwise", "cp", "ring"),
                    help="EGNN layer: auto / pallas_lane / g8 the fused kernel; pallas the "
                         "round-1 fused kernel (fp32 only); xla the dense layer")
+    p.add_argument("--score-network", default="egnn", choices=("egnn", "structure"),
+                   help="egnn: the published 2-layer EGNN; structure: ESMFold's structure "
+                        "module (invariant point attention; fp32 or --bf16, one device, no "
+                        "--fast-f32, no mesh)")
     p.add_argument("--mesh-context", type=int, default=1,
                    help="devices on the context-parallel axis: the EGNN neighbour axis split "
                         "(backend cp or ring; selects cp if --backend is not one of them)")
@@ -94,6 +102,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(stream=sys.stdout, level=logging.DEBUG if args.debug else logging.INFO)
     if args.mesh_context > 1 or args.backend in ("cp", "ring"):
+        if args.score_network == "structure":
+            raise SystemExit("--score-network structure samples on one device: "
+                             "no --mesh-context, no --backend cp / ring")
         from pmhc_tpu_torch.parallel.distributed import launched
 
         world = mesh_world(args, args.device)
@@ -160,7 +171,8 @@ def _run(args, on_mesh: bool):
             device = torch.device("cuda", torch.cuda.current_device())
         writer = dist.get_rank() == 0
         service_class = sharded_service(mesh)
-    service = service_class(load_params(args.model), batch_size=args.batch_size,
+    service = service_class(load_params(args.model, args.score_network),
+                            architecture=args.score_network, batch_size=args.batch_size,
                             noise_step_count=args.T, num_steps=args.sample_steps,
                             backend=backend, bf16=args.bf16, fast_f32=args.fast_f32,
                             seed=args.seed, device=device,

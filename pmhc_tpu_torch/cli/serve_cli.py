@@ -24,7 +24,9 @@ shape:
 Backends (``--backend``): ``auto`` / ``pallas_lane`` / ``g8``, the fused
 kernel; ``pallas``, the round-1 fused kernel; ``blockwise``, the
 online-softmax layer over neighbour blocks (plain PyTorch); ``xla``, the
-dense layer.
+dense layer. ``--score-network structure`` serves the second score
+network, ESMFold's structure module (``models/structure.py``), fp32 or
+``--bf16``, without ``--aot``.
 
 ``--aot FILE``: load the sampler artifact FILE (``pmhc_tpu_torch/aot.py``:
 its kernel libraries and weights) before the warm-up if it exists, its
@@ -86,6 +88,10 @@ def build_parser() -> ArgumentParser:
                    help="auto / pallas_lane / g8: the fused kernel; pallas: the "
                         "round-1 fused kernel (fp32 only); blockwise: the online-softmax "
                         "layer over neighbour blocks (fp32); xla: the dense layer")
+    p.add_argument("--score-network", default="egnn", choices=("egnn", "structure"),
+                   help="egnn: the published 2-layer EGNN; structure: ESMFold's structure "
+                        "module (invariant point attention; fp32 or --bf16, no --fast-f32, "
+                        "no --aot)")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mode of the fused kernel (auto / pallas_lane / g8 only)")
     p.add_argument("--fast-f32", action="store_true",
@@ -120,8 +126,11 @@ def create_server(args) -> ThreadingHTTPServer:
     from pmhc_tpu_torch.serve import BatchingSampler, Overloaded, SamplerService, frame_models
     from pmhc_tpu_torch.utils.profiling import counters
 
+    if args.score_network == "structure" and args.aot:
+        raise SystemExit("--aot holds the EGNN sampler: not with --score-network structure")
     service = SamplerService(
-        load_params(args.model),
+        load_params(args.model, args.score_network),
+        architecture=args.score_network,
         batch_size=args.batch_size,
         noise_step_count=args.T,
         num_steps=args.sample_steps,
@@ -148,7 +157,7 @@ def create_server(args) -> ThreadingHTTPServer:
     batcher = BatchingSampler(service, max_wait_ms=args.max_wait_ms, max_queue=max_queue)
     health = {
         "status": "ok",
-        "backend": service.backend,
+        "backend": service.backend or service.architecture,  # the structure network has none
         "batch_size": service.batch_size,
         "noise_step_count": args.T,
         "sample_steps": args.sample_steps or args.T,

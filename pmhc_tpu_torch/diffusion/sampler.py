@@ -28,7 +28,11 @@ bf16 halves and the projections stay IEEE fp32, what ``sample_lane``'s
 ``pallas`` backend runs the JAX package's generic sampler step, two
 ``ops/egnn_pallas.py`` launches per step, with its static context (packed
 weights, message mask, edge terms, the pocket halves of ``h_all``, ``q_j``
-and ``t_j``) built once.
+and ``t_j``) built once. The second score network, the structure module
+(``models/structure.py``, chosen by a ``StructureNetworkConfig``), builds
+its static context (z and the pocket rows' embeddings) once a batch and
+steps by the plain composition, its attention one ``ops/ipa_attention.py``
+launch a block; it runs on one device, not on a mesh.
 
 A step reads its model time and its six schedule scalars from tables on
 the device (``schedule.step_tables``) at a step counter kept there and
@@ -76,6 +80,12 @@ from pmhc_tpu_torch.models.score import (
     resolve_backend,
     score_network_forward,
 )
+from pmhc_tpu_torch.models.structure import (
+    StructureNetwork,
+    StructureNetworkConfig,
+    structure_context,
+    structure_trunk,
+)
 from pmhc_tpu_torch.ops import sampler_step
 from pmhc_tpu_torch.ops.egnn_fused import LayerContext, layer_context, mode_of
 from pmhc_tpu_torch.ops.egnn_pallas import pallas_context
@@ -93,13 +103,14 @@ from pmhc_tpu_torch.utils.profiling import span
 STEPS_PER_GRAPH = 10
 
 
-def model_time(backend: str, ts: np.ndarray, T: int) -> np.ndarray:
+def model_time(backend: str | None, ts: np.ndarray, T: int) -> np.ndarray:
     """The model input of each step's timestep, as the backend's forward
     computes it in fp32: t * (1/T) (fused, ``sample_lane``), t / T
-    (pallas, ``score_network_forward``), or t itself (dense)."""
+    (pallas, ``score_network_forward``; None, the structure network, which
+    has no EGNN backend), or t itself (dense)."""
     if backend == "fused":
         return ts.astype(np.float32) * np.float32(1.0 / T)
-    if backend == "pallas":
+    if backend in ("pallas", None):
         return ts.astype(np.float32) / np.float32(T)
     return ts
 
@@ -111,7 +122,8 @@ class Forward:
     tensor of its ``model_time``. ``static`` lists the device tensors the
     call reads besides its arguments (a captured step's static inputs)."""
 
-    def __init__(self, fn: Callable, static: Sequence[torch.Tensor], backend: str, T: int):
+    def __init__(self, fn: Callable, static: Sequence[torch.Tensor], backend: str | None,
+                 T: int):
         self.fn, self.static, self.backend, self.T = fn, list(static), backend, T
 
     def __call__(self, q, t, tors, x):
@@ -233,6 +245,24 @@ def pallas_forward(model: ScoreNetwork, batch: Dict[str, Any],
 
     return Forward(forward, [feats22, *ctx1.tensors(), *ctx2.tensors()], "pallas",
                    model_config.noise_step_count)
+
+
+def structure_forward(model: StructureNetwork, batch: Dict[str, Any],
+                      model_config: StructureNetworkConfig, bf16: bool) -> Forward:
+    """The structure network with its ``StructureContext`` built once;
+    ``bf16`` rounds its linears' operands to bf16."""
+    with torch.no_grad():
+        ctx = structure_context(model, batch, bf16)
+
+    def forward(q, t, tors, x):
+        return structure_trunk(model, ctx, q, t, x, bf16)
+
+    return Forward(forward, list(ctx), None, model_config.noise_step_count)
+
+
+def architecture_of(model_config) -> str:
+    """``"structure"`` for a ``StructureNetworkConfig``, else ``"egnn"``."""
+    return "structure" if isinstance(model_config, StructureNetworkConfig) else "egnn"
 
 
 def dense_forward(model: ScoreNetwork, batch: Dict[str, Any],
@@ -361,6 +391,10 @@ def sample(
     rows of a global batch split evenly over the mesh; the noise is drawn
     for the global batch and cut to the rows, and the ``cp`` / ``ring``
     layers split the neighbours over ``context`` (see ``sample_sharded``).
+
+    A ``StructureNetworkConfig`` runs the structure network
+    (``structure_forward``; ``bf16`` True rounds its linears' operands,
+    ``"high"`` raises), on one device only.
     """
     if injected_noise is None and generator is None:
         raise ValueError("sample needs a generator or injected_noise")
@@ -369,12 +403,20 @@ def sample(
     if graphs and injected_noise is not None:
         raise ValueError("injected noise runs eagerly: pass graphs=False")
     ts, sched = step_tables(config, num_steps, tables)
-    backend = resolve_backend(model_config.backend)
+    structure = architecture_of(model_config) == "structure"
+    if structure:
+        if mesh is not None:
+            raise ValueError("the structure network samples on one device: no mesh sampling")
+        if bf16 == "high":
+            raise ValueError("the structure network has no fast-f32 mode: fp32, or bf16")
+    backend = None if structure else resolve_backend(model_config.backend)
     xs = model_time(backend, ts, config.noise_step_count)
     # the fused backend's chain on the card steps by its kernels, from raw draws
     kernels = backend == "fused" and dev.type == "cuda" and injected_noise is None
 
     def build(b):
+        if structure:
+            return structure_forward(model, b, model_config, bool(bf16))
         if backend == "fused":
             return fused_forward(model, b, model_config, bf16)
         if backend == "pallas":
@@ -411,8 +453,8 @@ def sample(
             q, t, tors = chain.q, chain.t, chain.tors
         else:
             cache = GraphCache() if graph_cache is None else graph_cache
-            key = ("sample", id(model), backend,
-                   mode_of(bf16) if backend == "fused" else "fp32", config, model_config,
+            mode = mode_of(bf16) if structure or backend == "fused" else "fp32"
+            key = ("sample", id(model), backend, mode, config, model_config,
                    shape, tuple(batch["pocket_mask"].shape), ts.tobytes(), id(mesh))
             with span("sampler.context"):
                 entry = cache.get(key)
@@ -449,7 +491,10 @@ def make_sample_sharded(config: DiffusionConfig, model_config: ScoreNetworkConfi
     rank, samples this rank's ``data`` rows (``sample(..., mesh=mesh)``,
     its graphs kept between calls) and returns the global batch sampled,
     on every rank: the dense ``sample`` on the same batch and generator
-    state. The global batch must split evenly over ``data``."""
+    state. The global batch must split evenly over ``data``. The
+    structure network is refused: it samples on one device."""
+    if architecture_of(model_config) == "structure":
+        raise ValueError("the structure network samples on one device: no mesh sampling")
     if resolve_backend(model_config.backend) not in ("cp", "ring"):
         raise ValueError(
             "sharded sampling requires backend 'cp' or 'ring', got "

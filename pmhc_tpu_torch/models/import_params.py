@@ -65,10 +65,12 @@ def load_checkpoint(path: str, config: ScoreNetworkConfig = ScoreNetworkConfig()
     return model
 
 
-def load_params(model_path: str) -> Dict[str, torch.Tensor]:
+def load_params(model_path: str, architecture: str = "egnn") -> Dict[str, torch.Tensor]:
     """A ``state_dict``: from a reference-format ``.pth`` (strict), or the
     ``"model"`` of the latest step of a directory of the port's checkpoints
-    (``train/checkpoints.py``)."""
+    (``train/checkpoints.py``). For the ``"structure"`` network, the
+    ``.pth``'s ``state_dict`` as saved (``SamplerService`` loads it
+    strictly)."""
     from pmhc_tpu_torch.train.checkpoints import CheckpointManager
 
     if os.path.isdir(model_path):
@@ -77,4 +79,6 @@ def load_params(model_path: str) -> Dict[str, torch.Tensor]:
         state = manager.restore(step)
         _log.info("restored checkpoint at step %s", step)
         return state["model"]
+    if architecture == "structure":
+        return torch.load(model_path, map_location="cpu", weights_only=True)
     return load_checkpoint(model_path).state_dict()

@@ -55,12 +55,14 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from pmhc_tpu_torch.data.dataset import stack_proteins
 from pmhc_tpu_torch.data.synthetic import prepare_batch, synthetic_batch
 from pmhc_tpu_torch.diffusion import DiffusionConfig, ScheduleTables, gen_noise, sample
 from pmhc_tpu_torch.io.pdb import convert_batch_for_pdb, fetch_pdb_arrays, pdb_bytes
 from pmhc_tpu_torch.models.score import ScoreNetwork, ScoreNetworkConfig, resolve_backend
+from pmhc_tpu_torch.models.structure import StructureNetwork, StructureNetworkConfig
 from pmhc_tpu_torch.utils.graphs import GraphCache, use_graphs
 from pmhc_tpu_torch.utils.profiling import count, span
 
@@ -191,12 +193,20 @@ class SamplerService:
     on a CUDA device) runs the chain from CUDA graphs
     (``sampler.STEPS_PER_GRAPH`` steps a graph); ``False`` runs it eagerly
     (debugging, A/B).
+
+    ``architecture``: ``"egnn"`` (the default: the EGNN above) or
+    ``"structure"``, the structure network (``models/structure.py``;
+    ``params`` a ``StructureNetwork`` or its ``state_dict``), which takes
+    ``backend`` ``"auto"`` only (its ``backend`` attribute is None: it has
+    no EGNN layer backend), runs fp32 or, with ``bf16``, its linears'
+    operands rounded to bf16, and refuses ``fast_f32``.
     """
 
     def __init__(
         self,
-        params: ScoreNetwork | Mapping[str, torch.Tensor],
+        params: ScoreNetwork | StructureNetwork | Mapping[str, torch.Tensor],
         *,
+        architecture: str = "egnn",
         batch_size: int = 64,
         noise_step_count: int = 1000,
         num_steps: int | None = None,
@@ -213,20 +223,35 @@ class SamplerService:
         # fp32 path: no silent TF32 downgrade of torch.matmul or cuDNN
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.backend = resolve_backend(backend)
+        if architecture not in ("egnn", "structure"):
+            raise ValueError(f"unknown architecture {architecture!r}: 'egnn' or 'structure'")
+        self.architecture = architecture
         self.batch_size = int(batch_size)
-        self.model_config = ScoreNetworkConfig(
-            noise_step_count=noise_step_count, backend=self.backend)
+        if architecture == "structure":
+            if fast_f32:
+                raise ValueError("the structure network has no fast-f32 mode: fp32, or --bf16")
+            if resolve_backend(backend) != "fused":
+                raise ValueError(f"the structure network has one backend ('auto'), not {backend!r}")
+            self.backend = None  # the EGNN's layer backend: the structure network has none
+            self.model_config = StructureNetworkConfig(noise_step_count=noise_step_count)
+            network = StructureNetwork
+        else:
+            self.backend = resolve_backend(backend)
+            self.model_config = ScoreNetworkConfig(
+                noise_step_count=noise_step_count, backend=self.backend)
+            network = ScoreNetwork
         self.diffusion_config = DiffusionConfig(noise_step_count=noise_step_count)
         self.tables = ScheduleTables(self.diffusion_config)
         self.bf16 = bool(bf16)
         self.fast_f32 = bool(fast_f32)
         # the kernel mode in the JAX package's convention (mode_of)
         self.mode = True if self.bf16 else "high" if self.fast_f32 else False
-        if isinstance(params, ScoreNetwork):
+        if isinstance(params, nn.Module):
+            if not isinstance(params, network):
+                raise TypeError(f"a {type(params).__name__} for architecture {architecture!r}")
             model = params
         else:
-            model = ScoreNetwork(self.model_config)
+            model = network(self.model_config)
             model.load_state_dict(params, strict=True)
         self.model = model.to(self.device).eval()
         self.num_steps = num_steps
@@ -237,7 +262,10 @@ class SamplerService:
     def precision(self) -> str:
         """The precision the layers run at, named as the JAX server's
         ``/healthz`` names it: ``"bf16"`` or ``"fast-f32"`` only for the
-        fused backend asked for it, else ``"f32"``."""
+        fused backend (or the structure network) asked for it, else
+        ``"f32"``."""
+        if self.architecture == "structure":
+            return "bf16" if self.bf16 else "f32"
         if self.backend != "fused":
             return "f32"
         return {True: "bf16", "high": "fast-f32", False: "f32"}[self.mode]

@@ -62,6 +62,25 @@ def forward_flops(B, I=64, M=64):  # noqa: E741 (the reference's name)
     return layer_flops(B, H=23, T=T, M=M, O=I) + layer_flops(B, H=I, T=T, M=M, O=1)
 
 
+def ipa_attention_bound(B: int, L: int = 96) -> Dict[str, Any]:
+    """One launch of the IPA attention kernel (``ops/ipa_attention.py``)
+    over B complexes of L rows at its compiled widths: its FLOPs (the pair
+    bias z . w_b, q . k, 9 a query/key point pair, a . v, a . v_pts, a . z,
+    and o_pt back into frame i), its logical bytes (z, q, k, v, the points,
+    frames and mask read once, the output written once, the weights), and
+    the least time, the larger of the two at the fp32 and HBM peaks."""
+    from pmhc_tpu_torch.ops.ipa_attention import HEADS as H, HIDDEN as C, OUT, PAIR as Cz, \
+        QK_POINTS as Pq, V_POINTS as Pv
+
+    pair = 2 * H * Cz + 2 * H * C + 9 * H * Pq + 2 * H * C + 2 * H * Pv * 3 + 2 * H * Cz
+    flops = B * (L * L * pair + L * 18 * H * Pv)
+    per_row = H * C + 2 * H * C + H * Pq * 3 + H * (Pq + Pv) * 3 + 9 + 3 + 1 + OUT
+    nbytes = 4 * (B * L * L * Cz + B * L * per_row + H * Cz + 2 * H)
+    by = "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_FP32 else "flops"
+    return {"flops": flops, "bytes": nbytes, "bound_by": by,
+            "bound_s": max(flops / PEAK_FP32, nbytes / PEAK_BYTES)}
+
+
 def achieved(kind: str, batch: int, per_sec: float, precision: str, I=64, M=64) -> Dict[str, Any]:
     """TFLOP/s and share of the precision's peak of ``per_sec`` train steps
     (``kind="train"``) or sampler steps (``"sample"``) at ``batch``."""

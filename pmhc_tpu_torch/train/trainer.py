@@ -425,6 +425,11 @@ class Trainer:
                  bf16: bool = False, fast_f32: bool = False, device=None,
                  graphs: bool | None = None, mesh=None, tensor_parallel: bool = False,
                  context_parallel: bool = False):
+        from pmhc_tpu_torch.models.structure import StructureNetwork, StructureNetworkConfig
+
+        if isinstance(model_config, StructureNetworkConfig) or isinstance(params,
+                                                                          StructureNetwork):
+            raise ValueError("the structure network samples only: the Trainer trains the EGNN")
         backend = resolve_backend(model_config.backend)
         self.forward_config = model_config
         if context_parallel and tensor_parallel:

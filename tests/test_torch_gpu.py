@@ -35,7 +35,11 @@ dense one: ``TRAJ_TOL``. The sampler step's two kernels against their
 plain versions: ``SAMPLER_STEP_TOL``; the fused chain they step against
 the plain composition's (the body before them): ``TRAJ_TOL``, a T = 12
 chain end to end and a T = 1000 chain per 10-step segment from the same
-state (whole float32 chains drift apart on summation order alone).
+state (whole float32 chains drift apart on summation order alone). The
+structure network's IPA attention kernel against its plain version at
+batch 64, L = 96 and 90: ``IPA_TOL`` of each output part's largest
+magnitude on the real query rows; its chain from graphs against the
+eager one: ``TRAJ_TOL``.
 """
 
 import numpy as np
@@ -44,6 +48,7 @@ import torch
 
 from chip_smoke import (
     GRAPH_TRAIN_TOL,
+    IPA_TOL,
     LOOP_TOL,
     PALLAS_TOL,
     SAMPLER_STEP_TOL,
@@ -51,6 +56,8 @@ from chip_smoke import (
     TRAJ_TOL,
     change_close,
     change_errors,
+    ipa_case,
+    ipa_errors,
     layer_case,
     loop_case,
     loop_errors,
@@ -78,6 +85,7 @@ from pmhc_tpu_torch.models import ScoreNetworkConfig
 from pmhc_tpu_torch.ops import egnn_fused as ef
 from pmhc_tpu_torch.ops import egnn_loop as el
 from pmhc_tpu_torch.ops import egnn_pallas as ep
+from pmhc_tpu_torch.ops import ipa_attention as ia
 from pmhc_tpu_torch.ops import sampler_step as ss
 from pmhc_tpu_torch.serve import SamplerService, dummy_entry
 from pmhc_tpu_torch.train import TrainConfig, Trainer
@@ -737,3 +745,58 @@ def test_mesh_dp_and_cp_match_one_card():
     _card()
     world = torch.cuda.device_count()
     spawn(_mesh_dp_cp, world, args=(world,), device="cuda", timeout=600)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [96, 90])
+def test_ipa_attention_kernel_matches_plain(rows):
+    """The IPA attention kernel at batch 64 (padded rows and keys) and a
+    ragged L = 90 against ``ipa_attention_plain``."""
+    dev = _card()
+    args = ipa_case(seed=rows, device=dev, rows=rows)
+    got = ia.ipa_attention(*args)
+    want = ia.ipa_attention_plain(*args)
+    torch.cuda.synchronize()
+    errs = ipa_errors(got, want, args[6])
+    assert all(e <= IPA_TOL for e in errs.values()), errs
+
+
+def _structure_service(graphs, num_steps=None):
+    from pmhc_tpu_torch.models.structure import StructureNetwork
+
+    model = StructureNetwork(generator=torch.Generator().manual_seed(3))
+    return SamplerService(model, architecture="structure", batch_size=64, noise_step_count=1000,
+                          num_steps=num_steps, seed=7, graphs=graphs)
+
+
+@pytest.mark.gpu
+def test_structure_graphed_chain_matches_eager_and_counts_launches():
+    """The structure network's 20-step strided chain from CUDA graphs
+    against the eager chain from the same generator (``TRAJ_TOL``), the IPA
+    attention kernel launched 8 times a step either way and no EGNN kernel."""
+    _card()
+    entries = [request_entry(seed=400 + i) for i in range(64)]
+    out = {}
+    for graphs in (True, False):
+        svc = _structure_service(graphs, num_steps=20)
+        for mod in (ia, ef, ss):
+            mod.reset_launches()
+        handle = svc.dispatch(entries, svc.batch_generator(2))
+        handle.wait()
+        assert ia.LAUNCHES["f32"] == 8 * 20
+        assert sum(ef.LAUNCHES.values()) == 0 and sum(ss.LAUNCHES.values()) == 0
+        out[graphs] = handle.conv
+    for name, tol in (("quats", TRAJ_TOL["q"]), ("trans", TRAJ_TOL["t"]), ("atom14", TRAJ_TOL["t"])):
+        assert float((out[True][name] - out[False][name]).abs().max()) <= tol, name
+
+
+@pytest.mark.gpu
+def test_ipa_launches_are_zero_on_the_egnn_paths():
+    """The EGNN's fused, pallas and dense chains launch no IPA attention kernel."""
+    dev = _card()
+    model = random_model(seed=0).to(dev)
+    for backend in ("auto", "pallas", "xla"):
+        ia.reset_launches()
+        svc = SamplerService(model, batch_size=4, noise_step_count=20, backend=backend, seed=1)
+        svc.sample_entries([dummy_entry(seed=1)])
+        assert ia.LAUNCHES["f32"] == 0, backend

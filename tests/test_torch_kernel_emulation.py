@@ -24,7 +24,12 @@ tiles per query row (NP = 136, batch 2);
 kernel #3 runs blocks that cross a batch element (batch 2) and a ragged
 NP = 90. The sampler step's two kernels (``csrc/sampler_step.cu``) run at
 N = 16, P = 8 against their plain versions within ``SAMPLER_STEP_TOL``.
-Skips without g++.
+The IPA attention kernel (``csrc/ipa_attention.cu``) runs at B = 2, L = 24
+with padded rows and keys and at L = 136 (the logits' threads take a
+second key row past 128) against its plain version within ``IPA_TOL`` (a
+share of each output part's largest magnitude on the real query rows:
+fp32 sums in another order, FMA-contracted; ~1e-6 measured). Skips
+without g++.
 """
 
 import numpy as np
@@ -32,10 +37,13 @@ import pytest
 import torch
 
 from chip_smoke import (
+    IPA_TOL,
     LOOP_TOL,
     PALLAS_TOL,
     SAMPLER_STEP_TOL,
     TOL,
+    ipa_case,
+    ipa_errors,
     layer_case,
     loop_case,
     loop_errors,
@@ -54,6 +62,7 @@ from pmhc_tpu_torch.ops import _emulate
 from pmhc_tpu_torch.ops import egnn_fused as ef
 from pmhc_tpu_torch.ops import egnn_loop as el
 from pmhc_tpu_torch.ops import egnn_pallas as ep
+from pmhc_tpu_torch.ops import ipa_attention as ia
 from pmhc_tpu_torch.ops import sampler_step as ss
 
 torch.set_num_threads(1)
@@ -349,3 +358,18 @@ def test_sampler_step_emulated_matches_plain(batch_size, k, mode):
                                lambda *a: ss.launch_step(lib, *a))
     for name, err in errs.items():
         assert err <= SAMPLER_STEP_TOL[name], (name, err)
+
+
+@pytest.mark.parametrize("rows", [24, 136])
+def test_ipa_attention_emulated_matches_plain(rows):
+    """``csrc/ipa_attention.cu`` at B = 2 (row 1's keys from 20 on padding)
+    against ``ipa_attention_plain``: every output part of the real query
+    rows within ``IPA_TOL`` of its largest magnitude."""
+    lib = _lib("ipa_attention", ia.bind)
+    args = list(ipa_case(seed=rows, device=CPU, batch_size=2, rows=rows))
+    args[6] = args[6].clone()
+    args[6][1, 20:] = 0.0
+    out = torch.empty(2, rows, ia.OUT)
+    ia.launch(lib, *args, out, 1e5, 1e-8)
+    errs = ipa_errors(out, ia.ipa_attention_plain(*args), args[6])
+    assert all(e <= IPA_TOL for e in errs.values()), errs
